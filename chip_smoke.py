@@ -1,0 +1,358 @@
+#!/usr/bin/env python
+"""Smoke run of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernel from `rustsasa_tpu_torch/ops/csrc/` and runs
+four phases, each of which must pass:
+
+  1. build: nvcc for sm_90a, with the compiler's register/spill report;
+  2. kernel vs plain: one real q13 chunk of up to 524,288 slots from the
+     corpus below, counted by the CUDA kernel and by its plain-torch
+     version on the same device tensors; counts must be byte-equal at every
+     real atom slot; both timed with CUDA events after a warm launch;
+  3. golden: example.cif per-atom SASA within 25 A^2 of the stored golden
+     array (tests/test_golden.py) and the protein total within 1500 of
+     20268; a 3-file directory batch gives byte-identical JSON on CUDA
+     and on the CPU (plain-torch kernels);
+  4. main path: `process_directory` at residue level, JSON output, on
+     CUDA, over a corpus built by bench.py's rule (the 88 FreeSASA test
+     structures cycled to >= 4,400 files and >= 10.7M atoms), one warm and
+     one timed pass; every file must succeed and the kernel's launch count
+     in the timed pass must equal the chunks the engine dispatched.
+
+Prints the card's name and power limit, one JSON line with the kernel's
+numbers, and as its last line
+    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
+Exits non-zero, printing no result, when CUDA is unavailable or any phase
+fails.  Everything it writes goes under build/chip_smoke/.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+SOURCE_DIR = os.path.join(ROOT, "tests", "data", "freesasa_pdbs")
+EXAMPLE = os.path.join(ROOT, "tests", "data", "pdbs", "example.cif")
+GOLDEN = os.path.join(ROOT, "tests", "data", "golden_example_atom_sasa.npy")
+TARGET_FILES = 4400
+TARGET_ATOMS = 10_700_000
+CHECK_CHUNK_SLOTS = 524_288
+KERNEL_SOURCE = "rustsasa_tpu_torch/ops/csrc/fused_count.cu"
+KERNEL_REPLACES = "rustsasa_tpu/ops/fused_kernel.py:131"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def build_corpus(corpus_dir, target_files=TARGET_FILES,
+                 target_atoms=TARGET_ATOMS):
+    """bench.py's corpus rule: cycle the largest ascending-size prefix of
+    the source structures whose mean atom count stays at or under the
+    proteome's (10.7M / 4,400), as symlinks, until both targets are met."""
+    from rustsasa_tpu_torch._host.io.read import read_structure
+
+    files = sorted(
+        os.path.join(SOURCE_DIR, f) for f in os.listdir(SOURCE_DIR)
+        if f.endswith((".pdb", ".cif", ".pdb.gz", ".cif.gz"))
+    )
+    sizes = {f: read_structure(f).n_atoms() for f in files}
+    target_mean = target_atoms / target_files
+    prefix, total = [], 0
+    for f in sorted(files, key=lambda f: sizes[f]):
+        if prefix and (total + sizes[f]) / (len(prefix) + 1) > target_mean:
+            break
+        prefix.append(f)
+        total += sizes[f]
+    if os.path.isdir(corpus_dir):
+        shutil.rmtree(corpus_dir)
+    os.makedirs(corpus_dir)
+    count = n_atoms = 0
+    while count < target_files or n_atoms < target_atoms:
+        f = prefix[count % len(prefix)]
+        # "1jcd.pdb.gz" -> "1jcd_00005.pdb.gz": every copy gets its own
+        # output file (bench.py's "1jcd.pdb_00005.gz" copies all write
+        # 1jcd.json).
+        base = os.path.basename(f)
+        stem = base.split(".")[0]
+        os.symlink(f, os.path.join(
+            corpus_dir, f"{stem}_{count:05d}{base[len(stem):]}"
+        ))
+        n_atoms += sizes[f]
+        count += 1
+    return count, n_atoms, len(prefix)
+
+
+def corpus_chunk(corpus_dir, slots):
+    """Selected (coords, radii, gids) of the corpus's first files, in
+    directory order, filling at most `slots` atom slots."""
+    from rustsasa_tpu_torch._host.native import native_process_file
+
+    triples, used = [], 0
+    for name in sorted(os.listdir(corpus_dir)):
+        ns = native_process_file(
+            os.path.join(corpus_dir, name), level="residue",
+            include_hydrogens=False, include_hetatms=False,
+            read_radii_from_occupancy=False, allow_vdw_fallback=False,
+        )
+        n_slots = -(-max(ns.coords.shape[0], 1) // 128) * 128
+        if used + n_slots > slots:
+            ns.close()
+            break
+        triples.append((ns.coords.copy(), ns.radii.copy(), ns.gids.copy()))
+        ns.close()
+        used += n_slots
+    return triples
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds of `fn()` over `reps` runs, after one warm run."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps, out
+
+
+def phase_build():
+    from rustsasa_tpu_torch.ops import _kernels
+
+    info = _kernels.build()
+    log(f"[build] {KERNEL_SOURCE} -> {os.path.relpath(info.path, ROOT)} "
+        f"in {info.seconds:.1f}s (nvcc {' '.join(_kernels.NVCC_FLAGS)})")
+    regs = [int(w) for w in re.findall(r"Used (\d+) registers", info.log)]
+    spills = [int(w) for w in re.findall(r"(\d+) bytes spill", info.log)]
+    if not regs:
+        raise AssertionError(f"no ptxas report in the build log:\n{info.log}")
+    log(f"[build] {len(regs)} kernel instantiations, {min(regs)}-{max(regs)} "
+        f"registers/thread, {sum(spills)} bytes spilled")
+
+
+def phase_kernel_vs_plain(corpus_dir, device):
+    """Kernel and plain version on one real chunk; returns the kernel's
+    JSON record (launches filled in later)."""
+    import numpy as np
+    import torch
+
+    from rustsasa_tpu_torch.ops import engine, fused_kernel as fk
+
+    triples = corpus_chunk(corpus_dir, CHECK_CHUNK_SLOTS)
+    wa, wb, pal, tp, tm, offsets = fk.pack_structures_q13(triples, 1.4)
+    m = wa.shape[0]
+    max_nt = max(-(-t[0].shape[0] // 128) for t in triples)
+    w = next(b for b in fk.W_BUCKETS if b >= max_nt)
+    wire = fk.to_device((wa, wb, pal, tp, tm), device)
+    sphere = engine._sphere_device(100, device)
+    h2d_ms, _ = cuda_ms(
+        lambda: fk.to_device((wa, wb, pal, tp, tm), device), 3
+    )
+    deq_ms, (planes, qvalid) = cuda_ms(lambda: fk.dequant_q13(*wire[:4]), 3)
+    cull_ms, jlist = cuda_ms(
+        lambda: fk.build_jlist_banded(planes, qvalid, wire[4], w=w), 3
+    )
+    kernel_ms, got = cuda_ms(lambda: fk.fused_counts(planes, jlist, sphere), 10)
+    plain_ms, want = cuda_ms(
+        lambda: fk.fused_counts_reference(planes, jlist, sphere), 1
+    )
+    real = torch.zeros(m, dtype=torch.bool, device=device)
+    for pos, n, _inv in offsets:
+        real[pos:pos + n] = True
+    diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    max_err = int(diff[real].max())
+    all_equal = bool(torch.equal(got, want))
+    n_atoms = sum(t[0].shape[0] for t in triples)
+    j_per_tile = float(jlist[:, 0].double().mean())
+    # Work the kernel does: every admitted 8-atom group x 128 i-atoms x
+    # the padded sphere, 7 FP32 instructions per margin.
+    ent = jlist[:, 1:].to(torch.int64) & 0xFFFFFFFF
+    live = torch.arange(ent.shape[1], device=device) < jlist[:, 0:1]
+    masks = (ent >> 16) * live
+    groups = int(((masks[..., None] >> torch.arange(16, device=device)) & 1).sum())
+    margins = groups * 8 * 128 * sphere.shape[0]
+    rate = 7 * margins / (kernel_ms * 1e-3)
+    log(f"[kernel] chunk: {len(triples)} structures, {n_atoms} atoms, "
+        f"{m} slots ({m // 128} tiles), w={w}, full chunk on both sides, "
+        f"{j_per_tile:.2f} j-tiles/tile, {groups * 8 / (m // 128):.1f} "
+        f"admitted j-atoms/tile")
+    log(f"[kernel] fused_count {kernel_ms:.3f} ms, plain torch "
+        f"{plain_ms:.3f} ms; max |diff| at real slots {max_err}, "
+        f"all slots equal: {all_equal}")
+    log(f"[kernel] {margins / 1e9:.3f}G margins x 7 FP32 instructions = "
+        f"{rate / 1e12:.2f}T instructions/s")
+    log(f"[kernel] same chunk, other stages: h2d (pinned) {h2d_ms:.3f} ms, "
+        f"dequant {deq_ms:.3f} ms, banded cull {cull_ms:.3f} ms")
+    if max_err != 0:
+        raise AssertionError(f"kernel disagrees with plain at real slots: {max_err}")
+    if not np.isfinite(kernel_ms) or int(got[real].min()) < 0:
+        raise AssertionError("kernel produced no valid counts")
+    return {
+        "name": "fused_count", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES, "launches": None,
+        "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+    }
+
+
+def phase_golden(device, sample_dir, work):
+    import numpy as np
+
+    from rustsasa_tpu_torch import (
+        BatchedSasaEngine, Level, SASAOptions, SasaParams,
+        calculate_sasa_internal, process_directory, read_structure,
+    )
+    from rustsasa_tpu_torch._host.radii import get_vdw_radius
+
+    s = read_structure(EXAMPLE)
+    t = s.atoms
+    order = list(s.iter_hierarchy_atom_indices())
+    radii = np.array([get_vdw_radius(t.element[i]) for i in order], np.float32)
+    sasa = calculate_sasa_internal(
+        t.coords[order], radii, group_ids=t.serial[order], probe_radius=1.4,
+        n_points=100, device=device,
+    )
+    golden = np.load(GOLDEN)
+    err = np.abs(sasa - golden)
+    total = SASAOptions.protein_level().process(s).protein.global_total
+    log(f"[golden] example.cif per-atom max |diff| {err.max():.3f} A^2 "
+        f"(mean {err.mean():.4f}, limit 25); protein total {total:.1f} "
+        f"(20268.0 +- 1500)")
+    if sasa.shape != golden.shape or not err.max() <= 25.0:
+        raise AssertionError("example.cif per-atom SASA outside tolerance")
+    if not abs(total - 20268.004) <= 1500.0:
+        raise AssertionError(f"protein total {total} outside tolerance")
+
+    outs = {}
+    for dev in (device, "cpu"):
+        out_dir = os.path.join(work, f"sample_out_{dev}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        rep = process_directory(
+            sample_dir, out_dir, SASAOptions(level=Level.RESIDUE), "json",
+            progress=False, engine=BatchedSasaEngine(SasaParams(), device=dev),
+        )
+        if rep.errors or rep.n_ok != rep.n_files:
+            raise AssertionError(f"sample batch on {dev}: {rep.errors[:3]}")
+        outs[dev] = {
+            f: open(os.path.join(out_dir, f), "rb").read()
+            for f in sorted(os.listdir(out_dir))
+        }
+    if outs[device] != outs["cpu"]:
+        raise AssertionError("CUDA and CPU batch outputs differ")
+    log(f"[golden] {len(outs['cpu'])}-file residue batch: CUDA output "
+        f"byte-identical to the CPU plain-torch output")
+
+
+def phase_main_path(corpus_dir, n_files, n_atoms, device, work):
+    from rustsasa_tpu_torch import (
+        BatchedSasaEngine, Level, SASAOptions, SasaParams, process_directory,
+    )
+    from rustsasa_tpu_torch._host.native import pipe_library
+    from rustsasa_tpu_torch.ops import _kernels
+
+    route = "native C++" if pipe_library() is not None else "Python"
+    options = SASAOptions(level=Level.RESIDUE)
+    results = {}
+    for name in ("warm", "timed"):
+        out_dir = os.path.join(work, f"out_{name}")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        engine = BatchedSasaEngine(SasaParams(), device=device)
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        report = process_directory(
+            corpus_dir, out_dir, options, "json", progress=False,
+            engine=engine,
+        )
+        elapsed = time.perf_counter() - t0
+        launches = _kernels.launch_counts["fused_count"]
+        log(f"[main] {name} pass: {report.n_ok}/{report.n_files} files, "
+            f"{n_atoms} atoms in {elapsed:.3f}s "
+            f"({n_atoms / elapsed / 1e6:.3f} Matoms/s); host route {route}; "
+            f"{engine.chunks_dispatched} chunks dispatched, "
+            f"{launches} fused_count launches; errors {len(report.errors)}")
+        for e in report.errors[:5]:
+            log(f"[main]   error: {e}")
+        if report.n_ok != n_files or report.n_files != n_files:
+            raise AssertionError(f"{name}: {report.n_ok}/{n_files} files ok")
+        if launches != engine.chunks_dispatched or launches == 0:
+            raise AssertionError(
+                f"{name}: {launches} launches for "
+                f"{engine.chunks_dispatched} chunks"
+            )
+        if not report.total_area > 0.0:
+            raise AssertionError(f"{name}: total area {report.total_area}")
+        results[name] = (report, launches)
+    outputs = sorted(os.listdir(os.path.join(work, "out_timed")))
+    if len(outputs) != n_files:
+        raise AssertionError(f"{len(outputs)} outputs for {n_files} files")
+    with open(os.path.join(work, "out_timed", outputs[0]), encoding="utf-8") as f:
+        doc = json.load(f)
+    if not doc:
+        raise AssertionError(f"empty output {outputs[0]}")
+    return results["timed"][1]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"[device] {smi}")
+    log(f"[device] python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    phase_build()
+    corpus_dir = os.path.join(WORK, "corpus")
+    t0 = time.perf_counter()
+    n_files, n_atoms, n_distinct = build_corpus(corpus_dir)
+    log(f"[corpus] {n_files} files, {n_atoms} atoms ({n_distinct} distinct "
+        f"structures) built in {time.perf_counter() - t0:.1f}s")
+    if n_files < TARGET_FILES or n_atoms < TARGET_ATOMS:
+        raise AssertionError("corpus below the proteome-equivalent size")
+    sample_dir = os.path.join(WORK, "sample")
+    shutil.rmtree(sample_dir, ignore_errors=True)
+    os.makedirs(sample_dir)
+    for name in sorted(os.listdir(corpus_dir))[:3]:
+        os.symlink(os.path.realpath(os.path.join(corpus_dir, name)),
+                   os.path.join(sample_dir, name))
+
+    record = phase_kernel_vs_plain(corpus_dir, device)
+    phase_golden(device, sample_dir, WORK)
+    record["launches"] = phase_main_path(
+        corpus_dir, n_files, n_atoms, device, WORK
+    )
+    log(smi)
+    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

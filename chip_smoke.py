@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from `rustsasa_tpu_torch/ops/csrc/` and runs
-four phases, each of which must pass:
+Builds the port's CUDA kernels from `rustsasa_tpu_torch/ops/csrc/` and
+runs seven phases, each of which must pass:
 
-  1. build: nvcc for sm_90a, with the compiler's register/spill report;
-  2. kernel vs plain: one real q13 chunk of up to 524,288 slots from the
-     corpus below, counted by the CUDA kernel and by its plain-torch
+  1. build: nvcc for sm_90a, one process per kernel source, all started
+     together, with the compiler's register/spill report;
+  2. count kernel vs plain: one real q13 chunk of up to 524,288 slots from
+     the corpus below, counted by the CUDA kernel and by its plain-torch
      version on the same device tensors; counts must be byte-equal at every
      real atom slot; both timed with CUDA events after a warm launch;
   3. golden: example.cif per-atom SASA within 25 A^2 of the stored golden
@@ -18,10 +19,22 @@ four phases, each of which must pass:
   4. main path: `process_directory` at residue level, JSON output, on
      CUDA, over a corpus built by bench.py's rule (the 88 FreeSASA test
      structures cycled to >= 4,400 files and >= 10.7M atoms), one warm and
-     one timed pass; every file must succeed and the kernel's launch count
-     in the timed pass must equal the chunks the engine dispatched.
+     one timed pass; every file must succeed and the count kernel's launch
+     count in the timed pass must equal the chunks the engine dispatched;
+  5. list kernel vs plain: the neighbor phase's records for 1jz8 (the
+     largest test structure) at 100 points, through the list-occlusion
+     kernel and its plain-torch version; byte-equal, both timed;
+  6. list path: `calculate_sasa_internal(backend="list")` on example.cif
+     against the golden array and protein total, and the closed-form cases
+     of tests/test_sanity.py at 50,000 points within 0.5 %; the list
+     kernel must launch and the count kernel must not;
+  7. host-cull wires: `process_directory` over all 88 FreeSASA structures
+     on CUDA, with the chunks of each route counted (the three largest
+     need the host-cull wires or the list path); their JSON is
+     byte-identical to the CPU's; a shared-group-id structure through the
+     f32 wire equals the CPU result exactly.
 
-Prints the card's name and power limit, one JSON line with the kernel's
+Prints the card's name and power limit, one JSON line with both kernels'
 numbers, and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
@@ -31,6 +44,7 @@ fails.  Everything it writes goes under build/chip_smoke/.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -46,8 +60,14 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "golden_example_atom_sasa.npy")
 TARGET_FILES = 4400
 TARGET_ATOMS = 10_700_000
 CHECK_CHUNK_SLOTS = 524_288
-KERNEL_SOURCE = "rustsasa_tpu_torch/ops/csrc/fused_count.cu"
-KERNEL_REPLACES = "rustsasa_tpu/ops/fused_kernel.py:131"
+KERNELS = {
+    "fused_count": ("rustsasa_tpu_torch/ops/csrc/fused_count.cu",
+                    "rustsasa_tpu/ops/fused_kernel.py:131"),
+    "list_occlusion": ("rustsasa_tpu_torch/ops/csrc/list_occlusion.cu",
+                       "rustsasa_tpu/ops/pallas_kernel.py:41"),
+}
+LARGEST = ("1hbn.pdb.gz", "1n62.pdb.gz", "1jz8.pdb.gz")
+PROBE = 1.4
 
 
 def log(msg: str) -> None:
@@ -92,26 +112,43 @@ def build_corpus(corpus_dir, target_files=TARGET_FILES,
     return count, n_atoms, len(prefix)
 
 
+def select(path):
+    """Residue-level selection of one file, as process_directory makes it:
+    (coords, radii, gids)."""
+    from rustsasa_tpu_torch._host.native import native_process_file
+
+    ns = native_process_file(
+        path, level="residue", include_hydrogens=False,
+        include_hetatms=False, read_radii_from_occupancy=False,
+        allow_vdw_fallback=False,
+    )
+    try:
+        return ns.coords.copy(), ns.radii.copy(), ns.gids.copy()
+    finally:
+        ns.close()
+
+
 def corpus_chunk(corpus_dir, slots):
     """Selected (coords, radii, gids) of the corpus's first files, in
     directory order, filling at most `slots` atom slots."""
-    from rustsasa_tpu_torch._host.native import native_process_file
-
     triples, used = [], 0
     for name in sorted(os.listdir(corpus_dir)):
-        ns = native_process_file(
-            os.path.join(corpus_dir, name), level="residue",
-            include_hydrogens=False, include_hetatms=False,
-            read_radii_from_occupancy=False, allow_vdw_fallback=False,
-        )
-        n_slots = -(-max(ns.coords.shape[0], 1) // 128) * 128
+        t = select(os.path.join(corpus_dir, name))
+        n_slots = -(-max(t[0].shape[0], 1) // 128) * 128
         if used + n_slots > slots:
-            ns.close()
             break
-        triples.append((ns.coords.copy(), ns.radii.copy(), ns.gids.copy()))
-        ns.close()
+        triples.append(t)
         used += n_slots
     return triples
+
+
+def record(name, launches, max_err, ms, plain_ms):
+    source, replaces = KERNELS[name]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, "max_abs_err": max_err,
+        "ms": ms, "plain_ms": plain_ms,
+    }
 
 
 def cuda_ms(fn, reps):
@@ -133,15 +170,17 @@ def cuda_ms(fn, reps):
 def phase_build():
     from rustsasa_tpu_torch.ops import _kernels
 
-    info = _kernels.build()
-    log(f"[build] {KERNEL_SOURCE} -> {os.path.relpath(info.path, ROOT)} "
-        f"in {info.seconds:.1f}s (nvcc {' '.join(_kernels.NVCC_FLAGS)})")
-    regs = [int(w) for w in re.findall(r"Used (\d+) registers", info.log)]
-    spills = [int(w) for w in re.findall(r"(\d+) bytes spill", info.log)]
-    if not regs:
-        raise AssertionError(f"no ptxas report in the build log:\n{info.log}")
-    log(f"[build] {len(regs)} kernel instantiations, {min(regs)}-{max(regs)} "
-        f"registers/thread, {sum(spills)} bytes spilled")
+    for name, info in _kernels.build().items():
+        log(f"[build] {KERNELS[name][0]} -> "
+            f"{os.path.relpath(info.path, ROOT)} in {info.seconds:.1f}s "
+            f"(nvcc {' '.join(_kernels.NVCC_FLAGS)})")
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", info.log)]
+        spills = [int(w) for w in re.findall(r"(\d+) bytes spill", info.log)]
+        if not regs:
+            raise AssertionError(f"no ptxas report for {name}:\n{info.log}")
+        log(f"[build] {name}: {len(regs)} kernel instantiations, "
+            f"{min(regs)}-{max(regs)} registers/thread, {sum(spills)} bytes "
+            f"spilled")
 
 
 def phase_kernel_vs_plain(corpus_dir, device):
@@ -201,11 +240,7 @@ def phase_kernel_vs_plain(corpus_dir, device):
         raise AssertionError(f"kernel disagrees with plain at real slots: {max_err}")
     if not np.isfinite(kernel_ms) or int(got[real].min()) < 0:
         raise AssertionError("kernel produced no valid counts")
-    return {
-        "name": "fused_count", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": None,
-        "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-    }
+    return record("fused_count", None, max_err, kernel_ms, plain_ms)
 
 
 def phase_golden(device, sample_dir, work):
@@ -305,6 +340,216 @@ def phase_main_path(corpus_dir, n_files, n_atoms, device, work):
     return results["timed"][1]
 
 
+def phase_list_kernel(device):
+    """Kernel 2 and its plain version on the neighbor phase's records for
+    the largest test structure; returns its JSON record."""
+    import torch
+
+    from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
+
+    coords, radii, gids = select(os.path.join(SOURCE_DIR, LARGEST[-1]))
+    n = coords.shape[0]
+    n_pad = neighbors._round_bucket(n, neighbors._N_BUCKETS)
+    packed, g = (torch.from_numpy(a[0]).to(device)
+                 for a in engine._pack(n_pad, [(coords, radii, gids)]))
+    k = neighbors._initial_k(n_pad)
+    t0 = time.perf_counter()
+    while True:
+        v, limit, counts, mc = neighbors._neighbor_phase(
+            packed, g, probe=PROBE, k=k
+        )
+        if int(mc) <= k:
+            break
+        k = min(neighbors._round_bucket(int(mc), neighbors._K_BUCKETS), n_pad)
+    torch.cuda.synchronize()
+    nbr_s = time.perf_counter() - t0
+    area = neighbors._area_factor(packed[:, 3], g >= 0, PROBE, 100)
+    kmax = neighbors.tile_kmax(counts, limit.shape[1])
+    planes = [t.T.contiguous() for t in (v[..., 0], v[..., 1], v[..., 2],
+                                        limit)]
+    sphere = engine._sphere_device(100, device)
+    kernel_ms, got = cuda_ms(
+        lambda: _kernels.list_occlusion(*planes, area, sphere, kmax), 20
+    )
+    plain_ms, want = cuda_ms(
+        lambda: neighbors.occlusion_sasa_reference(
+            *planes, area, sphere, kmax), 3
+    )
+    max_err = float((got - want).abs().max())
+    equal = bool(torch.equal(got, want))
+    kdim = limit.shape[1]
+    log(f"[list-kernel] {LARGEST[-1]}: {n} atoms, N={n_pad} slots, "
+        f"K={kdim} (max candidates {int(mc)}), P={sphere.shape[0]}, mean "
+        f"tile bound {float(kmax.double().mean()):.1f}; neighbor phase "
+        f"{nbr_s * 1e3:.1f} ms (host clock, first call)")
+    log(f"[list-kernel] list_occlusion {kernel_ms:.3f} ms, plain torch "
+        f"{plain_ms:.3f} ms; max |diff| {max_err}, byte-equal: {equal}")
+    if not equal or not bool(torch.isfinite(got).all()):
+        raise AssertionError("list kernel disagrees with its plain version")
+    if not bool((got[:n] > 0).any()):
+        raise AssertionError("list kernel found no accessible surface")
+    return record("list_occlusion", None, max_err, kernel_ms, plain_ms)
+
+
+ANALYTIC = (
+    # (name, atoms (x, y, z, radius), expected SASA per atom)
+    ("single sphere", [(0, 0, 0, 2.0)], [4 * math.pi * 3.4 ** 2]),
+    ("two overlapping", [(0, 0, 0, 2.0), (4, 0, 0, 2.0)],
+     [4 * math.pi * 3.4 ** 2 - 2 * math.pi * 3.4 * (3.4 - 2.0)] * 2),
+    ("three in a line", [(0, 0, 0, 2.0), (5, 0, 0, 2.0), (10, 0, 0, 2.0)],
+     [4 * math.pi * 3.4 ** 2 - k * 2 * math.pi * 3.4 * (3.4 - 2.5)
+      for k in (1, 2, 1)]),
+)
+
+
+def phase_list_path(device):
+    """The list path end to end; returns the list kernel's launches."""
+    import numpy as np
+
+    from rustsasa_tpu_torch import (
+        Level, SASAOptions, calculate_sasa_internal, read_structure,
+    )
+    from rustsasa_tpu_torch._host.levels import aggregate
+    from rustsasa_tpu_torch._host.radii import get_vdw_radius
+    from rustsasa_tpu_torch.ops import _kernels
+
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    s = read_structure(EXAMPLE)
+    t = s.atoms
+    order = list(s.iter_hierarchy_atom_indices())
+    radii = np.array([get_vdw_radius(t.element[i]) for i in order], np.float32)
+    sasa = calculate_sasa_internal(
+        t.coords[order], radii, group_ids=t.serial[order], probe_radius=PROBE,
+        n_points=100, backend="list", device=device,
+    )
+    err = np.abs(sasa - np.load(GOLDEN))
+    sel = SASAOptions.protein_level().build_selection(s)
+    total = aggregate(sel, calculate_sasa_internal(
+        sel.coords, sel.radii, group_ids=sel.group_ids, probe_radius=PROBE,
+        n_points=100, backend="list", device=device,
+    ), Level.PROTEIN).protein.global_total
+    log(f"[list] example.cif per-atom max |diff| {err.max():.3f} A^2 (mean "
+        f"{err.mean():.4f}, limit 25); protein total {total:.1f} "
+        f"(20268.0 +- 1500); {time.perf_counter() - t0:.2f}s")
+    if not err.max() <= 25.0 or not abs(total - 20268.004) <= 1500.0:
+        raise AssertionError("list path outside the golden tolerances")
+    for name, atoms, expected in ANALYTIC:
+        t0 = time.perf_counter()
+        got = calculate_sasa_internal(
+            np.array([a[:3] for a in atoms], np.float32),
+            np.array([a[3] for a in atoms], np.float32),
+            probe_radius=PROBE, n_points=50_000, device=device,
+        )
+        rel = max(abs(g - e) / e for g, e in zip(got, expected))
+        log(f"[list] {name} at 50,000 points: max relative error "
+            f"{rel:.2e} (limit 5e-3); {time.perf_counter() - t0:.3f}s")
+        if not rel <= 0.005:
+            raise AssertionError(f"{name}: relative error {rel}")
+    launches = dict(_kernels.launch_counts)
+    log(f"[list] launches: {launches}")
+    if launches["list_occlusion"] == 0 or launches["fused_count"] != 0:
+        raise AssertionError(f"list path launches {launches}")
+    return launches["list_occlusion"]
+
+
+def phase_host_cull(device, work):
+    """All 88 FreeSASA structures on CUDA, routes counted; the largest
+    three byte-identical to the CPU; the f32 wire exact against the CPU."""
+    import numpy as np
+
+    from rustsasa_tpu_torch import (
+        BatchedSasaEngine, Level, SASAOptions, SasaParams, process_directory,
+    )
+    from rustsasa_tpu_torch.ops import _kernels
+
+    options = SASAOptions(level=Level.RESIDUE)
+    n_files = len(os.listdir(SOURCE_DIR))
+    out_dir = os.path.join(work, "freesasa_out_cuda")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    engine = BatchedSasaEngine(SasaParams(), device=device)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = process_directory(SOURCE_DIR, out_dir, options, "json",
+                               progress=False, engine=engine)
+    elapsed = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    routes = engine.routes.counts
+    log(f"[host-cull] {report.n_ok}/{report.n_files} FreeSASA structures on "
+        f"CUDA in {elapsed:.3f}s; chunks by route {routes}; launches "
+        f"{launches}")
+    if report.n_ok != n_files or report.errors:
+        raise AssertionError(f"{report.n_ok}/{n_files} ok: {report.errors[:3]}")
+    if routes["host_q16"] < 1:
+        raise AssertionError("no chunk took the host-cull q16 wire")
+    if (launches["fused_count"] != engine.chunks_dispatched
+            or launches["list_occlusion"] != routes["list"]):
+        raise AssertionError(f"launches {launches} for routes {routes}")
+
+    # Each route's share: its structures alone, selected in advance, one
+    # warm and three timed computes (host clock; pack, copies, device
+    # and readback).
+    triples = {f: select(os.path.join(SOURCE_DIR, f))
+               for f in sorted(os.listdir(SOURCE_DIR))}
+    rest = [t for f, t in triples.items() if f not in LARGEST]
+    groups = {
+        f"the other {len(rest)}": rest,
+        LARGEST[0] + " + " + LARGEST[1]: [triples[f] for f in LARGEST[:2]],
+        LARGEST[2]: [triples[LARGEST[2]]],
+    }
+    for label, group in groups.items():
+        BatchedSasaEngine(SasaParams(), device=device).compute(group)
+        eng = BatchedSasaEngine(SasaParams(), device=device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng.compute(group)
+        per = (time.perf_counter() - t0) / 3
+        routes = {k: v // 3 for k, v in eng.routes.counts.items() if v}
+        log(f"[host-cull] {label}: {sum(t[0].shape[0] for t in group)} "
+            f"atoms in {per * 1e3:.1f} ms per compute; routes {routes}")
+
+    big_dir = os.path.join(work, "largest")
+    shutil.rmtree(big_dir, ignore_errors=True)
+    os.makedirs(big_dir)
+    for name in LARGEST:
+        os.symlink(os.path.join(SOURCE_DIR, name), os.path.join(big_dir, name))
+    cpu_out = os.path.join(work, "largest_out_cpu")
+    shutil.rmtree(cpu_out, ignore_errors=True)
+    cpu_engine = BatchedSasaEngine(SasaParams(), device="cpu")
+    t0 = time.perf_counter()
+    cpu_report = process_directory(big_dir, cpu_out, options, "json",
+                                   progress=False, engine=cpu_engine)
+    log(f"[host-cull] {', '.join(LARGEST)} on the CPU (plain torch) in "
+        f"{time.perf_counter() - t0:.1f}s; routes {cpu_engine.routes.counts}")
+    if cpu_report.n_ok != len(LARGEST):
+        raise AssertionError(f"CPU run: {cpu_report.errors}")
+    for name in sorted(os.listdir(cpu_out)):
+        with open(os.path.join(cpu_out, name), "rb") as f:
+            want = f.read()
+        with open(os.path.join(out_dir, name), "rb") as f:
+            if f.read() != want:
+                raise AssertionError(f"{name}: CUDA and CPU JSON differ")
+    log(f"[host-cull] JSON of {', '.join(sorted(os.listdir(cpu_out)))} "
+        f"byte-identical on CUDA and on the CPU")
+
+    coords, radii, gids = select(EXAMPLE)
+    gids = gids.copy()
+    # An alt-loc-style collision that lowers the largest dense id: the
+    # engine then sees the ids as shared (max < n - 1).
+    gids[gids.argmax()] = gids[0]
+    outs = {}
+    for dev in (device, "cpu"):
+        eng = BatchedSasaEngine(SasaParams(), device=dev)
+        outs[dev] = eng.compute([(coords, radii, gids)])[0]
+        if eng.routes.counts["f32"] != 1:
+            raise AssertionError(f"routes on {dev}: {eng.routes.counts}")
+    if not np.array_equal(outs[device], outs["cpu"]):
+        raise AssertionError("f32 wire: CUDA and CPU areas differ")
+    log(f"[host-cull] shared-gid example.cif ({coords.shape[0]} atoms) "
+        f"through the f32 wire: CUDA areas equal the CPU's exactly "
+        f"(total {float(outs['cpu'].sum()):.3f})")
+
+
 def main() -> int:
     import torch
 
@@ -336,13 +581,16 @@ def main() -> int:
         os.symlink(os.path.realpath(os.path.join(corpus_dir, name)),
                    os.path.join(sample_dir, name))
 
-    record = phase_kernel_vs_plain(corpus_dir, device)
+    count = phase_kernel_vs_plain(corpus_dir, device)
     phase_golden(device, sample_dir, WORK)
-    record["launches"] = phase_main_path(
+    count["launches"] = phase_main_path(
         corpus_dir, n_files, n_atoms, device, WORK
     )
+    listed = phase_list_kernel(device)
+    listed["launches"] = phase_list_path(device)
+    phase_host_cull(device, WORK)
     log(smi)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [count, listed]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -26,6 +26,11 @@ lazy `rustsasa_tpu/__init__` would make this alias unnecessary.
 The native library's state (its radius table) is process-global: a
 process that also imports `rustsasa_tpu` shares one loaded library with
 this alias.
+
+The alias's loader builds that library through `_host_build`: under a
+lock, into a temporary file that replaces the old one atomically, with
+retried loads.  The reference's own loader compiles in place, and a
+process that loads the half-written file gives the library up for good.
 """
 
 from __future__ import annotations
@@ -47,6 +52,22 @@ __path__ = [_reference_dir()]
 
 from .ops import engine as _engine  # noqa: E402
 from ._host import ops as _ops  # noqa: E402
+from ._host import native as _native  # noqa: E402
+from ._host_build import build_shared_library  # noqa: E402
 
 sys.modules[__name__ + ".ops.engine"] = _engine
 _ops.engine = _engine
+
+_reference_locate_or_build = _native._locate_or_build
+
+
+def _locate_or_build() -> str | None:
+    """The alias's library path: built and loaded under the build lock;
+    the reference's own search only where no lock file can be made."""
+    try:
+        return build_shared_library(_native._SRC, _native._LIB, _native._build)
+    except OSError:
+        return _reference_locate_or_build()
+
+
+_native._locate_or_build = _locate_or_build

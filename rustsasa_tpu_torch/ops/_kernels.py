@@ -1,12 +1,13 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-The sources in `csrc/` are compiled by `nvcc` for `sm_90a` into one
+Each source in `csrc/` is compiled by `nvcc` for `sm_90a` into its own
 shared library with a plain C interface and loaded with ctypes: no
-PyTorch headers, so a build takes seconds.  The build happens at first
-use, into `build/rustsasa_tpu_torch/` beside the package, keyed by a hash
-of the sources and flags; nothing is built or imported when this module
-is imported.  Every launch is counted in `launch_counts`, so a run can
-show that its work went through the kernel.
+PyTorch headers, so a build takes seconds, and the sources build in
+parallel (one nvcc each, all started together).  The build happens at
+first use, into `build/rustsasa_tpu_torch/` beside the package, keyed by
+a hash of the source and flags; nothing is built or imported when this
+module is imported.  Every launch is counted in `launch_counts`, so a run
+can show that its work went through the kernel.
 """
 
 from __future__ import annotations
@@ -35,10 +36,18 @@ NVCC_FLAGS = (
 )
 MAX_P_PAD = 2048
 
-launch_counts = {"fused_count": 0}
+launch_counts = {"fused_count": 0, "list_occlusion": 0}
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
-_lib = None
+_launchers: dict = {}
+
+_VOIDP = ctypes.c_void_p
+_INT = ctypes.c_int
+# C signature of each kernel's launch function, by source name.
+_SIGNATURES = {
+    "fused_count": [_VOIDP] * 4 + [_INT] * 2 + [_VOIDP],
+    "list_occlusion": [_VOIDP] * 8 + [_INT] * 3 + [_VOIDP],
+}
 
 
 @dataclass(frozen=True)
@@ -59,13 +68,6 @@ def _count(name: str) -> None:
         launch_counts[name] += 1
 
 
-def _sources() -> list[str]:
-    return sorted(
-        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
-        if f.endswith((".cu", ".cuh"))
-    )
-
-
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     for cand in (
@@ -78,46 +80,56 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def build() -> BuildInfo:
-    """Compile csrc/*.cu into the keyed shared library (once)."""
-    srcs = _sources()
+def _target(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    out = os.path.join(BUILD_DIR, f"librustsasa_kernels_{h.hexdigest()[:16]}.so")
-    log_path = out + ".log"
-    if os.path.exists(out):
-        with open(log_path, encoding="utf-8") as f:
-            return BuildInfo(out, 0.0, f.read())
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def build() -> dict[str, BuildInfo]:
+    """Compile each csrc/<name>.cu into its keyed shared library (once);
+    the missing ones build in parallel."""
+    out = {}
+    procs = {}
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    with open(log_path, "w", encoding="utf-8") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return BuildInfo(out, seconds, proc.stdout + proc.stderr)
+    for name in _SIGNATURES:
+        target = _target(name)
+        if os.path.exists(target):
+            with open(target + ".log", encoding="utf-8") as f:
+                out[name] = BuildInfo(target, 0.0, f.read())
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{target}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC_DIR, f"{name}.cu")]
+        procs[name] = (target, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    for name, (target, tmp, proc) in procs.items():
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu "
+                               f"({proc.returncode}):\n{log}")
+        with open(target + ".log", "w", encoding="utf-8") as f:
+            f.write(log)
+        os.replace(tmp, target)
+        out[name] = BuildInfo(target, time.perf_counter() - t0, log)
+    return out
 
 
-def _library():
-    global _lib
+def _library(name: str):
     with _build_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build().path)
-            lib.fused_count_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.fused_count_launch.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        if name not in _launchers:
+            for lib_name, info in build().items():
+                if lib_name in _launchers:
+                    continue
+                lib = ctypes.CDLL(info.path)
+                fn = getattr(lib, f"{lib_name}_launch")
+                fn.argtypes = _SIGNATURES[lib_name]
+                fn.restype = ctypes.c_int
+                _launchers[lib_name] = fn
+        return _launchers[name]
 
 
 def _check(name, t, dtype, ndim, device):
@@ -154,14 +166,60 @@ def fused_count(planes, jlist, sphere):
         raise ValueError(f"sphere shape {tuple(sphere.shape)} unsupported")
     # Rows 0..4 of planes are read with a row stride of M.
     out = torch.empty(m, dtype=torch.int32, device=device)
-    lib = _library()
+    launch = _library("fused_count")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.fused_count_launch(
+        rc = launch(
             planes.data_ptr(), jlist.data_ptr(), sphere.data_ptr(),
             out.data_ptr(), m, p, stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_count_launch failed: cudaError {rc}")
     _count("fused_count")
+    return out
+
+
+def list_occlusion(vx, vy, vz, limit, area, sphere, tile_kmax):
+    """Launch the list-path occlusion kernel on the current stream ->
+    per-atom SASA [N] f32.
+
+    vx, vy, vz, limit [K, N] f32 (K-major), area [N] f32, sphere [P, 4]
+    f32, tile_kmax [ceil(N/128)] i32, all contiguous on one CUDA device;
+    N, K, P positive.  Any number of sphere points.
+    """
+    device = limit.device
+    if device.type != "cuda":
+        raise ValueError(f"list_occlusion needs CUDA tensors, got {device}")
+    for name, t in (("vx", vx), ("vy", vy), ("vz", vz), ("limit", limit)):
+        _check(name, t, torch.float32, 2, device)
+    _check("area", area, torch.float32, 1, device)
+    _check("sphere", sphere, torch.float32, 2, device)
+    _check("tile_kmax", tile_kmax, torch.int32, 1, device)
+    k, n = limit.shape
+    p = sphere.shape[0]
+    if k == 0 or n == 0:
+        raise ValueError(f"limit shape {tuple(limit.shape)} unsupported")
+    for name, t in (("vx", vx), ("vy", vy), ("vz", vz)):
+        if t.shape != limit.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {(k, n)}")
+    if tuple(area.shape) != (n,):
+        raise ValueError(f"area shape {tuple(area.shape)} != ({n},)")
+    if sphere.shape[1] != 4 or p == 0:
+        raise ValueError(f"sphere shape {tuple(sphere.shape)} unsupported")
+    if tuple(tile_kmax.shape) != (-(-n // 128),):
+        raise ValueError(
+            f"tile_kmax shape {tuple(tile_kmax.shape)} != ({-(-n // 128)},)"
+        )
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    launch = _library("list_occlusion")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = launch(
+            vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), limit.data_ptr(),
+            area.data_ptr(), sphere.data_ptr(), tile_kmax.data_ptr(),
+            out.data_ptr(), n, k, p, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"list_occlusion_launch failed: cudaError {rc}")
+    _count("list_occlusion")
     return out

@@ -1,21 +1,26 @@
-"""Shrake-Rupley SASA engine on PyTorch: the fused banded-wire path.
+"""Shrake-Rupley SASA engine on PyTorch: the fused wires and the list path.
 
-Port of `rustsasa_tpu/ops/engine.py` for the production path of the
-directory batch: structures are packed on the host into the q13 wire
-(the q16 wire above 100 A extent), copied to the device, dequantized,
-culled into j-lists and counted by the hand-written occlusion kernel
-(`fused_kernel.py`); u8/u16 counts come back and `CountsView` turns them
-into per-atom SASA, or hands them to the native emit as they are.
+Port of `rustsasa_tpu/ops/engine.py`.  Two backends, chosen per call as
+the reference chooses on an accelerator (`resolve_backend`):
+
+  * "fused" (spheres of up to 2048 points): structures are packed on the
+    host into one of four wires and counted by the hand-written occlusion
+    kernel (`fused_kernel.py`).  In order of preference: the banded q13
+    wire (6 B/slot, culled on the device), the banded q16 wire (extents
+    over 100 A), and the host-cull wires for what the band cannot take
+    (more than 127 tiles, shared group ids, extents over 1300 A): q16
+    with host j-lists when group ids are unique and the extent fits, f32
+    planes with real group ids otherwise.  u8/u16 counts or f32 areas come
+    back; `CountsView` turns counts into per-atom SASA, or hands them to
+    the native emit as they are.  Structures whose host j-lists overflow
+    are re-run on the list path.
+  * "list" (any number of points): exact neighbor lists and the list
+    occlusion kernel (`neighbors.py`).
 
 `rustsasa_tpu/api.py` and `rustsasa_tpu/batch.py` run unchanged on this
 module (see `_host.py`), through the names they import from it:
 `calculate_sasa_internal`, `BatchedSasaEngine`, `CountsView`,
 `SasaParams`, `CHUNK_SLOT_BUDGET`.
-
-Not in this port yet, and raised as `UnsupportedInSlice` instead of being
-routed elsewhere: the host-cull q16 and f32 wires (structures over 127
-tiles, non-unique group ids, extents over 1300 A) and the neighbor-list
-path (more than 2048 sphere points).
 
 The device is explicit: "cuda" by default, the CPU only when asked for
 (the CPU runs the kernels' plain-torch versions).
@@ -33,19 +38,16 @@ import torch
 from .._host.constants import DEFAULT_N_POINTS, DEFAULT_PROBE_RADIUS
 from .._host.ops.sphere import padded_sphere_points
 from .._host.utils import stagestats
-from . import fused_kernel
+from . import fused_kernel, neighbors
 
 # Atom slots per chunk (reference engine._FUSED_ATOM_BUDGET); the batch
 # pipeline streams dispatches at exactly this granularity.
 CHUNK_SLOT_BUDGET = 2_097_152
 
+BACKENDS = ("auto", "fused", "list")
 
-class UnsupportedInSlice(NotImplementedError):
-    """The input needs a path the PyTorch port does not have yet."""
-
-
-_HOST_CULL_ITEM = "ROADMAP section 1, item 3 (host-cull q16/f32 wires): "
-_LIST_PATH_ITEM = "ROADMAP section 1, item 4 (neighbor-list path): "
+# The reference's XLA scan chunk; it sizes the list path's batch cap.
+_K_CHUNK = 16
 
 
 @dataclass(frozen=True)
@@ -56,13 +58,47 @@ class SasaParams:
     n_points: int = DEFAULT_N_POINTS
 
 
+class RouteCounts:
+    """Device dispatches per route, safe to update from several threads.
+
+    q13 / q16: banded wires; host_q16 / f32: host-cull wires (one count
+    kernel launch each); list: neighbor-list batches, re-runs included.
+    """
+
+    NAMES = ("q13", "q16", "host_q16", "f32", "list")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.counts = dict.fromkeys(self.NAMES, 0)
+
+    def add(self, route: str) -> None:
+        with self._lock:
+            self.counts[route] += 1
+
+
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+def resolve_backend(backend: str, n_points: int) -> str:
+    """"fused" when the padded sphere fits the count kernel (2048 points),
+    "list" otherwise; an explicit "fused" or "list" is kept."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
+    fits = _round_up(n_points, 8) <= fused_kernel.MAX_P_PAD
+    if backend == "auto":
+        return "fused" if fits else "list"
+    if backend == "fused" and not fits:
+        raise ValueError(
+            f"n_points={n_points} exceeds the count kernel's "
+            f"{fused_kernel.MAX_P_PAD}-point sphere; use backend='list'"
+        )
+    return backend
+
+
 def _sphere_packed(n_points: int) -> np.ndarray:
     """[P_pad, 4] f32 sphere (x, y, z, point_valid), P_pad = n_points
-    rounded up to 8: the layout the count kernel reads."""
+    rounded up to 8: the layout both kernels read."""
     p_pad = _round_up(n_points, 8)
     sphere, point_valid = padded_sphere_points(n_points, p_pad)
     packed = np.empty((p_pad, 4), dtype=np.float32)
@@ -107,33 +143,24 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _check_n_points(n_points: int) -> None:
-    if _round_up(n_points, 8) > fused_kernel.MAX_P_PAD:
-        raise UnsupportedInSlice(
-            _LIST_PATH_ITEM
-            + f"n_points={n_points} exceeds the count kernel's "
-            f"{fused_kernel.MAX_P_PAD}-point sphere"
-        )
-
-
 class _Readback:
-    """One chunk's counts on their way to the host.
+    """One chunk's result on its way to the host.
 
     On CUDA the device-to-host copy is queued right behind the chunk's
     kernels into pinned memory, with an event after it; `numpy()` waits
     on that event only, not on chunks queued later.
     """
 
-    def __init__(self, counts: torch.Tensor):
-        if counts.device.type == "cuda":
+    def __init__(self, out: torch.Tensor):
+        if out.device.type == "cuda":
             self._host = torch.empty(
-                counts.shape, dtype=counts.dtype, pin_memory=True
+                out.shape, dtype=out.dtype, pin_memory=True
             )
-            self._host.copy_(counts, non_blocking=True)
+            self._host.copy_(out, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(counts.device))
+            self._event.record(torch.cuda.current_stream(out.device))
         else:
-            self._host = counts
+            self._host = out
             self._event = None
 
     def numpy(self) -> np.ndarray:
@@ -144,21 +171,29 @@ class _Readback:
 
 
 def _compute_fused(structures, *, probe: float, n_points: int,
-                   device: torch.device) -> "_FusedPending":
+                   device: torch.device, routes: RouteCounts
+                   ) -> "_FusedPending":
     """Dispatch every chunk of `structures` without synchronizing.
 
     Chunks by the atom-slot budget, longest structure first; a chunk
-    splits so that q13-eligible structures keep the 6 B/slot wire and the
-    others take the q16 wire.  The reference pads each chunk to one of a
-    few slot buckets because each shape is a separate TPU compile; the
-    CUDA kernel takes any multiple of 128 slots, so chunks are not padded.
+    splits so that every structure takes the narrowest wire it can (see
+    the module docstring).  The reference pads each chunk to one of a few
+    slot buckets because each shape is a separate TPU compile; the CUDA
+    kernel takes any multiple of 128 slots, so chunks are not padded.
     """
-    _check_n_points(n_points)
     sphere = _sphere_device(n_points, device)
     order = sorted(
         range(len(structures)), key=lambda i: -structures[i][0].shape[0]
     )
-    pending = []  # (chunk, offsets, readback)
+    pending = []  # (chunk, offsets, readback, kind)
+    fallback: list[int] = []
+
+    def dispatch(route, chunk, offsets, kind, fn, wire, **kw):
+        with stagestats.stage("dispatch"):
+            out = fn(*fused_kernel.to_device(wire, device), sphere,
+                     n_points=n_points, **kw)
+            pending.append((chunk, offsets, _Readback(out), kind))
+        routes.add(route)
 
     def flush(chunk):
         if not chunk:
@@ -169,61 +204,75 @@ def _compute_fused(structures, *, probe: float, n_points: int,
             triples.append(
                 (coords, radii, _dense_gids(gids, coords.shape[0]))
             )
-        for t in triples:
-            nt = -(-t[0].shape[0] // fused_kernel.ATOM_TILE)
-            if nt > fused_kernel.W_BUCKETS[-1]:
-                raise UnsupportedInSlice(
-                    _HOST_CULL_ITEM + f"a structure of {t[0].shape[0]} "
-                    f"atoms ({nt} tiles) exceeds the banded cull's "
-                    f"{fused_kernel.W_BUCKETS[-1]} tiles"
-                )
-            if not _unique_gids(t[2]):
-                raise UnsupportedInSlice(
-                    _HOST_CULL_ITEM + "group ids are not unique per atom"
-                )
-        max_nt = max(
-            -(-t[0].shape[0] // fused_kernel.ATOM_TILE) for t in triples
-        )
-        # 6 B/slot q13 wire first; structures whose extent disqualifies
-        # them split out onto the q16 wire, so one big structure does not
-        # drag a whole chunk onto 8 B/slot.
-        q13_ok = [
+        # Banded device-cull wires: per-atom-unique gids (the slot index
+        # becomes the exclusion id) and at most 127 tiles per structure.
+        # Ineligible structures re-flush as their own sub-chunk on the
+        # host-cull wires, so one exotic file never drags a whole chunk
+        # off the banded path.
+        eligible = [
             k for k, t in enumerate(triples)
-            if t[0].shape[0] == 0
-            or float((t[0].max(axis=0) - t[0].min(axis=0)).max())
-            <= fused_kernel.MAX_Q13_EXTENT
+            if -(-t[0].shape[0] // fused_kernel.ATOM_TILE)
+            <= fused_kernel.W_BUCKETS[-1] and _unique_gids(t[2])
         ]
-        if 0 < len(q13_ok) < len(chunk):
-            okset = set(q13_ok)
-            flush([chunk[k] for k in q13_ok])
-            flush([chunk[k] for k in range(len(chunk)) if k not in okset])
+        if 0 < len(eligible) < len(chunk):
+            elig = set(eligible)
+            flush([chunk[k] for k in eligible])
+            flush([chunk[k] for k in range(len(chunk)) if k not in elig])
             return
-        w = next(b for b in fused_kernel.W_BUCKETS if b >= max_nt)
-        with stagestats.stage("pack"):
-            q13 = fused_kernel.pack_structures_q13(triples, probe)
-        if q13 is not None:
-            *wire, offsets = q13
-            with stagestats.stage("dispatch"):
-                wire = fused_kernel.to_device(wire, device)
-                out = fused_kernel.fused_sasa_q13_banded(
-                    *wire, sphere, n_points=n_points, w=w
-                )
-                pending.append((chunk, offsets, _Readback(out)))
-            return
-        with stagestats.stage("pack"):
-            q16 = fused_kernel.pack_structures_q16(triples, probe)
-        if q16 is None:
-            raise UnsupportedInSlice(
-                _HOST_CULL_ITEM + "a structure exceeds the q16 wire "
-                f"({fused_kernel.MAX_Q_EXTENT} A extent or r_eff >= 8 A)"
+        if len(eligible) == len(chunk):
+            # 6 B/slot q13 wire first; structures whose extent
+            # disqualifies them split out onto the q16 wire, so one big
+            # structure does not drag a whole chunk onto 8 B/slot.
+            q13_ok = [
+                k for k, t in enumerate(triples)
+                if t[0].shape[0] == 0
+                or float((t[0].max(axis=0) - t[0].min(axis=0)).max())
+                <= fused_kernel.MAX_Q13_EXTENT
+            ]
+            if 0 < len(q13_ok) < len(chunk):
+                okset = set(q13_ok)
+                flush([chunk[k] for k in q13_ok])
+                flush([chunk[k] for k in range(len(chunk))
+                       if k not in okset])
+                return
+            max_nt = max(
+                -(-t[0].shape[0] // fused_kernel.ATOM_TILE) for t in triples
             )
-        *wire, offsets = q16
-        with stagestats.stage("dispatch"):
-            wire = fused_kernel.to_device(wire, device)
-            out = fused_kernel.fused_sasa_q16_banded(
-                *wire, sphere, n_points=n_points, w=w
+            w = next(b for b in fused_kernel.W_BUCKETS if b >= max_nt)
+            with stagestats.stage("pack"):
+                q13 = fused_kernel.pack_structures_q13(triples, probe)
+            if q13 is not None:
+                *wire, offsets = q13
+                dispatch("q13", chunk, offsets, "counts",
+                         fused_kernel.fused_sasa_q13_banded, wire, w=w)
+                return
+            with stagestats.stage("pack"):
+                q16 = fused_kernel.pack_structures_q16(triples, probe)
+            if q16 is not None:
+                *wire, offsets = q16
+                dispatch("q16", chunk, offsets, "counts",
+                         fused_kernel.fused_sasa_q16_banded, wire, w=w)
+                return
+        with stagestats.stage("pack"):
+            planes, jlist, offsets, failed = fused_kernel.pack_structures(
+                triples, probe, n_points
             )
-            pending.append((chunk, offsets, _Readback(out)))
+        # Pathologically connected tilings overflow a j-list row: those
+        # structures take the list path instead (exactness over speed).
+        fallback.extend(chunk[f] for f in failed)
+        # Quantized 8 B/slot wire whenever gids are unique per atom and
+        # every extent fits the u16 grid; the f32 planes otherwise.
+        q = None
+        if all(_unique_gids(t[2]) for t in triples):
+            spans = [(off[0], off[1]) for off in offsets if off is not None]
+            with stagestats.stage("quantize"):
+                q = fused_kernel.quantize_packed(planes, spans)
+        if q is not None:
+            dispatch("host_q16", chunk, offsets, "counts",
+                     fused_kernel.fused_sasa_q16, (*q, jlist))
+        else:
+            dispatch("f32", chunk, offsets, "area",
+                     fused_kernel.fused_sasa, (planes, jlist))
 
     chunk: list[int] = []
     budget = 0
@@ -236,7 +285,8 @@ def _compute_fused(structures, *, probe: float, n_points: int,
         chunk.append(i)
         budget += n_slots
     flush(chunk)
-    return _FusedPending(structures, pending, probe, n_points)
+    return _FusedPending(structures, pending, fallback, probe, n_points,
+                         device, routes)
 
 
 class CountsView:
@@ -277,33 +327,61 @@ class _FusedPending:
     free to pack/parse/emit other work while the device drains its queue.
     """
 
-    def __init__(self, structures, pending, probe, n_points):
+    def __init__(self, structures, pending, fallback, probe, n_points,
+                 device, routes):
         self.structures = structures
         self.pending = pending
+        self.fallback = fallback
         self.probe = probe
         self.n_points = n_points
+        self.device = device
+        self.routes = routes
         self.views: list = [None] * len(structures)
 
     def collect(self) -> list[np.ndarray]:
         with stagestats.stage("unpack"):
-            return [v() for v in self.collect_views()]
+            return [
+                v() if callable(v) else v for v in self.collect_views()
+            ]
 
     def collect_views(self) -> list:
-        """Wait for every chunk; return one CountsView per structure."""
-        for chunk, offsets, readback in self.pending:
+        """Wait for every chunk; return per-structure entries: a
+        CountsView for the counts wires, a zero-argument thunk for the f32
+        wire's areas (slice + inverse permutation), an array for the
+        structures re-run on the list path."""
+        views = self.views
+        for chunk, offsets, readback, kind in self.pending:
             with stagestats.stage("device_wait"):
                 out_np = readback.numpy()
-            for i, (pos, n, inv) in zip(chunk, offsets):
-                self.views[i] = CountsView(
-                    out_np, pos, n, inv, self.structures[i][1],
-                    self.probe, self.n_points,
-                )
+            for i, off in zip(chunk, offsets):
+                if off is None:
+                    continue  # rerouted to the list path
+                pos, n, inv = off
+                if kind == "counts":
+                    views[i] = CountsView(
+                        out_np, pos, n, inv, self.structures[i][1],
+                        self.probe, self.n_points,
+                    )
+                else:
+                    def thunk(out_np=out_np, pos=pos, n=n, inv=inv):
+                        return out_np[pos:pos + n][inv].astype(np.float32)
+
+                    views[i] = thunk
         self.pending = []
-        return self.views
+        if self.fallback:
+            outs = _compute_list(
+                [self.structures[i] for i in self.fallback],
+                probe=self.probe, n_points=self.n_points,
+                device=self.device, routes=self.routes,
+            )
+            for i, out in zip(self.fallback, outs):
+                views[i] = out
+            self.fallback = []
+        return views
 
 
 class _EagerPending:
-    """Already-resolved handle (empty inputs)."""
+    """Already-resolved handle (list backend, empty inputs)."""
 
     def __init__(self, results):
         self._results = results
@@ -338,6 +416,76 @@ class _MappedPending:
         return self._scatter(self._inner.collect_views())
 
 
+def _batch_cap(n_pad: int) -> int:
+    """Structures per list-path batch, bounded by the [N, N] distance
+    matrix and the flattened occlusion working set."""
+    cap_d2 = max(1, int(3e8 // (n_pad * n_pad)))
+    cap_occ = max(1, int(1.6e8 // (n_pad * _K_CHUNK * 128)))
+    return max(1, min(256, cap_d2, cap_occ))
+
+
+def _pack(n_pad: int, structures):
+    """[B, n_pad, 4] x, y, z, radius and [B, n_pad] gids (-1 = padding)."""
+    b = len(structures)
+    packed = np.zeros((b, n_pad, 4), dtype=np.float32)
+    g = np.full((b, n_pad), -1, dtype=np.int32)
+    for i, (coords, radii, gids) in enumerate(structures):
+        n = coords.shape[0]
+        packed[i, :n, 0:3] = coords
+        packed[i, :n, 3] = radii
+        g[i, :n] = _dense_gids(gids, n)
+    return packed, g
+
+
+def _compute_list(structures, *, probe: float, n_points: int,
+                  device: torch.device, routes: RouteCounts
+                  ) -> list[np.ndarray]:
+    """List path over many structures: bucketed by padded size, batched,
+    every batch dispatched before the first readback; batches whose
+    candidate count overflowed K re-run with a larger K bucket."""
+    results: list = [None] * len(structures)
+    buckets: dict[int, list[int]] = {}
+    for i, (coords, _, _) in enumerate(structures):
+        n = coords.shape[0]
+        if n == 0:
+            results[i] = np.zeros(0, np.float32)
+            continue
+        buckets.setdefault(
+            neighbors._round_bucket(n, neighbors._N_BUCKETS), []
+        ).append(i)
+    sphere = _sphere_device(n_points, device)
+
+    def run(packed, g, k):
+        routes.add("list")
+        return neighbors._sasa_batched(
+            packed, g, sphere, k=k, n_points=n_points, probe=probe
+        )
+
+    pending = []
+    for n_pad, members in sorted(buckets.items()):
+        cap = _batch_cap(n_pad)
+        for lo in range(0, len(members), cap):
+            chunk = members[lo:lo + cap]
+            packed, g = (
+                torch.from_numpy(a).to(device)
+                for a in _pack(n_pad, [structures[i] for i in chunk])
+            )
+            k = neighbors._initial_k(n_pad)
+            pending.append((chunk, packed, g, k, n_pad, *run(packed, g, k)))
+
+    for chunk, packed, g, k, n_pad, sasa, mc in pending:
+        mc_val = int(mc)
+        while mc_val > k:
+            k = min(neighbors._round_bucket(mc_val, neighbors._K_BUCKETS),
+                    n_pad)
+            sasa, mc = run(packed, g, k)
+            mc_val = int(mc)
+        sasa_np = sasa.cpu().numpy()
+        for slot, i in enumerate(chunk):
+            results[i] = sasa_np[slot, :structures[i][0].shape[0]]
+    return results
+
+
 def calculate_sasa_internal(
     coords: np.ndarray,
     radii: np.ndarray,
@@ -345,6 +493,7 @@ def calculate_sasa_internal(
     group_ids: np.ndarray | None = None,
     probe_radius: float = DEFAULT_PROBE_RADIUS,
     n_points: int = DEFAULT_N_POINTS,
+    backend: str = "auto",
     device="cuda",
 ) -> np.ndarray:
     """Per-atom SASA for one structure (reference API: lib.rs:249-298).
@@ -352,57 +501,89 @@ def calculate_sasa_internal(
     coords: [N, 3] positions in Angstroms.  radii: [N] atomic radii.
     group_ids: optional [N] int ids; atoms sharing an id never occlude
     each other.  When omitted every atom gets a distinct id.
+    backend: "auto" | "fused" | "list" (see resolve_backend).
     """
     dev = _device(device)
+    backend = resolve_backend(backend, n_points)
     coords = np.ascontiguousarray(coords, dtype=np.float32)
     radii = np.ascontiguousarray(radii, dtype=np.float32)
     n = coords.shape[0]
     if n == 0:
         return np.zeros(0, dtype=np.float32)
     gid = _dense_gids(group_ids, n)
-    return _compute_fused(
-        [(coords, radii, gid)], probe=float(probe_radius),
-        n_points=n_points, device=dev,
-    ).collect()[0]
+    probe = float(probe_radius)
+    if backend == "fused":
+        return _compute_fused(
+            [(coords, radii, gid)], probe=probe, n_points=n_points,
+            device=dev, routes=RouteCounts(),
+        ).collect()[0]
+
+    n_pad = neighbors._round_bucket(n, neighbors._N_BUCKETS)
+    packed, g = (torch.from_numpy(a[0]).to(dev)
+                 for a in _pack(n_pad, [(coords, radii, gid)]))
+    sphere = _sphere_device(n_points, dev)
+    k = neighbors._initial_k(n_pad)
+    while True:
+        sasa, max_count = neighbors._sasa_single(
+            packed, g, sphere, k=k, n_points=n_points, probe=probe
+        )
+        mc = int(max_count)
+        if mc <= k:
+            break
+        # Exactness: re-run with a K bucket that fits every in-range
+        # neighbor; silent truncation would corrupt results.
+        k = min(neighbors._round_bucket(mc, neighbors._K_BUCKETS), n_pad)
+    return sasa[:n].cpu().numpy()
 
 
 class BatchedSasaEngine:
     """Batched engine: many structures per device dispatch.
 
-    Feed with (coords, radii, group_ids) triples.  `enqueue` packs and
-    dispatches every chunk without synchronizing and returns a handle;
-    its `collect_views()`/`collect()` are the readback.
+    Feed with (coords, radii, group_ids) triples.  On the fused backend
+    `enqueue` packs and dispatches every chunk without synchronizing and
+    returns a handle whose `collect_views()`/`collect()` are the readback;
+    the list backend computes eagerly.  `routes` counts the dispatches of
+    each route.
     """
 
-    def __init__(self, params: SasaParams | None = None, *, device="cuda"):
+    def __init__(self, params: SasaParams | None = None,
+                 backend: str = "auto", *, device="cuda"):
         self.params = params or SasaParams()
+        self.backend = resolve_backend(backend, self.params.n_points)
         self.device = _device(device)
-        # Chunks dispatched so far (one count-kernel launch each);
-        # enqueue may run on several threads at once.
-        self.chunks_dispatched = 0
-        self._lock = threading.Lock()
+        self.routes = RouteCounts()
+
+    @property
+    def chunks_dispatched(self) -> int:
+        """Chunks sent through the count kernel, one launch each."""
+        c = self.routes.counts
+        return c["q13"] + c["q16"] + c["host_q16"] + c["f32"]
 
     def compute(self, structures) -> list[np.ndarray]:
         return self.enqueue(structures).collect()
 
     def enqueue(self, structures):
-        """Dispatch all device work for `structures` WITHOUT synchronizing.
+        """Dispatch all device work for `structures`.
 
         Returns a handle with .collect() -> list[np.ndarray] and
-        .collect_views() -> list of CountsView (empty structures get an
-        empty array).  The host is free between enqueue and collect.
+        .collect_views() -> per-structure CountsView / thunk / array
+        (empty structures get an empty array).  On the fused backend the
+        host is free between enqueue and collect.
         """
         if not structures:
             return _EagerPending([])
+        probe = float(self.params.probe_radius)
+        n_points = self.params.n_points
+        if self.backend == "list":
+            return _EagerPending(_compute_list(
+                structures, probe=probe, n_points=n_points,
+                device=self.device, routes=self.routes,
+            ))
         nonempty = [
             i for i, s in enumerate(structures) if s[0].shape[0] > 0
         ]
         inner = _compute_fused(
-            [structures[i] for i in nonempty],
-            probe=float(self.params.probe_radius),
-            n_points=self.params.n_points,
-            device=self.device,
+            [structures[i] for i in nonempty], probe=probe,
+            n_points=n_points, device=self.device, routes=self.routes,
         )
-        with self._lock:
-            self.chunks_dispatched += len(inner.pending)
         return _MappedPending(inner, nonempty, len(structures))

@@ -1,7 +1,9 @@
-"""Fused occlusion-count path in PyTorch: wire dequant, banded cull, counts.
+"""Fused occlusion-count path in PyTorch: wire dequant, culls, counts.
 
-Port of `rustsasa_tpu/ops/fused_kernel.py` for the q13 and q16 banded
-wires.  The host halves (packers) are the reference's numpy spec copied
+Port of `rustsasa_tpu/ops/fused_kernel.py`: the banded q13 and q16 wires
+(culled on the device) and the host-cull wires for what the banded path
+cannot take (q16 with host j-lists, and the f32 planes with real group
+ids).  The host halves (packers) are the reference's numpy spec copied
 verbatim, because the reference module imports JAX at its top; a test
 pins the copies to the originals.  The device half is plain torch except
 the occlusion count, which is a hand-written CUDA kernel
@@ -37,6 +39,14 @@ JLIST_CAP = JLIST_ROWS - 1
 J_GROUP = 8
 GROUPS_PER_TILE = ATOM_TILE // J_GROUP
 
+
+class JListOverflow(ValueError):
+    """An i-tile has more than JLIST_CAP in-reach j-tiles."""
+
+
+# Rows of the f32 host-cull wire: x, y, z, r_eff, gid(+1).
+N_XFER_PLANES = 5
+
 # Fixed radius dequant scale: r_eff = qr * 2^-13 (exact in f32).
 R_QUANT = 8192.0
 # Structures above this extent take the q16 wire (reference
@@ -48,12 +58,16 @@ W_BUCKETS = (16, 24, 32, 64, 127)
 # Slack of the device-side AABB cull (the cull and the kernel read the
 # same dequantized f32 coordinates; only f32 rounding needs covering).
 DEVICE_CULL_SLACK = 0.01
+# Slack of the host cull (pack_structures), which must stay conservative
+# under the u16 quantization the kernel may then see (quantize_packed).
+CULL_SLACK = 0.08
 MAX_Q_EXTENT = 1300.0
 # Largest padded sphere the count kernel takes (reference
 # pallas_kernel.MAX_P_PAD); more points need the neighbor-list path.
 MAX_P_PAD = _kernels.MAX_P_PAD
-# Margins (j, i, point) the plain-torch counts materialize per block.
-REFERENCE_BLOCK_ELEMS = 1 << 25
+# Margins (j, i, point) the plain-torch counts materialize per block, by
+# device: a block that stays in cache runs ~2x faster on the CPU.
+REFERENCE_BLOCK_ELEMS = {"cuda": 1 << 25, "cpu": 1 << 22}
 
 
 def pack_structures_q13(structures: list, probe: float):
@@ -244,6 +258,204 @@ def _morton_codes(coords: np.ndarray) -> np.ndarray:
     return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
 
 
+def quantize_packed(planes5: np.ndarray, spans: list) -> tuple:
+    """Quantize f32 transfer planes -> (planes4 u16 [4,M], tparams [T,4]).
+
+    spans: list of (pos, n) slot ranges, one per packed structure (padding
+    slots between spans get qr=0).  Returns None if any structure's extent
+    exceeds MAX_Q_EXTENT (caller falls back to the f32 path).
+
+    The packers center coordinates per structure, so the box is symmetric
+    and small; one uniform scale per structure keeps the grid isotropic.
+    """
+    m = planes5.shape[1]
+    t = m // ATOM_TILE
+    planes4 = np.zeros((4, m), dtype=np.uint16)
+    tparams = np.zeros((t, 4), dtype=np.float32)
+    tparams[:, 3] = 1.0  # neutral scale for unused tiles
+    for pos, n in spans:
+        if n == 0:
+            continue
+        sl = slice(pos, pos + n)
+        c = planes5[0:3, sl]
+        cmin = c.min(axis=1)
+        extent = float((c.max(axis=1) - cmin).max())
+        if not extent <= MAX_Q_EXTENT:  # NaN-safe negation
+            return None
+        scale = np.float32(max(extent, 1e-6) / 65535.0)
+        q = np.rint((c - cmin[:, None]) / scale)
+        planes4[0:3, sl] = np.clip(q, 0, 65535).astype(np.uint16)
+        qr = np.rint(planes5[3, sl] * R_QUANT)
+        if not float(qr.max(initial=0.0)) <= 65535.0:  # NaN-safe
+            return None  # r_eff >= 8 A: exotic probe/radius, f32 path
+        planes4[3, sl] = np.maximum(qr, 1.0).astype(np.uint16)
+        t0, t1 = pos // ATOM_TILE, -(-(pos + n) // ATOM_TILE)
+        tparams[t0:t1, 0:3] = cmin
+        tparams[t0:t1, 3] = scale
+    return planes4, tparams
+
+
+def pack_structures(
+    structures: list[tuple[np.ndarray, np.ndarray, np.ndarray]],
+    probe: float,
+    n_points: int,
+):
+    """Host-side packing for the fused kernel.
+
+    structures: list of (coords [n,3] f32, radii [n] f32, gids [n] i32).
+    Returns (planes [5, M], jlist [T, 128] u32 (mask<<16)|id, offsets,
+    failed) where
+    offsets[i] = (start, n, perm_inverse) for unpacking results and
+    `failed` lists input indices whose tiling overflowed JLIST_CAP
+    (callers route those through the list-based path); their offsets are
+    None and their slots are zeroed.
+
+    Dispatches to the native C++ packer (native/fastparse.cpp fastpack,
+    same layout contract, parity-tested) when the library is available;
+    this numpy implementation is the fallback and the executable spec.
+    """
+    from .._host.native import fastpack
+
+    out = fastpack(structures, float(probe))
+    if out is not None:
+        return out
+    return _pack_structures_numpy(structures, probe, n_points)
+
+
+def _pack_structures_numpy(structures, probe, n_points):
+    tiles_per = [-(-s[0].shape[0] // ATOM_TILE) for s in structures]
+    total_tiles = sum(tiles_per)
+    if total_tiles > 65535:
+        raise ValueError(
+            f"chunk too large for u16 tile ids: {total_tiles} tiles"
+        )
+    m = total_tiles * ATOM_TILE
+    planes = np.zeros((N_XFER_PLANES, m), dtype=np.float32)
+    jlist = np.zeros((total_tiles, JLIST_ROWS), dtype=np.uint32)
+
+    offsets = []
+    failed: list[int] = []
+    tile0 = 0
+    pos = 0
+    for s_i, (coords, radii, gids) in enumerate(structures):
+        n = coords.shape[0]
+        nt = tiles_per[s_i]
+        # Center per structure: |c| ~ 30 instead of ~300 keeps every f32
+        # intermediate (|v|^2, dot chains) well away from cancellation.
+        # Rounding the f64 mean to a 1/256 A grid makes the center - and
+        # hence the whole packing - bit-identical to the native C++
+        # packer, whose sequential f64 sum orders differently.
+        center = np.round(
+            coords.mean(axis=0, dtype=np.float64) * 256.0
+        ) / 256.0
+        coords = coords - center.astype(np.float32)
+        order = np.argsort(_morton_codes(coords), kind="stable")
+        inv = np.empty(n, dtype=np.int64)
+        inv[order] = np.arange(n)
+        c = coords[order]
+        r_eff = radii[order] + np.float32(probe)
+        g = gids[order].astype(np.float64) + 1.0
+
+        planes[0:3, pos:pos + n] = c.T
+        planes[3, pos:pos + n] = r_eff
+        planes[4, pos:pos + n] = g
+
+        # Vectorized per-tile AND per-8-group AABBs + max reach; padding
+        # slots are neutral.
+        slots = nt * ATOM_TILE
+        ng = nt * GROUPS_PER_TILE
+        big = np.float32(3e4)
+        cmin = np.full((slots, 3), big, dtype=np.float32)
+        cmin[:n] = c
+        cmax = np.full((slots, 3), -big, dtype=np.float32)
+        cmax[:n] = c
+        rpad = np.zeros(slots, dtype=np.float32)
+        rpad[:n] = r_eff
+        gmin = cmin.reshape(ng, J_GROUP, 3).min(axis=1)
+        gmax = cmax.reshape(ng, J_GROUP, 3).max(axis=1)
+        gmaxr = rpad.reshape(ng, J_GROUP).max(axis=1)
+        tmin = gmin.reshape(nt, GROUPS_PER_TILE, 3).min(axis=1)
+        tmax = gmax.reshape(nt, GROUPS_PER_TILE, 3).max(axis=1)
+        tmaxr = gmaxr.reshape(nt, GROUPS_PER_TILE).max(axis=1)
+
+        # Host-side tile-pair culling: [nt, nt] AABB separation test.
+        gap = np.maximum(
+            np.maximum(
+                tmin[:, None, :] - tmax[None, :, :],
+                tmin[None, :, :] - tmax[:, None, :],
+            ),
+            0.0,
+        )
+        sep2 = (gap * gap).sum(axis=2)
+        # CULL_SLACK keeps the cull conservative under u16 coordinate
+        # quantization (quantize_packed) - the kernel sees coordinates
+        # moved by up to ~0.01 A relative to the f32 values culled here.
+        reach = tmaxr[:, None] + tmaxr[None, :] + np.float32(CULL_SLACK)
+        active = sep2 <= reach * reach  # [nt_i, nt_j]
+        ii, jj = np.nonzero(active)
+        masks = np.zeros(len(ii), dtype=np.uint32)
+        if len(ii):
+            # Fine culling: i-tile AABB vs each of the j-tile's 16 8-atom
+            # group AABBs -> 16-bit mask per admitted pair.  The kernel
+            # streams ONLY masked-in groups (the measured gap: ~2035
+            # admitted j/atom at tile granularity vs ~875 at group
+            # granularity).
+            jg = (jj[:, None] * GROUPS_PER_TILE
+                  + np.arange(GROUPS_PER_TILE)[None, :])  # [p, 16]
+            ggap = np.maximum(
+                np.maximum(
+                    tmin[ii][:, None, :] - gmax[jg],
+                    gmin[jg] - tmax[ii][:, None, :],
+                ),
+                0.0,
+            )
+            gsep2 = (ggap * ggap).sum(axis=2)  # [p, 16]
+            greach = (tmaxr[ii][:, None] + gmaxr[jg]
+                      + np.float32(CULL_SLACK))
+            bits = gsep2 <= greach * greach  # [p, 16]
+            masks = (
+                bits.astype(np.uint32)
+                << np.arange(GROUPS_PER_TILE, dtype=np.uint32)[None, :]
+            ).sum(axis=1, dtype=np.uint32)
+            # Pairs whose tile AABBs touch but no group does: drop.
+            keep = masks != 0
+            ii, jj, masks = ii[keep], jj[keep], masks[keep]
+            pair_sep2 = sep2[ii, jj]
+        counts = np.bincount(ii, minlength=nt)
+        if counts.max(initial=0) > JLIST_CAP:
+            # Pathological tiling (e.g. Morton folds spanning the box):
+            # zero this structure's slots and let the caller reroute it.
+            planes[:, pos:pos + n] = 0.0
+            failed.append(s_i)
+            offsets.append(None)
+            tile0 += nt
+            pos += nt * ATOM_TILE
+            continue
+        sl = slice(tile0, tile0 + nt)
+        jlist[sl, 0] = counts
+        if len(ii):
+            # Deterministic nearest-first order within each row (by AABB
+            # separation): keeps this packer bit-compatible with the
+            # native C++ packer and the device-side banded builder, which
+            # sort the same way.  (The shipped kernel streams branchlessly
+            # - order does not affect its speed.)
+            row_order = np.lexsort((pair_sep2, ii))
+            ii = ii[row_order]
+            jj = jj[row_order]
+            masks = masks[row_order]
+            starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+            row_pos = np.arange(len(ii)) - np.repeat(starts, counts)
+            jlist[tile0 + ii, 1 + row_pos] = (
+                (masks << np.uint32(16)) | (jj + tile0).astype(np.uint32)
+            )
+
+        offsets.append((pos, n, inv))
+        tile0 += nt
+        pos += nt * ATOM_TILE
+
+    return planes, jlist, offsets, failed
+
+
 def to_device(wire, device) -> tuple:
     """Move a packer's numpy arrays to `device` as torch tensors.
 
@@ -412,7 +624,7 @@ def fused_counts_reference(planes, jlist, sphere):
     lim = -1e30 where gid_j == gid_i or gid_j == 0; a point counts as
     accessible when that max is <= 0 and the point is valid.  The
     reference computes the same in `_fused_count_kernel`.  Work is done
-    in blocks of at most REFERENCE_BLOCK_ELEMS (j, i, point) margins.
+    in blocks of at most REFERENCE_BLOCK_ELEMS[device] (j, i, point) margins.
     """
     m = planes.shape[1]
     t = m // ATOM_TILE
@@ -421,6 +633,7 @@ def fused_counts_reference(planes, jlist, sphere):
     sx, sy, sz = sphere[:, 0], sphere[:, 1], sphere[:, 2]
     point_valid = sphere[:, 3] > 0.0
     out = torch.empty(m, dtype=torch.int32, device=dev)
+    block_elems = REFERENCE_BLOCK_ELEMS[dev.type]
 
     ent = jlist[:, 1:].to(torch.int64) & 0xFFFFFFFF  # [T, JLIST_CAP]
     live = (torch.arange(JLIST_CAP, device=dev)[None, :]
@@ -454,7 +667,7 @@ def fused_counts_reference(planes, jlist, sphere):
         inv2ri = torch.full_like(ri, 0.5) / torch.clamp_min(ri, 1e-6)
         occ = torch.full((b, ATOM_TILE, p), _NEG_BIG, dtype=torch.float32,
                          device=dev)
-        jc = max(1, REFERENCE_BLOCK_ELEMS // (b * ATOM_TILE * p))
+        jc = max(1, block_elems // (b * ATOM_TILE * p))
         for j0 in range(0, n_j, jc):
             js = slice(j0, j0 + jc)
             vx = xi - xk[:, js, None]  # [B, Jc, A]
@@ -476,8 +689,9 @@ def fused_counts_reference(planes, jlist, sphere):
 
 
 def fused_counts(planes, jlist, sphere):
-    """Occlusion counts [M] i32 from planes [N_PLANES, M] f32, j-lists
-    [T, JLIST_ROWS] i32 and the sphere [P, 4] f32 (x, y, z, valid).
+    """Occlusion counts [M] i32 from planes [>= 5, M] f32 (rows x, y, z,
+    r_eff, gid+1; later rows are not read), j-lists [T, JLIST_ROWS] i32
+    and the sphere [P, 4] f32 (x, y, z, valid).
 
     CPU tensors take the plain-torch version; CUDA tensors launch the
     hand-written kernel (or raise) and never fall back.
@@ -509,3 +723,32 @@ def fused_sasa_q16_banded(planes4, tparams, tmeta, sphere,
     planes, qvalid = dequant_q16(planes4, tparams)
     jlist = build_jlist_banded(planes, qvalid, tmeta, w=w)
     return _counts_out(fused_counts(planes, jlist, sphere), n_points)
+
+
+def fused_sasa_q16(planes4, tparams, jlist, sphere, *, n_points: int):
+    """Host-cull q16 wire: 8 B/slot planes culled on the host
+    (pack_structures + quantize_packed) -> per-slot occlusion counts.
+
+    Dequantized with per-tile params and slot-index gids exactly like the
+    banded q16 wire; the j-list rides with the planes.
+    """
+    planes, _qvalid = dequant_q16(planes4, tparams)
+    return _counts_out(fused_counts(planes, jlist, sphere), n_points)
+
+
+def fused_sasa(planes5, jlist, sphere, *, n_points: int):
+    """f32 host-cull wire with real group ids -> per-slot SASA [M] f32.
+
+    planes5: [N_XFER_PLANES, M] f32 (x, y, z, r_eff, gid+1; 0 = padding).
+    SASA = counts * (4 pi / n_points * r_eff) * r_eff, in the reference's
+    order; the reference reads back f16 by default for its TPU link, the
+    port reads back f32.
+    """
+    r_eff = planes5[3]
+    area = torch.where(
+        planes5[4] > 0.0,
+        (r_eff * float(np.float32(4.0 * np.pi / n_points))) * r_eff,
+        0.0,
+    )
+    counts = fused_counts(planes5, jlist, sphere)
+    return counts.to(torch.float32) * area

@@ -2,7 +2,9 @@
 
 Both packages run the reference's own `process_directory` (the port through
 its `_host` alias) over the same files, one after the other: the native
-radius table is process-global state.  Output files must be byte-identical.
+radius table is process-global state.  Output files must be byte-identical,
+on the native C++ host route and on the Python one, and both sides must
+take the same route.
 """
 
 import os
@@ -11,10 +13,14 @@ import shutil
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+import rustsasa_tpu.batch as ref_batch
+import rustsasa_tpu.native as ref_native
+import rustsasa_tpu_torch._host.batch as port_batch
+import rustsasa_tpu_torch._host.native as port_native
 from conftest import REFERENCE_DATA
 from rustsasa_tpu.api import SASAOptions as RefOptions
-from rustsasa_tpu.batch import process_directory as ref_process_directory
 from rustsasa_tpu.levels import Level as RefLevel
 from rustsasa_tpu.ops.engine import BatchedSasaEngine as RefEngine
 from rustsasa_tpu.ops.engine import SasaParams as RefParams
@@ -25,8 +31,20 @@ from rustsasa_tpu_torch import (
     SasaParams,
     process_directory,
 )
+from rustsasa_tpu_torch._host_build import build_shared_library
 
 SMALL_PDBS = ("2drt.pdb.gz", "2gpi.pdb.gz", "3uc7.pdb.gz")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and each process's spinning OpenMP threads would fight the
+    others' for the same cores (a 1 s test took 300 s that way)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -38,16 +56,51 @@ def corpus(tmp_path_factory):
     return d
 
 
+@pytest.fixture(scope="module", autouse=True)
+def native_library_on_both_sides():
+    """Both packages load the complete native library.
+
+    A fresh checkout builds it on first use; the reference's loader
+    builds in place, so in a run with several workers one may load a
+    half-written file and latch `_lib_failed` for the rest of its life.
+    The locked build below leaves a complete file; a latch left by such a
+    race is cleared for this module, so the two sides cannot silently
+    take different host routes.
+    """
+    path = build_shared_library(
+        ref_native._SRC, ref_native._LIB, ref_native._build
+    )
+    assert path is not None, "the native library does not build here"
+    with pytest.MonkeyPatch.context() as mp:
+        if ref_native._lib is None and ref_native._lib_failed:
+            mp.setattr(ref_native, "_lib_failed", False)
+        assert ref_native.pipe_library() is not None, "JAX side: no native lib"
+        assert port_native.pipe_library() is not None, "port: no native lib"
+        yield
+
+
 def _outputs(out_dir):
     return {
         f: (out_dir / f).read_bytes() for f in sorted(os.listdir(out_dir))
     }
 
 
-@pytest.mark.parametrize("fmt", ["json", "xml"])
-def test_process_directory_byte_identical_to_reference(corpus, tmp_path, fmt):
+@pytest.mark.parametrize("fmt, route", [
+    pytest.param("json", "native", id="json"),
+    pytest.param("xml", "native", id="xml"),
+    pytest.param("json", "python", id="json-python"),
+    pytest.param("xml", "python", id="xml-python"),
+])
+def test_process_directory_byte_identical_to_reference(
+    corpus, tmp_path, monkeypatch, fmt, route
+):
+    if route == "python":
+        # Force the Python host spine on both sides, as
+        # tests/test_native_pipe.py does for the reference.
+        monkeypatch.setattr(ref_batch, "pipe_library", lambda: None)
+        monkeypatch.setattr(port_batch, "pipe_library", lambda: None)
     ref_out = tmp_path / "ref"
-    ref_report = ref_process_directory(
+    ref_report = ref_batch.process_directory(
         str(corpus), str(ref_out), RefOptions(level=RefLevel.RESIDUE), fmt,
         progress=False, workers=2,
         engine=RefEngine(RefParams(), backend="fused_interpret",

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain-torch version, on the card.
+"""The port's CUDA kernels against their plain-torch versions, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere.  The
 file imports no JAX, so it runs on a machine without it:
@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from rustsasa_tpu_torch.ops import _kernels, engine
+from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
 from rustsasa_tpu_torch.ops import fused_kernel as fk
 
 pytestmark = pytest.mark.gpu
@@ -78,3 +78,110 @@ def test_kernel_wrapper_checks_inputs(cuda):
     with pytest.raises(TypeError):
         _kernels.fused_count(planes, torch.zeros((2, 128), device=cuda),
                              sphere)
+
+
+def test_fused_count_on_host_cull_jlist_byte_equal_plain(cuda):
+    # Host j-lists: full 0xFFFF masks (negative as int32) and a full
+    # 127-entry row over repeated tiles, on the f32 planes.
+    structures = _structures([150, 420, 300, 2000], seed=7, spread=20.0)
+    planes, jlist, offsets, failed = fk.pack_structures(structures, 1.4, 100)
+    assert failed == []
+    jlist = jlist.copy()
+    t = jlist.shape[0]
+    jlist[0, 0] = fk.JLIST_CAP
+    jlist[0, 1:] = (np.uint32(0xFFFF) << np.uint32(16)) | (
+        np.arange(fk.JLIST_CAP, dtype=np.uint32) % np.uint32(t)
+    )
+    planes_d, jlist_d = fk.to_device((planes, jlist), cuda)
+    assert int(jlist_d[0, 1]) < 0
+    sphere = engine._sphere_device(100, cuda)
+    got = fk.fused_counts(planes_d, jlist_d, sphere)
+    want = fk.fused_counts_reference(planes_d, jlist_d, sphere)
+    assert torch.equal(got, want)
+    area = fk.fused_sasa(planes_d, jlist_d, sphere, n_points=100)
+    area_cpu = fk.fused_sasa(*fk.to_device((planes, jlist), "cpu"),
+                             engine._sphere_device(100, torch.device("cpu")),
+                             n_points=100)
+    assert torch.equal(area.cpu(), area_cpu)
+
+
+def _records(n, k, seed):
+    rng = np.random.default_rng(seed)
+    v = torch.from_numpy(rng.uniform(-6, 6, (n, k, 3)).astype(np.float32))
+    limit = torch.from_numpy(rng.uniform(-8, 2, (n, k)).astype(np.float32))
+    counts = torch.from_numpy(rng.integers(0, k + 1, n))
+    limit[torch.arange(k)[None, :] >= counts[:, None]] = -1e30
+    area = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    return v, limit, counts, area
+
+
+# P = 104, 960 and 5,000 padded points: 2 passes of K = 13, 15 of 16,
+# 79 of 16 (the last pass partly past the sphere's end).
+@pytest.mark.parametrize("n_points", [100, 960, 5000])
+def test_list_occlusion_byte_equal_plain(cuda, n_points):
+    v, limit, counts, area = (t.to(cuda) for t in _records(700, 40, 3))
+    sphere = engine._sphere_device(n_points, cuda)
+    kmax = neighbors.tile_kmax(counts, 40)
+    before = _kernels.launch_counts["list_occlusion"]
+    got = neighbors.occlusion_sasa(v, limit, area, sphere, kmax)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["list_occlusion"] == before + 1
+    planes = [t.T.contiguous() for t in (v[..., 0], v[..., 1], v[..., 2],
+                                        limit)]
+    want = neighbors.occlusion_sasa_reference(*planes, area, sphere, kmax)
+    assert torch.equal(got, want)
+    assert (got > 0).any() and (got < area * n_points).any()
+
+
+def test_list_path_engine_cuda_equals_cpu(cuda):
+    structures = _structures([5, 90, 400], seed=8)
+    structures.append((np.zeros((0, 3), np.float32), np.zeros(0, np.float32),
+                       None))
+    params = engine.SasaParams(n_points=2500)
+    eng = engine.BatchedSasaEngine(params, device=cuda)
+    assert eng.backend == "list"
+    _kernels.reset_launch_counts()
+    got = eng.compute(structures)
+    assert _kernels.launch_counts["list_occlusion"] == eng.routes.counts["list"]
+    assert _kernels.launch_counts["fused_count"] == 0
+    want = engine.BatchedSasaEngine(params, device="cpu").compute(structures)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_host_cull_engine_cuda_equals_cpu(cuda):
+    small = _structures([100], seed=9)[0]
+    shared = _structures([300], seed=10)[0]
+    gids = shared[2].copy()
+    gids[-1] = gids[0]
+    big = _structures([16_600], seed=11, spread=110.0)[0]  # 130 tiles
+    structures = [small, (shared[0], shared[1], gids), big]
+    eng = engine.BatchedSasaEngine(device=cuda)
+    got = eng.compute([small, big])
+    assert eng.routes.counts["host_q16"] == 1
+    got += eng.compute([(shared[0], shared[1], gids)])
+    assert eng.routes.counts["f32"] == 1
+    want = engine.BatchedSasaEngine(device="cpu").compute(
+        [small, big]) + engine.BatchedSasaEngine(device="cpu").compute(
+        [(shared[0], shared[1], gids)])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert len(got) == len(structures)
+
+
+def test_list_occlusion_wrapper_checks_inputs(cuda):
+    v = torch.zeros((8, 256), device=cuda)
+    area = torch.zeros(256, device=cuda)
+    sphere = torch.zeros((104, 4), device=cuda)
+    kmax = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="tile_kmax shape"):
+        _kernels.list_occlusion(v, v, v, v, area, sphere, kmax[:1])
+    with pytest.raises(TypeError):
+        _kernels.list_occlusion(v, v, v, v, area, sphere, kmax.float())
+    with pytest.raises(ValueError, match="area shape"):
+        _kernels.list_occlusion(v, v, v, v, area[:128], sphere, kmax)
+    with pytest.raises(ValueError, match="contiguous"):
+        _kernels.list_occlusion(v.T, v, v, v, area, sphere, kmax)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.list_occlusion(*(t.cpu() for t in (v, v, v, v, area,
+                                                     sphere, kmax)))

@@ -25,6 +25,17 @@ PROBE = 1.4
 RADII = np.array([1.4, 1.55, 1.6, 1.7, 1.8, 1.9, 2.0], np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and each process's spinning OpenMP threads would fight the
+    others' for the same cores (a 1 s test took 300 s that way)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _structures(sizes, seed, spread=25.0):
     rng = np.random.default_rng(seed)
     out = []
@@ -59,7 +70,7 @@ def _jax_jlist(planes, qvalid, tmeta, w):
 
 @pytest.mark.parametrize(
     "name", ["_pack_structures_q13_numpy", "_pack_structures_q16_numpy",
-             "_morton_codes"],
+             "_morton_codes", "_pack_structures_numpy", "quantize_packed"],
 )
 def test_packer_copies_pinned_to_reference(name):
     # The numpy packers are copied (the reference module imports JAX);
@@ -180,7 +191,7 @@ def test_jlist_never_culls_true_neighbors():
 @pytest.mark.parametrize("n_points", [60, 100])
 def test_counts_reference_byte_equal_pallas(n_points, monkeypatch):
     # Small blocks: the plain version walks its j-atoms in many chunks.
-    monkeypatch.setattr(port, "REFERENCE_BLOCK_ELEMS", 1 << 16)
+    monkeypatch.setitem(port.REFERENCE_BLOCK_ELEMS, "cpu", 1 << 16)
     wa, wb, pal, tp, tm, offsets = ref._pack_structures_q13_numpy(
         _structures([150, 600], seed=5), PROBE
     )
@@ -261,3 +272,118 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     sphere = torch.zeros((104, 4))
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.fused_count(planes, jlist, sphere)
+
+
+def _host_cull_wire(seed=8):
+    """Host-cull packing of a small chunk with one shared group id, and
+    its j-list edited to carry a full 127-entry row of 0xFFFF masks
+    (negative as int32) over repeated tiles."""
+    structures = _structures([150, 420, 300], seed=seed, spread=20.0)
+    gids = structures[1][2].copy()
+    gids[5] = gids[4]
+    structures[1] = (structures[1][0], structures[1][1], gids)
+    planes, jlist, offsets, failed = ref._pack_structures_numpy(
+        structures, PROBE, 100
+    )
+    assert failed == []
+    t = jlist.shape[0]
+    jlist = jlist.copy()
+    jlist[0, 0] = ref.JLIST_CAP
+    jlist[0, 1:] = (np.uint32(0xFFFF) << np.uint32(16)) | (
+        np.arange(ref.JLIST_CAP, dtype=np.uint32) % np.uint32(t)
+    )
+    return structures, planes, jlist, offsets
+
+
+def test_host_cull_packers_byte_equal_reference_and_native():
+    structures = _structures([3, 100, 128, 700, 1500], seed=9)
+    gids = structures[3][2].copy()
+    gids[10] = gids[11]  # shared ids ride the f32 planes
+    structures[3] = (structures[3][0], structures[3][1], gids)
+    want = ref._pack_structures_numpy(structures, PROBE, 100)
+    for got in (port._pack_structures_numpy(structures, PROBE, 100),
+                port.pack_structures(structures, PROBE, 100)):
+        for a, b in zip(got[:2], want[:2]):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        for oa, ob in zip(got[2], want[2]):
+            assert oa[0] == ob[0] and oa[1] == ob[1]
+            np.testing.assert_array_equal(oa[2], ob[2])
+        assert got[3] == want[3] == []
+    spans = [(o[0], o[1]) for o in want[2]]
+    q_ref = ref.quantize_packed(want[0], spans)
+    q_port = port.quantize_packed(want[0], spans)
+    for a, b in zip(q_port, q_ref):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    # Past 1,300 A the quantizer refuses, on both sides.
+    far = want[0].copy()
+    far[0, spans[1][0]] += 2000.0
+    assert port.quantize_packed(far, spans) is None
+    assert ref.quantize_packed(far, spans) is None
+
+
+@pytest.mark.parametrize("n_points", [100, 256])
+def test_fused_sasa_f32_byte_equal_reference(n_points):
+    structures, planes, jlist, offsets = _host_cull_wire()
+    packed, s128 = _sphere128(n_points)
+    want = np.asarray(ref.fused_sasa(
+        planes, jlist, s128, n_points=n_points, out_dtype=np.float32,
+        interpret=True,
+    ))
+    got = port.fused_sasa(
+        *port.to_device((planes, jlist), "cpu"), torch.from_numpy(packed),
+        n_points=n_points,
+    ).numpy()
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    assert (got[_real_slots(offsets, got.shape[0])] > 0).any()
+
+
+@pytest.mark.parametrize("n_points", [100, 256])
+def test_fused_sasa_q16_counts_byte_equal_reference(n_points):
+    structures, planes, jlist, offsets = _host_cull_wire(seed=10)
+    spans = [(o[0], o[1]) for o in offsets]
+    planes4, tparams = port.quantize_packed(planes, spans)
+    packed, s128 = _sphere128(n_points)
+    wire = port.to_device((planes4, tparams, jlist), "cpu")
+    got = port.fused_sasa_q16(
+        *wire, torch.from_numpy(packed), n_points=n_points
+    ).numpy()
+    if n_points > 255:
+        got = got.view(np.uint16)
+    # The reference's counts on the same dequantized planes and j-lists
+    # (the port's dequant is pinned to the numpy spec above).
+    deq, _ = port.dequant_q16(*wire[:2])
+    want = np.asarray(ref._counts_call(
+        deq.numpy(), jlist, s128, interpret=True
+    )).reshape(-1)
+    real = _real_slots(offsets, got.shape[0])
+    assert got.dtype == (np.uint8 if n_points <= 255 else np.uint16)
+    np.testing.assert_array_equal(got[real], want[real].astype(got.dtype))
+
+
+def test_reference_host_cull_dequant_is_fused_on_xla_cpu():
+    """Why the host-cull q16 wire is compared on identical planes: inside
+    the reference's `fused_sasa_q16` jit, XLA-CPU contracts
+    q * scale + origin into one fused multiply-add, where the reference's
+    source (and the port) round the multiply and the add separately."""
+    _, planes, _, offsets = _host_cull_wire(seed=11)
+    planes4, tparams = ref.quantize_packed(
+        planes, [(o[0], o[1]) for o in offsets]
+    )
+    q = planes4[0].astype(np.float64)
+    par = np.repeat(tparams, ref.ATOM_TILE, axis=0).astype(np.float64)
+    fused = (q * par[:, 3] + par[:, 0]).astype(np.float32)
+    separate = (planes4[0].astype(np.float32) * tparams.repeat(
+        ref.ATOM_TILE, axis=0)[:, 3]) + tparams.repeat(
+        ref.ATOM_TILE, axis=0)[:, 0]
+    xla = np.asarray(jax.jit(
+        lambda p4, tp: p4.astype(np.float32)
+        * jax.numpy.repeat(tp, ref.ATOM_TILE, axis=0)[:, 3]
+        + jax.numpy.repeat(tp, ref.ATOM_TILE, axis=0)[:, 0]
+    )(planes4[0], tparams))
+    port_x = port.dequant_q16(*port.to_device((planes4, tparams), "cpu"))[0]
+    np.testing.assert_array_equal(port_x[0].numpy(), separate)
+    np.testing.assert_array_equal(xla, fused)
+    assert (fused != separate).any()

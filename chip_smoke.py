@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rustsasa_tpu_torch/ops/csrc/` and
-runs seven phases, each of which must pass:
+runs eight phases, each of which must pass:
 
   1. build: nvcc for sm_90a, one process per kernel source, all started
      together, with the compiler's register/spill report;
@@ -32,10 +32,18 @@ runs seven phases, each of which must pass:
      on CUDA, with the chunks of each route counted (the three largest
      need the host-cull wires or the list path); their JSON is
      byte-identical to the CPU's; a shared-group-id structure through the
-     f32 wire equals the CPU result exactly.
+     f32 wire equals the CPU result exactly;
+  8. count-kernel studies: on a banded q16 chunk of up to 524,288 slots
+     (w = 32) the per-half (pair64) and nibble-list kernels, and on the
+     host-cull f32 chunk of the same structures the tile-saturation kernel
+     checking every 1, 2 and 4 entries, each byte-equal to its plain
+     version (saturation: counts and entries streamed) and equal to the
+     count kernel at every real slot; then the studies' run() at
+     2,097,152 slots, kernels only, timed against the count kernel, whose
+     launches are the three kernels' launch counts.
 
-Prints the card's name and power limit, one JSON line with both kernels'
-numbers, and as its last line
+Prints the card's name and power limit, one JSON line with the five
+kernels' numbers, and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
 fails.  Everything it writes goes under build/chip_smoke/.
@@ -65,6 +73,12 @@ KERNELS = {
                     "rustsasa_tpu/ops/fused_kernel.py:131"),
     "list_occlusion": ("rustsasa_tpu_torch/ops/csrc/list_occlusion.cu",
                        "rustsasa_tpu/ops/pallas_kernel.py:41"),
+    "pair64_count": ("rustsasa_tpu_torch/ops/csrc/pair64_count.cu",
+                     "scripts/r5_pair64.py:305"),
+    "nibble_count": ("rustsasa_tpu_torch/ops/csrc/nibble_count.cu",
+                     "scripts/r5_pair64.py:472"),
+    "saturation_count": ("rustsasa_tpu_torch/ops/csrc/saturation_count.cu",
+                         "scripts/r4_saturation.py:65"),
 }
 LARGEST = ("1hbn.pdb.gz", "1n62.pdb.gz", "1jz8.pdb.gz")
 PROBE = 1.4
@@ -112,42 +126,15 @@ def build_corpus(corpus_dir, target_files=TARGET_FILES,
     return count, n_atoms, len(prefix)
 
 
-def select(path):
-    """Residue-level selection of one file, as process_directory makes it:
-    (coords, radii, gids)."""
-    from rustsasa_tpu_torch._host.native import native_process_file
-
-    ns = native_process_file(
-        path, level="residue", include_hydrogens=False,
-        include_hetatms=False, read_radii_from_occupancy=False,
-        allow_vdw_fallback=False,
-    )
-    try:
-        return ns.coords.copy(), ns.radii.copy(), ns.gids.copy()
-    finally:
-        ns.close()
-
-
-def corpus_chunk(corpus_dir, slots):
-    """Selected (coords, radii, gids) of the corpus's first files, in
-    directory order, filling at most `slots` atom slots."""
-    triples, used = [], 0
-    for name in sorted(os.listdir(corpus_dir)):
-        t = select(os.path.join(corpus_dir, name))
-        n_slots = -(-max(t[0].shape[0], 1) // 128) * 128
-        if used + n_slots > slots:
-            break
-        triples.append(t)
-        used += n_slots
-    return triples
-
-
-def record(name, launches, max_err, ms, plain_ms):
+def record(name, launches, max_err, ms, plain_ms, vs_fused_count_ms):
+    """One kernel's entry of the kernels line; vs_fused_count_ms is
+    fused_count's time on the input `ms` was taken on (None where
+    fused_count does not run on it)."""
     source, replaces = KERNELS[name]
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": ms, "plain_ms": plain_ms, "vs_fused_count_ms": vs_fused_count_ms,
     }
 
 
@@ -190,8 +177,9 @@ def phase_kernel_vs_plain(corpus_dir, device):
     import torch
 
     from rustsasa_tpu_torch.ops import engine, fused_kernel as fk
+    from rustsasa_tpu_torch.scripts._study import load_corpus
 
-    triples = corpus_chunk(corpus_dir, CHECK_CHUNK_SLOTS)
+    triples = load_corpus(corpus_dir, slots=CHECK_CHUNK_SLOTS)
     wa, wb, pal, tp, tm, offsets = fk.pack_structures_q13(triples, 1.4)
     m = wa.shape[0]
     max_nt = max(-(-t[0].shape[0] // 128) for t in triples)
@@ -240,7 +228,7 @@ def phase_kernel_vs_plain(corpus_dir, device):
         raise AssertionError(f"kernel disagrees with plain at real slots: {max_err}")
     if not np.isfinite(kernel_ms) or int(got[real].min()) < 0:
         raise AssertionError("kernel produced no valid counts")
-    return record("fused_count", None, max_err, kernel_ms, plain_ms)
+    return record("fused_count", None, max_err, kernel_ms, plain_ms, kernel_ms)
 
 
 def phase_golden(device, sample_dir, work):
@@ -346,6 +334,7 @@ def phase_list_kernel(device):
     import torch
 
     from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
+    from rustsasa_tpu_torch.scripts._study import select
 
     coords, radii, gids = select(os.path.join(SOURCE_DIR, LARGEST[-1]))
     n = coords.shape[0]
@@ -388,7 +377,7 @@ def phase_list_kernel(device):
         raise AssertionError("list kernel disagrees with its plain version")
     if not bool((got[:n] > 0).any()):
         raise AssertionError("list kernel found no accessible surface")
-    return record("list_occlusion", None, max_err, kernel_ms, plain_ms)
+    return record("list_occlusion", None, max_err, kernel_ms, plain_ms, None)
 
 
 ANALYTIC = (
@@ -462,6 +451,7 @@ def phase_host_cull(device, work):
         BatchedSasaEngine, Level, SASAOptions, SasaParams, process_directory,
     )
     from rustsasa_tpu_torch.ops import _kernels
+    from rustsasa_tpu_torch.scripts._study import select
 
     options = SASAOptions(level=Level.RESIDUE)
     n_files = len(os.listdir(SOURCE_DIR))
@@ -550,6 +540,150 @@ def phase_host_cull(device, work):
         f"(total {float(outs['cpu'].sum()):.3f})")
 
 
+def _kernel_vs_plain(name, kernel, plain, prod, real):
+    """Time a study kernel (10 launches) and its plain version (1) on the
+    same tensors; every output byte-equal to the plain version's and the
+    counts equal to fused_count's `prod` at the `real` slots.  Returns
+    (ms, plain_ms, max |diff| over the outputs, kernel outputs)."""
+    import torch
+
+    ms, got = cuda_ms(kernel, 10)
+    plain_ms, want = cuda_ms(plain, 1)
+    got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+    max_err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                  for g, w in zip(got, want))
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    d_prod = int((got[0].to(torch.int64) - prod.to(torch.int64)).abs()[real]
+                 .max())
+    log(f"[studies] {name} {ms:.3f} ms, plain torch {plain_ms:.3f} ms; "
+        f"byte-equal to plain: {equal} (max |diff| {max_err}); max |count - "
+        f"fused_count| at real slots {d_prod}")
+    if not equal or d_prod != 0:
+        raise AssertionError(f"{name}: disagrees with its plain version or "
+                             f"with fused_count")
+    return ms, plain_ms, max_err, got
+
+
+def phase_count_studies(corpus_dir, device):
+    """Phase 8: the count-kernel studies.  Each study kernel against its
+    plain version and fused_count on a corpus chunk, then both studies'
+    run() at full size, kernels only, with the launches of those runs.
+    Returns the three kernels' records."""
+    import torch
+
+    from rustsasa_tpu_torch.ops import _kernels, engine, fused_kernel as fk
+    from rustsasa_tpu_torch.scripts import _study
+    from rustsasa_tpu_torch.scripts import r4_saturation as r4
+    from rustsasa_tpu_torch.scripts import r5_pair64 as r5
+
+    t_phase = time.perf_counter()
+    sphere = engine._sphere_device(100, device)
+    triples = _study.load_corpus(corpus_dir, slots=CHECK_CHUNK_SLOTS,
+                                 max_tiles=r5.W)
+    n_atoms = sum(t[0].shape[0] for t in triples)
+
+    # Banded q16 at w = 32: pair64 and nibble.
+    planes4, tp, tm, offsets = fk.pack_structures_q16(triples, PROBE)
+    planes4, tp, tm = fk.to_device((planes4, tp, tm), device)
+    planes, qvalid = fk.dequant_q16(planes4, tp)
+    real = _study.real_slots(offsets, planes.shape[1], device)
+    build_ms = {}
+    build_ms["banded"], jlist = cuda_ms(
+        lambda: fk.build_jlist_banded(planes, qvalid, tm, w=r5.W), 3)
+    build_ms["banded_2h"], (jlist_a, jmask_b) = cuda_ms(
+        lambda: r5.build_jlist_banded_2h(planes, qvalid, tm, w=r5.W), 3)
+    build_ms["nibble"], (jl, w1, w2) = cuda_ms(
+        lambda: r5.build_jlist_nibble(planes, qvalid, tm, w=r5.W), 3)
+    prod_ms, prod = cuda_ms(lambda: fk.fused_counts(planes, jlist, sphere), 10)
+    log(f"[studies] banded q16 chunk: {len(triples)} structures, {n_atoms} "
+        f"atoms, {planes.shape[1]} slots, w={r5.W}; builders "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in build_ms.items())
+        + f"; fused_count {prod_ms:.3f} ms")
+    records = {}
+    ms, plain_ms, err, _ = _kernel_vs_plain(
+        "pair64_count",
+        lambda: r5.pair64_counts(planes, jlist_a, jmask_b, sphere),
+        lambda: r5.pair64_counts_reference(planes, jlist_a, jmask_b, sphere),
+        prod, real)
+    records["pair64_count"] = record("pair64_count", None, err, ms, plain_ms,
+                                     prod_ms)
+    ms, plain_ms, err, _ = _kernel_vs_plain(
+        "nibble_count",
+        lambda: r5.nibble_counts(planes, jl, w1, w2, sphere),
+        lambda: r5.nibble_counts_reference(planes, jl, w1, w2, sphere),
+        prod, real)
+    records["nibble_count"] = record("nibble_count", None, err, ms, plain_ms,
+                                     prod_ms)
+
+    # Host-cull f32: saturation checked every 1, 2 and 4 entries.
+    planes5, jlist5, offsets5, failed = fk.pack_structures(triples, PROBE, 100)
+    if failed:
+        raise AssertionError(f"host j-lists overflowed for {failed}")
+    planes5, jlist5 = fk.to_device((planes5, jlist5), device)
+    real5 = _study.real_slots(offsets5, planes5.shape[1], device)
+    passes, _k = _kernels.point_passes(sphere.shape[0])
+    entries = passes * int(jlist5[:, 0].sum())
+    prod5_ms, prod5 = cuda_ms(lambda: fk.fused_counts(planes5, jlist5, sphere),
+                              10)
+    log(f"[studies] host-cull f32 chunk: {entries} j-list entries over "
+        f"{passes} point passes; fused_count {prod5_ms:.3f} ms")
+    for ce in r4.CHECKS:
+        ms, plain_ms, err, (_, streamed) = _kernel_vs_plain(
+            f"saturation_count (check_every={ce})",
+            lambda ce=ce: r4.saturation_counts(planes5, jlist5, sphere,
+                                               check_every=ce),
+            lambda ce=ce: r4.saturation_counts_reference(
+                planes5, jlist5, sphere, check_every=ce),
+            prod5, real5)
+        log(f"[studies]   skipped {entries - int(streamed.sum())} of "
+            f"{entries} entries")
+        if ce == 1:
+            records["saturation_count"] = dict(
+                record("saturation_count", None, err, ms, plain_ms, prod5_ms),
+                check_every=1)
+
+    # Full size: the studies' own entry, kernels only.
+    t0 = time.perf_counter()
+    full = _study.load_corpus(corpus_dir, max_tiles=r5.W)
+    log(f"[studies] full-size chunk: {len(full)} structures selected in "
+        f"{time.perf_counter() - t0:.1f}s")
+    _kernels.reset_launch_counts()
+    pair = r5.run(full, device)
+    sat = r4.run(full, device)
+    launches = dict(_kernels.launch_counts)
+    r5.report(pair, device, "[studies] r5_pair64")
+    r4.report(sat, device, "[studies] r4_saturation")
+    log(f"[studies] launches in the two runs: {launches}")
+    prod_full = pair["variants"]["prod"]["ms"]
+    for name, variant in (("pair64_count", pair["variants"]["pair64"]),
+                          ("nibble_count", pair["variants"]["nibble"])):
+        log(f"[studies] {name} {variant['ms']:.3f} ms vs fused_count "
+            f"{prod_full:.3f} ms on the banded chunk "
+            f"({variant['ms'] / prod_full:.3f}x)")
+    log(f"[studies] builders vs build_jlist_banded: " + ", ".join(
+        f"{k} {v['ms']:.3f} ms" for k, v in pair["builders"].items()))
+    log(f"[studies] streamed j-atoms/atom: prod "
+        f"{pair['variants']['prod']['j_atoms_per_atom']:.1f}, pair64 "
+        f"{pair['variants']['pair64']['j_atoms_per_atom']:.1f}")
+    prod_sat = sat["variants"]["prod"]["ms"]
+    for ce in r4.CHECKS:
+        v = sat["variants"][f"sat{ce}"]
+        log(f"[studies] saturation_count check_every={ce} {v['ms']:.3f} ms vs "
+            f"fused_count {prod_sat:.3f} ms on the host-cull chunk "
+            f"({v['ms'] / prod_sat:.3f}x); skipped "
+            f"{100 * v['skipped']:.3f} % of entries")
+    for result in (pair, sat):
+        for name, v in result["variants"].items():
+            if v["max_dcount"] != 0:
+                raise AssertionError(f"full size: {name} differs from prod")
+    for name in records:
+        records[name]["launches"] = launches[name]
+        if launches[name] == 0:
+            raise AssertionError(f"{name} did not launch in the studies' runs")
+    log(f"[studies] phase 8 took {time.perf_counter() - t_phase:.1f}s")
+    return list(records.values())
+
+
 def main() -> int:
     import torch
 
@@ -589,8 +723,9 @@ def main() -> int:
     listed = phase_list_kernel(device)
     listed["launches"] = phase_list_path(device)
     phase_host_cull(device, WORK)
+    studies = phase_count_studies(corpus_dir, device)
     log(smi)
-    print(json.dumps({"kernels": [count, listed]}))
+    print(json.dumps({"kernels": [count, listed, *studies]}))
     print(json.dumps({
         "ok": True,
         "device": {

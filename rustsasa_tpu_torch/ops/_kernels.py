@@ -5,7 +5,8 @@ shared library with a plain C interface and loaded with ctypes: no
 PyTorch headers, so a build takes seconds, and the sources build in
 parallel (one nvcc each, all started together).  The build happens at
 first use, into `build/rustsasa_tpu_torch/` beside the package, keyed by
-a hash of the source and flags; nothing is built or imported when this
+a hash of the source, the shared `.cuh` headers and the flags; nothing
+is built or imported when this
 module is imported.  Every launch is counted in `launch_counts`, so a run
 can show that its work went through the kernel.
 """
@@ -35,8 +36,15 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 MAX_P_PAD = 2048
+# Sphere points per thread and slices per CTA of the count kernels
+# (csrc/count_tile.cuh kMaxK, kSlices).
+MAX_K = 16
+SLICES = 4
 
-launch_counts = {"fused_count": 0, "list_occlusion": 0}
+launch_counts = {
+    "fused_count": 0, "list_occlusion": 0, "pair64_count": 0,
+    "nibble_count": 0, "saturation_count": 0,
+}
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
 _launchers: dict = {}
@@ -47,6 +55,9 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "fused_count": [_VOIDP] * 4 + [_INT] * 2 + [_VOIDP],
     "list_occlusion": [_VOIDP] * 8 + [_INT] * 3 + [_VOIDP],
+    "pair64_count": [_VOIDP] * 5 + [_INT] * 2 + [_VOIDP],
+    "nibble_count": [_VOIDP] * 6 + [_INT] * 2 + [_VOIDP],
+    "saturation_count": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
 }
 
 
@@ -80,10 +91,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def point_passes(p: int) -> tuple[int, int]:
+    """(passes, K) of the count kernels for a P-point sphere: the fewest
+    passes of SLICES x MAX_K points, then the smallest K points per
+    thread covering P.  A pass covers points [pass*SLICES*K,
+    (pass+1)*SLICES*K)."""
+    passes = -(-p // (SLICES * MAX_K))
+    return passes, -(-p // (SLICES * passes))
+
+
 def _target(name: str) -> str:
+    """Library path keyed by the flags, the source and the shared
+    headers it may include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
@@ -143,6 +167,43 @@ def _check(name, t, dtype, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _count_inputs(name, planes, sphere, jplanes):
+    """Checks shared by the count kernels: planes [>= 5, M] f32, sphere
+    [P, 4] f32 and each j-list plane [M/128, 128] i32, contiguous on one
+    CUDA device; M a positive multiple of 128 and 0 < P <= 2048.
+    Returns (device, M, P)."""
+    device = planes.device
+    if device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {device}")
+    _check("planes", planes, torch.float32, 2, device)
+    _check("sphere", sphere, torch.float32, 2, device)
+    m = planes.shape[1]
+    p = sphere.shape[0]
+    if planes.shape[0] < 5 or m == 0 or m % 128:
+        raise ValueError(f"planes shape {tuple(planes.shape)} unsupported")
+    for jname, t in jplanes.items():
+        _check(jname, t, torch.int32, 2, device)
+        if tuple(t.shape) != (m // 128, 128):
+            raise ValueError(
+                f"{jname} shape {tuple(t.shape)} != ({m // 128}, 128)"
+            )
+    if sphere.shape[1] != 4 or not 0 < p <= MAX_P_PAD:
+        raise ValueError(f"sphere shape {tuple(sphere.shape)} unsupported")
+    return device, m, p
+
+
+def _launch(name, device, *args):
+    """Launch kernel `name` with pointer/int `args` on the current stream
+    of `device`; raise if the launch was refused, count it if not."""
+    launch = _library(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = launch(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}_launch failed: cudaError {rc}")
+    _count(name)
+
+
 def fused_count(planes, jlist, sphere):
     """Launch the occlusion-count kernel on the current stream -> [M] i32.
 
@@ -150,33 +211,65 @@ def fused_count(planes, jlist, sphere):
     contiguous on one CUDA device; M a positive multiple of 128 and
     0 < P <= 2048.
     """
-    device = planes.device
-    if device.type != "cuda":
-        raise ValueError(f"fused_count needs CUDA tensors, got {device}")
-    _check("planes", planes, torch.float32, 2, device)
-    _check("jlist", jlist, torch.int32, 2, device)
-    _check("sphere", sphere, torch.float32, 2, device)
-    m = planes.shape[1]
-    p = sphere.shape[0]
-    if planes.shape[0] < 5 or m == 0 or m % 128:
-        raise ValueError(f"planes shape {tuple(planes.shape)} unsupported")
-    if tuple(jlist.shape) != (m // 128, 128):
-        raise ValueError(f"jlist shape {tuple(jlist.shape)} != ({m // 128}, 128)")
-    if sphere.shape[1] != 4 or not 0 < p <= MAX_P_PAD:
-        raise ValueError(f"sphere shape {tuple(sphere.shape)} unsupported")
+    device, m, p = _count_inputs("fused_count", planes, sphere,
+                                 {"jlist": jlist})
     # Rows 0..4 of planes are read with a row stride of M.
     out = torch.empty(m, dtype=torch.int32, device=device)
-    launch = _library("fused_count")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = launch(
-            planes.data_ptr(), jlist.data_ptr(), sphere.data_ptr(),
-            out.data_ptr(), m, p, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_count_launch failed: cudaError {rc}")
-    _count("fused_count")
+    _launch("fused_count", device, planes.data_ptr(), jlist.data_ptr(),
+            sphere.data_ptr(), out.data_ptr(), m, p)
     return out
+
+
+def pair64_count(planes, jlist_a, jmask_b, sphere):
+    """Launch the per-half admission count kernel -> [M] i32.
+
+    As fused_count, but lanes 0-63 of a tile stream the groups of the
+    entry's mask A ((mask_a << 16) | j in jlist_a) and lanes 64-127 those
+    of mask B (the low 16 bits of the same cell of jmask_b).
+    """
+    device, m, p = _count_inputs("pair64_count", planes, sphere,
+                                 {"jlist_a": jlist_a, "jmask_b": jmask_b})
+    out = torch.empty(m, dtype=torch.int32, device=device)
+    _launch("pair64_count", device, planes.data_ptr(), jlist_a.data_ptr(),
+            jmask_b.data_ptr(), sphere.data_ptr(), out.data_ptr(), m, p)
+    return out
+
+
+def nibble_count(planes, jl, w1, w2, sphere):
+    """Launch the nibble-list count kernel -> [M] i32.
+
+    As fused_count, but an entry is (gcount << 16) | j and its admitted
+    group ids are the first gcount 4-bit nibbles of w1 (0-7) and w2
+    (8-15) in the same cells.
+    """
+    device, m, p = _count_inputs("nibble_count", planes, sphere,
+                                 {"jl": jl, "w1": w1, "w2": w2})
+    out = torch.empty(m, dtype=torch.int32, device=device)
+    _launch("nibble_count", device, planes.data_ptr(), jl.data_ptr(),
+            w1.data_ptr(), w2.data_ptr(), sphere.data_ptr(), out.data_ptr(),
+            m, p)
+    return out
+
+
+def saturation_count(planes, jlist, sphere, check_every: int):
+    """Launch the tile-saturation count kernel -> (counts [M] i32,
+    streamed [M/128] i32).
+
+    As fused_count, but after every check_every-th entry a CTA whose
+    points of the current pass are all occluded for all 128 atoms leaves
+    that pass's entry loop; streamed[tile] sums the entries each pass
+    went through.
+    """
+    device, m, p = _count_inputs("saturation_count", planes, sphere,
+                                 {"jlist": jlist})
+    if check_every < 1:
+        raise ValueError(f"check_every {check_every} < 1")
+    out = torch.empty(m, dtype=torch.int32, device=device)
+    streamed = torch.empty(m // 128, dtype=torch.int32, device=device)
+    _launch("saturation_count", device, planes.data_ptr(), jlist.data_ptr(),
+            sphere.data_ptr(), out.data_ptr(), streamed.data_ptr(), m, p,
+            check_every)
+    return out, streamed
 
 
 def list_occlusion(vx, vy, vz, limit, area, sphere, tile_kmax):
@@ -211,15 +304,7 @@ def list_occlusion(vx, vy, vz, limit, area, sphere, tile_kmax):
             f"tile_kmax shape {tuple(tile_kmax.shape)} != ({-(-n // 128)},)"
         )
     out = torch.empty(n, dtype=torch.float32, device=device)
-    launch = _library("list_occlusion")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = launch(
-            vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), limit.data_ptr(),
-            area.data_ptr(), sphere.data_ptr(), tile_kmax.data_ptr(),
-            out.data_ptr(), n, k, p, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"list_occlusion_launch failed: cudaError {rc}")
-    _count("list_occlusion")
+    _launch("list_occlusion", device, vx.data_ptr(), vy.data_ptr(),
+            vz.data_ptr(), limit.data_ptr(), area.data_ptr(),
+            sphere.data_ptr(), tile_kmax.data_ptr(), out.data_ptr(), n, k, p)
     return out

@@ -29,22 +29,14 @@
 // explicitly rounded __f*_rn intrinsic (no FMA contraction), in the
 // reference's order; the library is also built with --fmad=false.
 // Double-buffered TMA loads and wgmma are not used: the margin is not a
-// matrix product, and the loads are not on the critical path.
+// matrix product, and the loads are not on the critical path.  The
+// pieces it shares with its variants are in count_tile.cuh.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "count_tile.cuh"
 
 namespace {
 
-constexpr int kAtomTile = 128;
-constexpr int kJlistRows = 128;
-constexpr int kJGroup = 8;
-constexpr int kRecords = 5;  // x, y, z, r_eff, gid
-constexpr int kSlices = 4;
-constexpr int kThreads = kAtomTile * kSlices;
-constexpr int kMaxK = 16;
-constexpr int kMaxPPad = 2048;
-constexpr float kNegBig = -1e30f;
+using namespace rustsasa;
 
 template <int K>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -67,18 +59,9 @@ fused_count_kernel(const float* __restrict__ planes,   // [8, m]
   const int64_t mm = m;
   const int64_t i = static_cast<int64_t>(tile) * kAtomTile + a;
 
-  for (int q = tid; q < n_cover; q += kThreads) {
-    sph[q] = q < p ? sphere[q] : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  stage_sphere(sph, sphere, p, n_cover);
   if (tid < kAtomTile) cnt[tid] = 0;
-
-  const float xi = planes[0 * mm + i];
-  const float yi = planes[1 * mm + i];
-  const float zi = planes[2 * mm + i];
-  const float ri = planes[3 * mm + i];
-  const float gi = planes[4 * mm + i];
-  const float r2i = __fmul_rn(ri, ri);
-  const float inv2ri = __fdiv_rn(0.5f, fmaxf(ri, 1e-6f));
+  const IAtom at = load_i_atom(planes, mm, i);
 
   const int32_t* row = jlist + static_cast<int64_t>(tile) * kJlistRows;
   const int n_entries = min(max(row[0], 0), kJlistRows - 1);
@@ -88,73 +71,30 @@ fused_count_kernel(const float* __restrict__ planes,   // [8, m]
     __syncthreads();  // sphere and counters staged
     const int p0 = (pass * kSlices + slice) * K;
     float sx[K], sy[K], sz[K], occ[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float4 s = sph[p0 + k];
-      sx[k] = s.x;
-      sy[k] = s.y;
-      sz[k] = s.z;
-      occ[k] = kNegBig;
-    }
+    load_points<K>(sph, p0, kNegBig, sx, sy, sz, occ);
     for (int e = 0; e < n_entries; ++e) {
       const uint32_t entry = static_cast<uint32_t>(row[1 + e]);
       const int jt = static_cast<int>(entry & 0xFFFFu);
       uint32_t mask = entry >> 16;
       if (jt >= n_tiles || mask == 0u) continue;  // uniform over the CTA
-      const int64_t jbase = static_cast<int64_t>(jt) * kAtomTile;
-      __syncthreads();  // the previous j-tile is consumed
-      for (int q = tid; q < kRecords * kAtomTile; q += kThreads) {
-        jrec[q] = planes[(q / kAtomTile) * mm + jbase + (q % kAtomTile)];
-      }
-      __syncthreads();
+      load_j_tile(jrec, planes, mm, jt);
       while (mask != 0u) {
         const int g = __ffs(mask) - 1;
         mask &= mask - 1u;
-#pragma unroll
-        for (int r = 0; r < kJGroup; ++r) {
-          const int jj = g * kJGroup + r;
-          const float xk = jrec[0 * kAtomTile + jj];
-          const float yk = jrec[1 * kAtomTile + jj];
-          const float zk = jrec[2 * kAtomTile + jj];
-          const float rk = jrec[3 * kAtomTile + jj];
-          const float gk = jrec[4 * kAtomTile + jj];
-          const float vx = __fsub_rn(xi, xk);
-          const float vy = __fsub_rn(yi, yk);
-          const float vz = __fsub_rn(zi, zk);
-          const float v2 = __fadd_rn(
-              __fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)),
-              __fmul_rn(vz, vz));
-          float lim = __fmul_rn(
-              __fsub_rn(__fsub_rn(__fmul_rn(rk, rk), v2), r2i), inv2ri);
-          if (gi == gk || gk == 0.0f) lim = kNegBig;
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            const float dot = __fadd_rn(
-                __fmul_rn(sx[k], vx),
-                __fadd_rn(__fmul_rn(sy[k], vy), __fmul_rn(sz[k], vz)));
-            occ[k] = fmaxf(occ[k], __fsub_rn(lim, dot));
-          }
-        }
+        stream_group<K>(jrec, g, at, sx, sy, sz, occ);
       }
     }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      accessible += (occ[k] <= 0.0f && sph[p0 + k].w > 0.0f) ? 1 : 0;
-    }
+    accessible += count_accessible<K>(sph, p0, occ);
   }
-  atomicAdd(&cnt[a], accessible);
-  __syncthreads();
-  if (slice == 0) out[i] = cnt[a];
+  write_count(cnt, a, slice, accessible, out, i);
 }
 
 template <int K>
 int launch(const float* planes, const int32_t* jlist, const float4* sphere,
            int32_t* out, int m, int p, int passes, cudaStream_t stream) {
-  const size_t smem = sizeof(float4) * passes * kSlices * K +
-                      sizeof(float) * kRecords * kAtomTile +
-                      sizeof(int) * kAtomTile;
-  fused_count_kernel<K><<<m / kAtomTile, kThreads, smem, stream>>>(
-      planes, jlist, sphere, out, m, p, passes);
+  fused_count_kernel<K>
+      <<<m / kAtomTile, kThreads, count_smem(passes, K), stream>>>(
+          planes, jlist, sphere, out, m, p, passes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -167,27 +107,14 @@ int launch(const float* planes, const int32_t* jlist, const float4* sphere,
 extern "C" int fused_count_launch(const void* planes, const void* jlist,
                                   const void* sphere, void* out, int m,
                                   int p, void* stream) {
-  if (m <= 0 || m % kAtomTile != 0 || p <= 0 || p > kMaxPPad) {
+  int passes, k;
+  if (m <= 0 || m % kAtomTile != 0 || !count_split(p, &passes, &k)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // Fewest passes of 4 x kMaxK points, then the smallest K covering p.
-  const int passes = (p + kSlices * kMaxK - 1) / (kSlices * kMaxK);
-  const int k = (p + kSlices * passes - 1) / (kSlices * passes);
-  const auto* pl = static_cast<const float*>(planes);
-  const auto* jl = static_cast<const int32_t*>(jlist);
-  const auto* sp = static_cast<const float4*>(sphere);
-  auto* o = static_cast<int32_t*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-#define RUSTSASA_CASE(K) \
-  case K:                \
-    return launch<K>(pl, jl, sp, o, m, p, passes, s);
-    RUSTSASA_CASE(1) RUSTSASA_CASE(2) RUSTSASA_CASE(3) RUSTSASA_CASE(4)
-    RUSTSASA_CASE(5) RUSTSASA_CASE(6) RUSTSASA_CASE(7) RUSTSASA_CASE(8)
-    RUSTSASA_CASE(9) RUSTSASA_CASE(10) RUSTSASA_CASE(11) RUSTSASA_CASE(12)
-    RUSTSASA_CASE(13) RUSTSASA_CASE(14) RUSTSASA_CASE(15) RUSTSASA_CASE(16)
-#undef RUSTSASA_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  RUSTSASA_SWITCH_K(
+      k, launch<K>(static_cast<const float*>(planes),
+                   static_cast<const int32_t*>(jlist),
+                   static_cast<const float4*>(sphere),
+                   static_cast<int32_t*>(out), m, p, passes,
+                   static_cast<cudaStream_t>(stream)))
 }

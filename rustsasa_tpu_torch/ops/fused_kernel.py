@@ -524,15 +524,19 @@ def _sum3(x):
     return (x[..., 0] + x[..., 1]) + x[..., 2]
 
 
-def build_jlist_banded(planes, qvalid, tmeta, *, w: int):
-    """Tile-pair culling on the device -> [T, JLIST_ROWS] i32 j-lists.
+def band_cull(planes, qvalid, tmeta, *, w: int, halves: int = 1):
+    """The banded cull shared by the device-side j-list builders.
 
-    Port of the reference's build_jlist_banded, byte-equal to it: banded
-    tile-pair AABB test over offsets d in (-w, w) within each structure's
-    own tile band, per-i-atom point-to-box 8-atom-group masks, and a
-    stable nearest-first sort.  Entries are built in int64 and narrowed,
-    so a mask with bit 15 set wraps negative exactly as the reference's
-    int32 shift does.
+    For the nd = 2w-1 offsets d in (-w, w) of every i-tile's own tile
+    band, returns
+      j [nd, T] i64: the j-tile i + d - (w-1),
+      act [nd, T] bool: the tile pair is in the structure and its AABBs
+        are in reach,
+      sep2 [nd, T] f32: the tile pair's squared AABB separation,
+      bits [nd, T, GROUPS_PER_TILE, halves] bool: some i-atom (point plus
+        its own r_eff) of the i-tile's half h reaches the box of j-tile
+        group g (halves=1: of the whole tile, halves=2: of lanes 0-63
+        and 64-127).
     """
     m = planes.shape[1]
     t = m // ATOM_TILE
@@ -587,7 +591,8 @@ def build_jlist_banded(planes, qvalid, tmeta, *, w: int):
     gmin_p = padded(gmin.reshape(t, GROUPS_PER_TILE, 3))
     gmax_p = padded(gmax.reshape(t, GROUPS_PER_TILE, 3))
     gmaxr_p = padded(gmaxr.reshape(t, GROUPS_PER_TILE))
-    bits = torch.empty((nd, t, GROUPS_PER_TILE), dtype=torch.bool, device=dev)
+    bits = torch.empty((nd, t, GROUPS_PER_TILE, halves), dtype=torch.bool,
+                       device=dev)
     for d in range(nd):
         mn = gmin_p[d:d + t, :, None, :]  # [T, 16, 1, 3]
         mx = gmax_p[d:d + t, :, None, :]
@@ -595,22 +600,55 @@ def build_jlist_banded(planes, qvalid, tmeta, *, w: int):
         g = torch.clamp_min(torch.maximum(mn - ci, ci - mx), 0.0)
         pb2 = _sum3(g * g)  # [T, 16, A]
         rr = r_t[:, None, :] + gmaxr_p[d:d + t, :, None] + slack
-        bits[d] = (rr * rr - pb2).amax(dim=-1) >= 0.0
-    weights = 1 << torch.arange(GROUPS_PER_TILE, dtype=torch.int64, device=dev)
-    mask = (bits.to(torch.int64) * weights).sum(dim=-1)  # [nd, T]
-    act = act & (mask > 0)
+        bits[d] = (rr * rr - pb2).reshape(
+            t, GROUPS_PER_TILE, halves, ATOM_TILE // halves
+        ).amax(dim=-1) >= 0.0
+    return j, act, sep2, bits
 
-    # Nearest-first compaction: a stable sort of each band row by masked
-    # separation; inactive entries sink to the end with +inf keys.
+
+def group_mask(bits):
+    """[..., GROUPS_PER_TILE] bool -> [...] i64 16-bit group masks."""
+    weights = 1 << torch.arange(GROUPS_PER_TILE, dtype=torch.int64,
+                                device=bits.device)
+    return (bits.to(torch.int64) * weights).sum(dim=-1)
+
+
+def compact_rows(act, sep2, *payloads):
+    """Nearest-first compaction of band entries into [T, JLIST_ROWS] i32
+    rows, one per [nd, T] i64 payload: a stable sort of each band row by
+    masked separation (inactive entries sink to the end with +inf keys),
+    the payloads gathered in that order and narrowed to int32, so bit 31
+    wraps negative exactly as the reference's int32 shifts do.  Column 0
+    of the first row holds the count of active entries, of the others 0.
+    """
+    nd, t = act.shape
     key = torch.where(act, sep2, float("inf")).T  # [T, nd]
-    entries = ((mask << 16) | j).T
     _, order = torch.sort(key, dim=1, stable=True)
-    ent_s = entries.gather(1, order).to(torch.int32)
     nkeep = min(nd, JLIST_CAP)
-    jlist = torch.zeros((t, JLIST_ROWS), dtype=torch.int32, device=dev)
-    jlist[:, 0] = act.sum(dim=0).to(torch.int32)
-    jlist[:, 1:1 + nkeep] = ent_s[:, :nkeep]
-    return jlist
+    rows = []
+    for payload in payloads:
+        sorted_ = payload.T.gather(1, order).to(torch.int32)
+        row = torch.zeros((t, JLIST_ROWS), dtype=torch.int32, device=act.device)
+        row[:, 1:1 + nkeep] = sorted_[:, :nkeep]
+        rows.append(row)
+    rows[0][:, 0] = act.sum(dim=0).to(torch.int32)
+    return rows
+
+
+def build_jlist_banded(planes, qvalid, tmeta, *, w: int):
+    """Tile-pair culling on the device -> [T, JLIST_ROWS] i32 j-lists.
+
+    Port of the reference's build_jlist_banded, byte-equal to it: banded
+    tile-pair AABB test over offsets d in (-w, w) within each structure's
+    own tile band, per-i-atom point-to-box 8-atom-group masks, and a
+    stable nearest-first sort.  Entries are built in int64 and narrowed,
+    so a mask with bit 15 set wraps negative exactly as the reference's
+    int32 shift does.
+    """
+    j, act, sep2, bits = band_cull(planes, qvalid, tmeta, w=w)
+    mask = group_mask(bits[..., 0])  # [nd, T]
+    act = act & (mask > 0)
+    return compact_rows(act, sep2, (mask << 16) | j)[0]
 
 
 def fused_counts_reference(planes, jlist, sphere):
@@ -688,6 +726,17 @@ def fused_counts_reference(planes, jlist, sphere):
     return out
 
 
+def on_device(plain, kernel, planes, *args, **kwargs):
+    """`plain(planes, ...)` for CPU tensors, the hand-written `kernel` for
+    CUDA tensors; the kernel launches or raises and never falls back, and
+    any other device is refused."""
+    if planes.device.type == "cpu":
+        return plain(planes, *args, **kwargs)
+    if planes.device.type != "cuda":
+        raise ValueError(f"{kernel.__name__}: unsupported device {planes.device}")
+    return kernel(planes, *args, **kwargs)
+
+
 def fused_counts(planes, jlist, sphere):
     """Occlusion counts [M] i32 from planes [>= 5, M] f32 (rows x, y, z,
     r_eff, gid+1; later rows are not read), j-lists [T, JLIST_ROWS] i32
@@ -696,11 +745,8 @@ def fused_counts(planes, jlist, sphere):
     CPU tensors take the plain-torch version; CUDA tensors launch the
     hand-written kernel (or raise) and never fall back.
     """
-    if planes.device.type == "cpu":
-        return fused_counts_reference(planes, jlist, sphere)
-    if planes.device.type != "cuda":
-        raise ValueError(f"fused_counts: unsupported device {planes.device}")
-    return _kernels.fused_count(planes, jlist, sphere)
+    return on_device(fused_counts_reference, _kernels.fused_count, planes,
+                     jlist, sphere)
 
 
 def _counts_out(counts, n_points: int):

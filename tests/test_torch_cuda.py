@@ -12,6 +12,7 @@ import torch
 
 from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
 from rustsasa_tpu_torch.ops import fused_kernel as fk
+from rustsasa_tpu_torch.scripts import r4_saturation, r5_pair64
 
 pytestmark = pytest.mark.gpu
 
@@ -185,3 +186,93 @@ def test_list_occlusion_wrapper_checks_inputs(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.list_occlusion(*(t.cpu() for t in (v, v, v, v, area,
                                                      sphere, kmax)))
+
+
+def _launched(name, fn):
+    """fn()'s output, checking that it launched kernel `name` once."""
+    before = _kernels.launch_counts[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts[name] == before + 1
+    return out
+
+
+# P = 104 (2 passes of K = 13) and 960 (15 passes of K = 16).
+@pytest.mark.parametrize("n_points", [100, 960])
+def test_pair64_and_nibble_byte_equal_plain(cuda, n_points):
+    structures = _structures([100, 700, 2600, 3700], seed=20 + n_points)
+    planes4, tp, tm, offsets = fk.pack_structures_q16(structures, 1.4)
+    planes4, tp, tm = fk.to_device((planes4, tp, tm), cuda)
+    planes, qvalid = fk.dequant_q16(planes4, tp)
+    sphere = engine._sphere_device(n_points, cuda)
+    prod = fk.fused_counts(
+        planes, fk.build_jlist_banded(planes, qvalid, tm, w=32), sphere
+    )
+    jlist_a, jmask_b = r5_pair64.build_jlist_banded_2h(planes, qvalid, tm,
+                                                       w=32)
+    jl, w1, w2 = r5_pair64.build_jlist_nibble(planes, qvalid, tm, w=32)
+    assert (jlist_a[:, 1:] < 0).any() and (w1 < 0).any()  # bit 31 set
+    real = torch.zeros(planes.shape[1], dtype=torch.bool, device=cuda)
+    for pos, n, _inv in offsets:
+        real[pos:pos + n] = True
+    for name, kernel, plain in (
+        ("pair64_count",
+         lambda: r5_pair64.pair64_counts(planes, jlist_a, jmask_b, sphere),
+         lambda: r5_pair64.pair64_counts_reference(planes, jlist_a, jmask_b,
+                                                   sphere)),
+        ("nibble_count",
+         lambda: r5_pair64.nibble_counts(planes, jl, w1, w2, sphere),
+         lambda: r5_pair64.nibble_counts_reference(planes, jl, w1, w2,
+                                                   sphere)),
+    ):
+        got = _launched(name, kernel)
+        assert torch.equal(got, plain()), name
+        assert torch.equal(got[real], prod[real]), name
+
+
+@pytest.mark.parametrize("n_points", [100, 960])
+def test_saturation_byte_equal_plain(cuda, n_points):
+    structures = _structures([150, 420, 300, 2000], seed=30, spread=20.0)
+    planes5, jlist, _offsets, failed = fk.pack_structures(structures, 1.4, 100)
+    assert failed == []
+    sphere = engine._sphere_device(n_points, cuda)
+    passes, _k = _kernels.point_passes(sphere.shape[0])
+    for wire in ((planes5, jlist), r4_saturation.buried_block_wire()):
+        planes, jl = fk.to_device(wire, cuda)
+        prod = fk.fused_counts(planes, jl, sphere)
+        for check_every in (1, 2, 4):
+            got, streamed = _launched(
+                "saturation_count",
+                lambda: r4_saturation.saturation_counts(
+                    planes, jl, sphere, check_every=check_every),
+            )
+            want, want_streamed = r4_saturation.saturation_counts_reference(
+                planes, jl, sphere, check_every=check_every
+            )
+            assert torch.equal(got, want) and torch.equal(got, prod)
+            assert torch.equal(streamed, want_streamed)
+            assert bool((streamed <= passes * jl[:, 0]).all())
+    # The lattice's buried tile stops early in every pass; the shell's do not.
+    assert int(streamed[0]) < passes * int(jl[0, 0])
+    assert torch.equal(streamed[1:], passes * jl[1:, 0])
+
+
+def test_count_study_wrappers_check_inputs(cuda):
+    planes = torch.zeros((8, 256), device=cuda)
+    sphere = torch.zeros((104, 4), device=cuda)
+    jl = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="jmask_b shape"):
+        _kernels.pair64_count(planes, jl, jl[:1], sphere)
+    with pytest.raises(TypeError):
+        _kernels.nibble_count(planes, jl, jl.float(), jl, sphere)
+    with pytest.raises(ValueError, match="contiguous"):
+        _kernels.nibble_count(planes, jl, jl, jl.T.contiguous().T, sphere)
+    with pytest.raises(ValueError, match="check_every"):
+        _kernels.saturation_count(planes, jl, sphere, 0)
+    with pytest.raises(ValueError, match="sphere shape"):
+        _kernels.saturation_count(planes, jl, torch.zeros((4000, 4),
+                                                          device=cuda), 1)
+    with pytest.raises(ValueError, match="planes shape"):
+        _kernels.pair64_count(planes[:, :200].contiguous(), jl, jl, sphere)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.saturation_count(planes.cpu(), jl.cpu(), sphere.cpu(), 1)

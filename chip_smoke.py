@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rustsasa_tpu_torch/ops/csrc/` and
-runs eight phases, each of which must pass:
+runs nine phases, each of which must pass:
 
   1. build: nvcc for sm_90a, one process per kernel source, all started
      together, with the compiler's register/spill report;
@@ -33,17 +33,29 @@ runs eight phases, each of which must pass:
      need the host-cull wires or the list path); their JSON is
      byte-identical to the CPU's; a shared-group-id structure through the
      f32 wire equals the CPU result exactly;
-  8. count-kernel studies: on a banded q16 chunk of up to 524,288 slots
+  8. count-kernel studies: on a banded q16 chunk of 524,288 slots
      (w = 32) the per-half (pair64) and nibble-list kernels, and on the
      host-cull f32 chunk of the same structures the tile-saturation kernel
      checking every 1, 2 and 4 entries, each byte-equal to its plain
      version (saturation: counts and entries streamed) and equal to the
      count kernel at every real slot; then the studies' run() at
      2,097,152 slots, kernels only, timed against the count kernel, whose
+     launches are the three kernels' launch counts;
+  9. count-kernel studies II: on the host-cull f32 chunk of phase 8's
+     structures the loop micro-variants (micro_count: prod, split2, g16,
+     g24, nosmem) and the reach-test kernel (reach_count: base,
+     nogroupcond, jskip, group4, nocond, bf16, bf16p), on their banded q16
+     chunk the max-plus kernel (maxplus_count); each byte-equal to its
+     plain version for every variant (reach_count: counts and j-rows
+     executed), the f32 variants equal to the count kernel at every real
+     slot, bf16, bf16p and max-plus with their count difference reported;
+     then the three studies' run() at 2,097,152 slots, kernels only, whose
      launches are the three kernels' launch counts.
 
-Prints the card's name and power limit, one JSON line with the five
-kernels' numbers, and as its last line
+Prints the card's name and power limit, one JSON line with the eight
+kernels' numbers (each with its bound: the larger of its FP32
+instructions at this run's work over the 33.5T/s issue peak and its
+bytes over 3.35 TB/s), and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
 fails.  Everything it writes goes under build/chip_smoke/.
@@ -79,9 +91,20 @@ KERNELS = {
                      "scripts/r5_pair64.py:472"),
     "saturation_count": ("rustsasa_tpu_torch/ops/csrc/saturation_count.cu",
                          "scripts/r4_saturation.py:65"),
+    "micro_count": ("rustsasa_tpu_torch/ops/csrc/micro_count.cu",
+                    "scripts/r4_microkernel.py:57"),
+    "reach_count": ("rustsasa_tpu_torch/ops/csrc/reach_count.cu",
+                    "scripts/r3_kernel_variants.py:54"),
+    "maxplus_count": ("rustsasa_tpu_torch/ops/csrc/maxplus_count.cu",
+                      "scripts/r3_maxplus.py:66"),
 }
 LARGEST = ("1hbn.pdb.gz", "1n62.pdb.gz", "1jz8.pdb.gz")
 PROBE = 1.4
+# H100 SXM: FP32 instruction issue peak (132 SMs x 128 lanes x 1.98 GHz;
+# none of the kernels' margin instructions is a fused multiply-add) and
+# HBM bandwidth.
+FP32_INSTR_PER_S = 33.5e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -126,15 +149,38 @@ def build_corpus(corpus_dir, target_files=TARGET_FILES,
     return count, n_atoms, len(prefix)
 
 
-def record(name, launches, max_err, ms, plain_ms, vs_fused_count_ms):
+def bound(instructions, nbytes):
+    """(bound_ms, bound_by): the larger of `instructions` FP32
+    instructions at the issue peak and `nbytes` at HBM bandwidth."""
+    ops_ms = instructions / FP32_INSTR_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def count_bound(margins, instr_per_margin, m, p, jlist_planes=1,
+                extra_out=0):
+    """bound() of a count kernel over m slots and a p-point sphere that
+    evaluates `margins` (j, i, point) margins: rows 0-4 of the planes,
+    `jlist_planes` [m/128, 128] i32 planes and the sphere read once, the
+    counts and `extra_out` more bytes written once."""
+    return bound(instr_per_margin * margins,
+                 4 * m * (5 + jlist_planes + 1) + 16 * p + extra_out)
+
+
+def record(name, launches, max_err, ms, plain_ms, vs_fused_count_ms,
+           bound_ms_by):
     """One kernel's entry of the kernels line; vs_fused_count_ms is
     fused_count's time on the input `ms` was taken on (None where
-    fused_count does not run on it)."""
+    fused_count does not run on it), bound_ms_by the (bound_ms, bound_by)
+    of the same work.  No single PyTorch call computes any of these
+    kernels' functions, so library_ms is null."""
     source, replaces = KERNELS[name]
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "vs_fused_count_ms": vs_fused_count_ms,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
+        "bound_by": bound_ms_by[1], "library_ms": None,
+        "vs_fused_count_ms": vs_fused_count_ms,
     }
 
 
@@ -168,6 +214,14 @@ def phase_build():
         log(f"[build] {name}: {len(regs)} kernel instantiations, "
             f"{min(regs)}-{max(regs)} registers/thread, {sum(spills)} bytes "
             f"spilled")
+        for fn, stores in re.findall(
+                r"Function properties for (\S+)\n[^\n]*?(\d+) bytes spill "
+                r"stores", info.log):
+            if int(stores):
+                args = re.search(r"ILi(\d+)E(?:Li(\d+)E)?E", fn)
+                log(f"[build]   {name} K={args.group(1)}"
+                    + (f" variant {args.group(2)}" if args.group(2) else "")
+                    + f": {stores} bytes of spill stores")
 
 
 def phase_kernel_vs_plain(corpus_dir, device):
@@ -228,7 +282,8 @@ def phase_kernel_vs_plain(corpus_dir, device):
         raise AssertionError(f"kernel disagrees with plain at real slots: {max_err}")
     if not np.isfinite(kernel_ms) or int(got[real].min()) < 0:
         raise AssertionError("kernel produced no valid counts")
-    return record("fused_count", None, max_err, kernel_ms, plain_ms, kernel_ms)
+    return record("fused_count", None, max_err, kernel_ms, plain_ms, kernel_ms,
+                  count_bound(margins, 7, m, sphere.shape[0]))
 
 
 def phase_golden(device, sample_dir, work):
@@ -377,7 +432,15 @@ def phase_list_kernel(device):
         raise AssertionError("list kernel disagrees with its plain version")
     if not bool((got[:n] > 0).any()):
         raise AssertionError("list kernel found no accessible surface")
-    return record("list_occlusion", None, max_err, kernel_ms, plain_ms, None)
+    # Work: 6 FP32 instructions per (point, atom, k < the tile's bound);
+    # bytes: those records (vx, vy, vz, limit), area, sphere, tile bounds
+    # and the output.
+    k_rows = int(kmax.to(torch.int64).clamp(max=kdim).sum()) * 128
+    p = sphere.shape[0]
+    work = bound(6 * k_rows * p,
+                 16 * k_rows + 8 * n_pad + 16 * p + 4 * kmax.numel())
+    return record("list_occlusion", None, max_err, kernel_ms, plain_ms, None,
+                  work)
 
 
 ANALYTIC = (
@@ -540,11 +603,12 @@ def phase_host_cull(device, work):
         f"(total {float(outs['cpu'].sum()):.3f})")
 
 
-def _kernel_vs_plain(name, kernel, plain, prod, real):
+def _kernel_vs_plain(name, kernel, plain, prod, real, equal_to_prod=True):
     """Time a study kernel (10 launches) and its plain version (1) on the
-    same tensors; every output byte-equal to the plain version's and the
-    counts equal to fused_count's `prod` at the `real` slots.  Returns
-    (ms, plain_ms, max |diff| over the outputs, kernel outputs)."""
+    same tensors; every output byte-equal to the plain version's and, with
+    equal_to_prod, the counts equal to fused_count's `prod` at the `real`
+    slots (else their difference is only reported).  Returns (ms,
+    plain_ms, max |diff| over the outputs, kernel outputs)."""
     import torch
 
     ms, got = cuda_ms(kernel, 10)
@@ -553,12 +617,12 @@ def _kernel_vs_plain(name, kernel, plain, prod, real):
     max_err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                   for g, w in zip(got, want))
     equal = all(torch.equal(g, w) for g, w in zip(got, want))
-    d_prod = int((got[0].to(torch.int64) - prod.to(torch.int64)).abs()[real]
-                 .max())
+    d_prod = (got[0].to(torch.int64) - prod.to(torch.int64)).abs()[real]
     log(f"[studies] {name} {ms:.3f} ms, plain torch {plain_ms:.3f} ms; "
-        f"byte-equal to plain: {equal} (max |diff| {max_err}); max |count - "
-        f"fused_count| at real slots {d_prod}")
-    if not equal or d_prod != 0:
+        f"byte-equal to plain: {equal} (max |diff| {max_err}); |count - "
+        f"fused_count| at real slots: max {int(d_prod.max())}, mean "
+        f"{float(d_prod.double().mean()):.6f}")
+    if not equal or (equal_to_prod and int(d_prod.max()) != 0):
         raise AssertionError(f"{name}: disagrees with its plain version or "
                              f"with fused_count")
     return ms, plain_ms, max_err, got
@@ -569,8 +633,6 @@ def phase_count_studies(corpus_dir, device):
     plain version and fused_count on a corpus chunk, then both studies'
     run() at full size, kernels only, with the launches of those runs.
     Returns the three kernels' records."""
-    import torch
-
     from rustsasa_tpu_torch.ops import _kernels, engine, fused_kernel as fk
     from rustsasa_tpu_torch.scripts import _study
     from rustsasa_tpu_torch.scripts import r4_saturation as r4
@@ -580,13 +642,10 @@ def phase_count_studies(corpus_dir, device):
     sphere = engine._sphere_device(100, device)
     triples = _study.load_corpus(corpus_dir, slots=CHECK_CHUNK_SLOTS,
                                  max_tiles=r5.W)
-    n_atoms = sum(t[0].shape[0] for t in triples)
 
     # Banded q16 at w = 32: pair64 and nibble.
-    planes4, tp, tm, offsets = fk.pack_structures_q16(triples, PROBE)
-    planes4, tp, tm = fk.to_device((planes4, tp, tm), device)
-    planes, qvalid = fk.dequant_q16(planes4, tp)
-    real = _study.real_slots(offsets, planes.shape[1], device)
+    planes, qvalid, tm, real, n_atoms, _tiles = _study.banded_chunk(
+        triples, device, CHECK_CHUNK_SLOTS)
     build_ms = {}
     build_ms["banded"], jlist = cuda_ms(
         lambda: fk.build_jlist_banded(planes, qvalid, tm, w=r5.W), 3)
@@ -599,30 +658,37 @@ def phase_count_studies(corpus_dir, device):
         f"atoms, {planes.shape[1]} slots, w={r5.W}; builders "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in build_ms.items())
         + f"; fused_count {prod_ms:.3f} ms")
+    m, p = planes.shape[1], sphere.shape[0]
+    passes, k = _kernels.point_passes(p)
+    points = passes * _kernels.SLICES * k
+    lane_margins = 8 * 128 // 2 * points  # per lane-weighted group
     records = {}
     ms, plain_ms, err, _ = _kernel_vs_plain(
         "pair64_count",
         lambda: r5.pair64_counts(planes, jlist_a, jmask_b, sphere),
         lambda: r5.pair64_counts_reference(planes, jlist_a, jmask_b, sphere),
         prod, real)
-    records["pair64_count"] = record("pair64_count", None, err, ms, plain_ms,
-                                     prod_ms)
+    records["pair64_count"] = record(
+        "pair64_count", None, err, ms, plain_ms, prod_ms, count_bound(
+            int(_study.streamed_groups(jlist_a, jmask_b).sum()) * lane_margins,
+            7, m, p, jlist_planes=2))
     ms, plain_ms, err, _ = _kernel_vs_plain(
         "nibble_count",
         lambda: r5.nibble_counts(planes, jl, w1, w2, sphere),
         lambda: r5.nibble_counts_reference(planes, jl, w1, w2, sphere),
         prod, real)
-    records["nibble_count"] = record("nibble_count", None, err, ms, plain_ms,
-                                     prod_ms)
+    records["nibble_count"] = record(
+        "nibble_count", None, err, ms, plain_ms, prod_ms, count_bound(
+            int(_study.streamed_groups(jlist).sum()) * lane_margins, 7, m, p,
+            jlist_planes=3))
 
     # Host-cull f32: saturation checked every 1, 2 and 4 entries.
-    planes5, jlist5, offsets5, failed = fk.pack_structures(triples, PROBE, 100)
+    planes5, jlist5, real5, _atoms, _tiles, failed = _study.host_cull_chunk(
+        triples, device, CHECK_CHUNK_SLOTS)
     if failed:
-        raise AssertionError(f"host j-lists overflowed for {failed}")
-    planes5, jlist5 = fk.to_device((planes5, jlist5), device)
-    real5 = _study.real_slots(offsets5, planes5.shape[1], device)
-    passes, _k = _kernels.point_passes(sphere.shape[0])
+        raise AssertionError(f"{failed} host j-lists overflowed")
     entries = passes * int(jlist5[:, 0].sum())
+    margins5 = int(_study.streamed_groups(jlist5).sum()) * lane_margins
     prod5_ms, prod5 = cuda_ms(lambda: fk.fused_counts(planes5, jlist5, sphere),
                               10)
     log(f"[studies] host-cull f32 chunk: {entries} j-list entries over "
@@ -638,8 +704,12 @@ def phase_count_studies(corpus_dir, device):
         log(f"[studies]   skipped {entries - int(streamed.sum())} of "
             f"{entries} entries")
         if ce == 1:
+            # The margins of the entries it streamed (all on this corpus).
+            work = margins5 * int(streamed.sum()) // max(entries, 1)
+            m5 = planes5.shape[1]
             records["saturation_count"] = dict(
-                record("saturation_count", None, err, ms, plain_ms, prod5_ms),
+                record("saturation_count", None, err, ms, plain_ms, prod5_ms,
+                       count_bound(work, 7, m5, p, extra_out=4 * m5 // 128)),
                 check_every=1)
 
     # Full size: the studies' own entry, kernels only.
@@ -684,6 +754,115 @@ def phase_count_studies(corpus_dir, device):
     return list(records.values())
 
 
+def phase_count_studies_ii(corpus_dir, device):
+    """Phase 9: the count-kernel studies II.  The loop micro-variants and
+    the reach-test kernel on a host-cull f32 corpus chunk, the max-plus
+    kernel on the banded q16 chunk of the same structures, each against
+    its plain version for every variant and against fused_count; then the
+    three studies' run() at full size, kernels only, with the launches of
+    those runs.  Returns the three kernels' records."""
+    from rustsasa_tpu_torch.ops import _kernels, engine, fused_kernel as fk
+    from rustsasa_tpu_torch.scripts import _study
+    from rustsasa_tpu_torch.scripts import r3_kernel_variants as r3v
+    from rustsasa_tpu_torch.scripts import r3_maxplus as r3m
+    from rustsasa_tpu_torch.scripts import r4_microkernel as r4m
+
+    t_phase = time.perf_counter()
+    sphere = engine._sphere_device(100, device)
+    p = sphere.shape[0]
+    passes, k = _kernels.point_passes(p)
+    points = passes * _kernels.SLICES * k
+    triples = _study.load_corpus(corpus_dir, slots=CHECK_CHUNK_SLOTS,
+                                 max_tiles=r3m.W)
+    planes, jl, real, atoms, tiles, failed = _study.host_cull_chunk(
+        triples, device, CHECK_CHUNK_SLOTS)
+    if failed:
+        raise AssertionError(f"{failed} host j-lists overflowed")
+    m = planes.shape[1]
+    prod_ms, prod = cuda_ms(lambda: fk.fused_counts(planes, jl, sphere), 10)
+    groups = r4m.streamed_groups(jl)
+    log(f"[studies-ii] host-cull f32 chunk: {len(triples)} structures, "
+        f"{atoms} atoms, {tiles} tiles in {m} slots; fused_count "
+        f"{prod_ms:.3f} ms; all 16 groups of every live entry are "
+        f"{groups['nosmem'] / max(groups['prod'], 1):.3f}x the admitted ones")
+    records = {}
+    for variant in r4m.VARIANTS:
+        ms, plain_ms, err, _ = _kernel_vs_plain(
+            f"micro_count ({variant})",
+            lambda v=variant: r4m.micro_counts(planes, jl, sphere, variant=v),
+            lambda v=variant: r4m.micro_counts_reference(planes, jl, sphere,
+                                                         variant=v),
+            prod, real)
+        if variant == r4m.VARIANTS[0]:
+            records["micro_count"] = dict(record(
+                "micro_count", None, err, ms, plain_ms, prod_ms,
+                count_bound(groups[variant] * 8 * 128 * points, 7, m, p)),
+                variant=variant)
+    for variant in r3v.VARIANTS:
+        ms, plain_ms, err, (_, executed) = _kernel_vs_plain(
+            f"reach_count ({variant})",
+            lambda v=variant: r3v.reach_counts(planes, jl, sphere, variant=v),
+            lambda v=variant: r3v.reach_counts_reference(planes, jl, sphere,
+                                                         variant=v),
+            prod, real, equal_to_prod=variant in r3v.F32_VARIANTS)
+        rows = int(executed.sum()) // passes
+        log(f"[studies-ii]   {rows / max(int((jl[:, 0] > 0).sum()), 1):.1f} "
+            f"j-atoms/atom executed, fused_count streams "
+            f"{groups['prod'] * 8 / max(int((jl[:, 0] > 0).sum()), 1):.1f}")
+        if variant == r3v.VARIANTS[0]:
+            records["reach_count"] = dict(record(
+                "reach_count", None, err, ms, plain_ms, prod_ms,
+                count_bound(rows * 128 * points, 7, m, p,
+                            extra_out=4 * m // 128)),
+                variant=variant)
+
+    planes_q, qvalid, tmeta, real_q, _atoms, _tiles = _study.banded_chunk(
+        triples, device, CHECK_CHUNK_SLOTS)
+    jlist_q = fk.build_jlist_banded(planes_q, qvalid, tmeta, w=r3m.W)
+    prod_q_ms, prod_q = cuda_ms(
+        lambda: fk.fused_counts(planes_q, jlist_q, sphere), 10)
+    log(f"[studies-ii] banded q16 chunk, w={r3m.W}: fused_count "
+        f"{prod_q_ms:.3f} ms")
+    ms, plain_ms, err, _ = _kernel_vs_plain(
+        "maxplus_count (mp_static)",
+        lambda: r3m.maxplus_counts(planes_q, jlist_q, sphere),
+        lambda: r3m.maxplus_counts_reference(planes_q, jlist_q, sphere),
+        prod_q, real_q, equal_to_prod=False)
+    margins_q = int(_study.streamed_groups(jlist_q).sum()) // 2 * 8 * 128 * points
+    records["maxplus_count"] = dict(record(
+        "maxplus_count", None, err, ms, plain_ms, prod_q_ms,
+        count_bound(margins_q, r3m.MAXPLUS_INSTR_PER_MARGIN, m, p)),
+        variant="mp_static")
+    log(f"[studies-ii] maxplus_count at {margins_q * 2 / (ms * 1e-3) / 1e12:.2f}T "
+        f"FP32 instr/s at its own work (2 per margin), fused_count at "
+        f"{margins_q * 7 / (prod_q_ms * 1e-3) / 1e12:.2f}T (7 per margin)")
+
+    # Full size: the studies' own entry, kernels only.
+    t0 = time.perf_counter()
+    full = _study.load_corpus(corpus_dir, max_tiles=r3m.W)
+    log(f"[studies-ii] full-size chunk: {len(full)} structures selected in "
+        f"{time.perf_counter() - t0:.1f}s")
+    _kernels.reset_launch_counts()
+    micro = r4m.run(full, device)
+    reach = r3v.run(full, device)
+    maxplus = r3m.run(full, device)
+    launches = dict(_kernels.launch_counts)
+    r4m.report(micro, device, "[studies-ii] r4_microkernel")
+    r3v.report(reach, device, "[studies-ii] r3_kernel_variants")
+    r3m.report(maxplus, device, "[studies-ii] r3_maxplus")
+    log(f"[studies-ii] launches in the three runs: {launches}")
+    for result, exact in ((micro, r4m.VARIANTS), (reach, r3v.F32_VARIANTS)):
+        for name in exact:
+            if result["variants"][name]["max_dcount"] != 0:
+                raise AssertionError(f"full size: {name} differs from k1")
+    for name in records:
+        records[name]["launches"] = launches[name]
+        if launches[name] == 0:
+            raise AssertionError(f"{name} did not launch in the studies' runs")
+    log(f"[studies-ii] phase 9 took {time.perf_counter() - t_phase:.1f}s")
+    return list(records.values())
+
+
 def main() -> int:
     import torch
 
@@ -691,6 +870,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -724,8 +904,10 @@ def main() -> int:
     listed["launches"] = phase_list_path(device)
     phase_host_cull(device, WORK)
     studies = phase_count_studies(corpus_dir, device)
+    studies_ii = phase_count_studies_ii(corpus_dir, device)
+    log(f"[smoke] nine phases in {time.perf_counter() - t_start:.1f}s")
     log(smi)
-    print(json.dumps({"kernels": [count, listed, *studies]}))
+    print(json.dumps({"kernels": [count, listed, *studies, *studies_ii]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -40,10 +40,15 @@ MAX_P_PAD = 2048
 # (csrc/count_tile.cuh kMaxK, kSlices).
 MAX_K = 16
 SLICES = 4
+# Variant codes of csrc/micro_count.cu and csrc/reach_count.cu, in order.
+MICRO_VARIANTS = ("prod", "split2", "g16", "g24", "nosmem")
+REACH_VARIANTS = ("base", "nogroupcond", "jskip", "group4", "nocond", "bf16",
+                  "bf16p")
 
 launch_counts = {
     "fused_count": 0, "list_occlusion": 0, "pair64_count": 0,
-    "nibble_count": 0, "saturation_count": 0,
+    "nibble_count": 0, "saturation_count": 0, "micro_count": 0,
+    "reach_count": 0, "maxplus_count": 0,
 }
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
@@ -58,6 +63,9 @@ _SIGNATURES = {
     "pair64_count": [_VOIDP] * 5 + [_INT] * 2 + [_VOIDP],
     "nibble_count": [_VOIDP] * 6 + [_INT] * 2 + [_VOIDP],
     "saturation_count": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
+    "micro_count": [_VOIDP] * 4 + [_INT] * 3 + [_VOIDP],
+    "reach_count": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
+    "maxplus_count": [_VOIDP] * 4 + [_INT] * 2 + [_VOIDP],
 }
 
 
@@ -270,6 +278,64 @@ def saturation_count(planes, jlist, sphere, check_every: int):
             sphere.data_ptr(), out.data_ptr(), streamed.data_ptr(), m, p,
             check_every)
     return out, streamed
+
+
+def variant_code(name, variant, variants):
+    """The code of `variant` among `variants`, as the C launcher takes it;
+    ValueError for an unknown name."""
+    if variant not in variants:
+        raise ValueError(f"{name}: unknown variant {variant!r}, expected one "
+                         f"of {variants}")
+    return variants.index(variant)
+
+
+def micro_count(planes, jlist, sphere, variant: str):
+    """Launch the loop-variant count kernel -> [M] i32.
+
+    As fused_count, with the loop over admitted groups reshaped by
+    `variant` (one of MICRO_VARIANTS); every variant gives the same counts.
+    """
+    code = variant_code("micro_count", variant, MICRO_VARIANTS)
+    device, m, p = _count_inputs("micro_count", planes, sphere,
+                                 {"jlist": jlist})
+    out = torch.empty(m, dtype=torch.int32, device=device)
+    _launch("micro_count", device, planes.data_ptr(), jlist.data_ptr(),
+            sphere.data_ptr(), out.data_ptr(), m, p, code)
+    return out
+
+
+def reach_count(planes, jlist, sphere, variant: str):
+    """Launch the reach-test count kernel -> (counts [M] i32, executed
+    [M/128] i32).
+
+    Every live entry's j-tile (entry & 0xFFFF; mask bits ignored) is
+    streamed under the reach test of `variant` (one of REACH_VARIANTS);
+    executed[tile] sums the j-rows streamed over all point passes.
+    """
+    code = variant_code("reach_count", variant, REACH_VARIANTS)
+    device, m, p = _count_inputs("reach_count", planes, sphere,
+                                 {"jlist": jlist})
+    out = torch.empty(m, dtype=torch.int32, device=device)
+    executed = torch.empty(m // 128, dtype=torch.int32, device=device)
+    _launch("reach_count", device, planes.data_ptr(), jlist.data_ptr(),
+            sphere.data_ptr(), out.data_ptr(), executed.data_ptr(), m, p,
+            code)
+    return out, executed
+
+
+def maxplus_count(planes, jlist, sphere):
+    """Launch the max-plus count kernel -> [M] i32.
+
+    fused_count's inputs; the margin is taken as (LIMT + TJ) - SXI with
+    the K = 3 products as fused multiply-add chains, so boundary points
+    may differ from fused_count's counts.
+    """
+    device, m, p = _count_inputs("maxplus_count", planes, sphere,
+                                 {"jlist": jlist})
+    out = torch.empty(m, dtype=torch.int32, device=device)
+    _launch("maxplus_count", device, planes.data_ptr(), jlist.data_ptr(),
+            sphere.data_ptr(), out.data_ptr(), m, p)
+    return out
 
 
 def list_occlusion(vx, vy, vz, limit, area, sphere, tile_kmax):

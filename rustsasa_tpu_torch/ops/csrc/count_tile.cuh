@@ -1,6 +1,7 @@
 // Shared pieces of the occlusion-count kernels (fused_count.cu and its
-// variants pair64_count.cu, nibble_count.cu, saturation_count.cu), for
-// NVIDIA Hopper (sm_90a).
+// variants pair64_count.cu, nibble_count.cu, saturation_count.cu,
+// micro_count.cu, reach_count.cu, maxplus_count.cu), for NVIDIA Hopper
+// (sm_90a).
 //
 // The variants keep fused_count.cu's layout and arithmetic and change
 // only which j-groups a thread streams, or when a CTA stops:
@@ -34,7 +35,7 @@ constexpr float kNegBig = -1e30f;
 
 // One i-atom's coordinates and the per-atom factors of its margin.
 struct IAtom {
-  float x, y, z, r2, inv2r, gid;
+  float x, y, z, r, r2, inv2r, gid;
 };
 
 __device__ __forceinline__ IAtom load_i_atom(const float* __restrict__ planes,
@@ -43,10 +44,10 @@ __device__ __forceinline__ IAtom load_i_atom(const float* __restrict__ planes,
   at.x = planes[0 * mm + i];
   at.y = planes[1 * mm + i];
   at.z = planes[2 * mm + i];
-  const float r = planes[3 * mm + i];
+  at.r = planes[3 * mm + i];
   at.gid = planes[4 * mm + i];
-  at.r2 = __fmul_rn(r, r);
-  at.inv2r = __fdiv_rn(0.5f, fmaxf(r, 1e-6f));
+  at.r2 = __fmul_rn(at.r, at.r);
+  at.inv2r = __fdiv_rn(0.5f, fmaxf(at.r, 1e-6f));
   return at;
 }
 
@@ -114,11 +115,63 @@ __device__ __forceinline__ void write_count(int* cnt, int a, int slice,
   if (slice == 0) out[i] = cnt[a];
 }
 
-// Max-accumulates the margins of the 8 j-atoms of group g into occ:
-//   v = c_i - c_j,  v2 = (vx*vx + vy*vy) + vz*vz,
+// v = c_i - c_j for j-row jj of the staged tile; returns
+// v2 = (vx*vx + vy*vy) + vz*vz.
+__device__ __forceinline__ float row_v(const float* jrec, int jj,
+                                       const IAtom& at, float& vx, float& vy,
+                                       float& vz) {
+  vx = __fsub_rn(at.x, jrec[0 * kAtomTile + jj]);
+  vy = __fsub_rn(at.y, jrec[1 * kAtomTile + jj]);
+  vz = __fsub_rn(at.z, jrec[2 * kAtomTile + jj]);
+  return __fadd_rn(__fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)),
+                   __fmul_rn(vz, vz));
+}
+
+// v and the per-(i, j) limit of j-row jj:
 //   lim = ((r_j*r_j - v2) - r_i*r_i) * (0.5 / max(r_i, 1e-6)),
-//   margin = lim - (sx*vx + (sy*vy + sz*vz)),
 // with lim = -1e30 where gid_j == gid_i or gid_j == 0 (padding).
+__device__ __forceinline__ float row_lim(const float* jrec, int jj,
+                                         const IAtom& at, float& vx,
+                                         float& vy, float& vz) {
+  const float v2 = row_v(jrec, jj, at, vx, vy, vz);
+  const float rk = jrec[3 * kAtomTile + jj];
+  const float gk = jrec[4 * kAtomTile + jj];
+  const float lim = __fmul_rn(
+      __fsub_rn(__fsub_rn(__fmul_rn(rk, rk), v2), at.r2), at.inv2r);
+  return (at.gid == gk || gk == 0.0f) ? kNegBig : lim;
+}
+
+// Max-accumulates one j-atom's margins into occ:
+//   margin = lim - (sx*vx + (sy*vy + sz*vz)).
+template <int K>
+__device__ __forceinline__ void row_margins(float vx, float vy, float vz,
+                                            float lim, const float (&sx)[K],
+                                            const float (&sy)[K],
+                                            const float (&sz)[K],
+                                            float (&occ)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float dot = __fadd_rn(
+        __fmul_rn(sx[k], vx),
+        __fadd_rn(__fmul_rn(sy[k], vy), __fmul_rn(sz[k], vz)));
+    occ[k] = fmaxf(occ[k], __fsub_rn(lim, dot));
+  }
+}
+
+// Max-accumulates the margins of j-row jj of the staged tile into occ.
+template <int K>
+__device__ __forceinline__ void stream_row(const float* jrec, int jj,
+                                           const IAtom& at,
+                                           const float (&sx)[K],
+                                           const float (&sy)[K],
+                                           const float (&sz)[K],
+                                           float (&occ)[K]) {
+  float vx, vy, vz;
+  const float lim = row_lim(jrec, jj, at, vx, vy, vz);
+  row_margins<K>(vx, vy, vz, lim, sx, sy, sz, occ);
+}
+
+// Max-accumulates the margins of the 8 j-atoms of group g into occ.
 template <int K>
 __device__ __forceinline__ void stream_group(const float* jrec, int g,
                                              const IAtom& at,
@@ -128,28 +181,44 @@ __device__ __forceinline__ void stream_group(const float* jrec, int g,
                                              float (&occ)[K]) {
 #pragma unroll
   for (int r = 0; r < kJGroup; ++r) {
-    const int jj = g * kJGroup + r;
-    const float xk = jrec[0 * kAtomTile + jj];
-    const float yk = jrec[1 * kAtomTile + jj];
-    const float zk = jrec[2 * kAtomTile + jj];
-    const float rk = jrec[3 * kAtomTile + jj];
-    const float gk = jrec[4 * kAtomTile + jj];
-    const float vx = __fsub_rn(at.x, xk);
-    const float vy = __fsub_rn(at.y, yk);
-    const float vz = __fsub_rn(at.z, zk);
-    const float v2 = __fadd_rn(
-        __fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)), __fmul_rn(vz, vz));
-    float lim = __fmul_rn(
-        __fsub_rn(__fsub_rn(__fmul_rn(rk, rk), v2), at.r2), at.inv2r);
-    if (at.gid == gk || gk == 0.0f) lim = kNegBig;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float dot = __fadd_rn(
-          __fmul_rn(sx[k], vx),
-          __fadd_rn(__fmul_rn(sy[k], vy), __fmul_rn(sz[k], vz)));
-      occ[k] = fmaxf(occ[k], __fsub_rn(lim, dot));
-    }
+    stream_row<K>(jrec, g * kJGroup + r, at, sx, sy, sz, occ);
   }
+}
+
+// Reach test of the reference scripts: v2 - (r_i + r_j)^2 < 0, i.e. the
+// r_eff spheres of atom `at` and j-row jj overlap.
+__device__ __forceinline__ bool in_reach(const float* jrec, int jj,
+                                         const IAtom& at) {
+  float vx, vy, vz;
+  const float v2 = row_v(jrec, jj, at, vx, vy, vz);
+  const float reach = __fadd_rn(at.r, jrec[3 * kAtomTile + jj]);
+  return __fsub_rn(v2, __fmul_rn(reach, reach)) < 0.0f;
+}
+
+// The rows of the staged j-tile that some of the tile's 128 atoms reach,
+// published CTA-uniformly.  Thread (a, slice) tests its atom against rows
+// [32*slice, 32*slice + 32); each warp ORs its 32 atoms' answers per row
+// (__any_sync) and stores the 32 row bits in hit[(a / 32) * 4 + slice].
+// After a barrier, reach_rows(hit, s) ORs the four warps of slice s: bit
+// r set iff row 32*s + r is in reach of some atom of the tile.
+constexpr int kReachWords = kSlices * kAtomTile / 32;  // hit[] length
+
+__device__ __forceinline__ void publish_reach(uint32_t* hit,
+                                              const float* jrec,
+                                              const IAtom& at, int a,
+                                              int slice) {
+  uint32_t bits = 0u;
+#pragma unroll 4
+  for (int r = 0; r < 32; ++r) {
+    const bool h = in_reach(jrec, slice * 32 + r, at);
+    bits |= static_cast<uint32_t>(__any_sync(0xFFFFFFFFu, h)) << r;
+  }
+  if ((a & 31) == 0) hit[(a / 32) * kSlices + slice] = bits;
+}
+
+__device__ __forceinline__ uint32_t reach_rows(const uint32_t* hit, int s) {
+  return hit[s] | hit[kSlices + s] | hit[2 * kSlices + s] |
+         hit[3 * kSlices + s];
 }
 
 // Fewest passes of kSlices x kMaxK points, then the smallest K covering

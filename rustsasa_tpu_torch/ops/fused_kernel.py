@@ -651,6 +651,27 @@ def build_jlist_banded(planes, qvalid, tmeta, *, w: int):
     return compact_rows(act, sep2, (mask << 16) | j)[0]
 
 
+def admitted_atoms(ent, live):
+    """The j-atom slots admitted by j-list entries ent [B, CAP] i64
+    ((mask << 16) | j_tile; live [B, CAP] bool) -> (jidx, jv), both
+    [B, n_j]: each row's admitted slots first, in entry and group order,
+    then padding (slot 0, jv False); n_j >= 1."""
+    b = ent.shape[0]
+    dev = ent.device
+    garange = torch.arange(GROUPS_PER_TILE, device=dev)
+    ratom = torch.arange(J_GROUP, device=dev)
+    gbit = (((ent[:, :, None] >> 16) >> garange) & 1).bool()
+    gbit = gbit & live[:, :, None]  # [B, CAP, 16]
+    atom = ((ent & 0xFFFF)[:, :, None, None] * ATOM_TILE
+            + garange[:, None] * J_GROUP + ratom)  # [B, CAP, 16, 8]
+    ok = gbit[..., None].expand_as(atom).reshape(b, -1)
+    atom = atom.reshape(b, -1)
+    order = torch.argsort((~ok).to(torch.int8), dim=1, stable=True)
+    n_j = max(int(ok.sum(dim=1).max()), 1)
+    jv = ok.gather(1, order[:, :n_j])
+    return torch.where(jv, atom.gather(1, order[:, :n_j]), 0), jv
+
+
 def fused_counts_reference(planes, jlist, sphere):
     """Plain-torch occlusion counts: [N_PLANES, M] planes -> [M] i32.
 
@@ -676,24 +697,12 @@ def fused_counts_reference(planes, jlist, sphere):
     ent = jlist[:, 1:].to(torch.int64) & 0xFFFFFFFF  # [T, JLIST_CAP]
     live = (torch.arange(JLIST_CAP, device=dev)[None, :]
             < jlist[:, 0:1].to(torch.int64))
-    garange = torch.arange(GROUPS_PER_TILE, device=dev)
-    ratom = torch.arange(J_GROUP, device=dev)
     tiles_per_block = max(1, min(t, 64))
     for t0 in range(0, t, tiles_per_block):
         t1 = min(t, t0 + tiles_per_block)
         b = t1 - t0
-        e = ent[t0:t1]
-        gbit = (((e[:, :, None] >> 16) >> garange) & 1).bool()
-        gbit = gbit & live[t0:t1, :, None]  # [B, CAP, 16]
-        atom = ((e & 0xFFFF)[:, :, None, None] * ATOM_TILE
-                + garange[:, None] * J_GROUP + ratom)  # [B, CAP, 16, 8]
-        ok = gbit[..., None].expand_as(atom).reshape(b, -1)
-        atom = atom.reshape(b, -1)
-        # Admitted j-atoms first, in order; the rest are masked padding.
-        order = torch.argsort((~ok).to(torch.int8), dim=1, stable=True)
-        n_j = max(int(ok.sum(dim=1).max()), 1)
-        jv = ok.gather(1, order[:, :n_j])
-        jidx = torch.where(jv, atom.gather(1, order[:, :n_j]), 0)
+        jidx, jv = admitted_atoms(ent[t0:t1], live[t0:t1])
+        n_j = jidx.shape[1]
         xk, yk, zk, rk, gk = (planes[row][jidx] for row in range(5))
 
         sl = slice(t0 * ATOM_TILE, t1 * ATOM_TILE)

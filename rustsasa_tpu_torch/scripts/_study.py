@@ -1,5 +1,5 @@
-"""What the count-kernel studies share: corpus selection, timing and the
-real-slot mask.
+"""What the count-kernel studies share: corpus selection, the two chunk
+wires, timing against kernel 1 and the real-slot mask.
 
 The studies run one full-size chunk: the corpus's structures, selected
 at residue level as `process_directory` selects them, packed into up to
@@ -13,8 +13,10 @@ import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
+from ..ops import fused_kernel as fk
 from ..ops.fused_kernel import ATOM_TILE, GROUPS_PER_TILE
 
 PROBE = 1.4
@@ -74,6 +76,47 @@ def load_corpus(corpus_dir=None, *, slots=M_PAD, max_tiles=None):
     return triples
 
 
+def host_cull_chunk(triples, device, slots: int = M_PAD):
+    """pack_structures' f32 wire of `triples` (real group ids, j-lists
+    culled on the host), zero-padded to `slots` slots, on `device` ->
+    (planes [5, slots] f32, jlist [slots/128, JLIST_ROWS] i32, real
+    [slots] bool, atoms, packed tiles, structures left out for a j-list
+    overflow)."""
+    planes5, jlist, offsets, failed = fk.pack_structures(triples, PROBE,
+                                                         N_POINTS)
+    m = planes5.shape[1]
+    if m > slots:
+        raise ValueError(f"{m} slots packed, more than {slots}")
+    planes, jl = fk.to_device((
+        np.pad(planes5, ((0, 0), (0, slots - m))),
+        np.pad(jlist, ((0, (slots - m) // ATOM_TILE), (0, 0))),
+    ), device)
+    atoms = sum(off[1] for off in offsets if off is not None)
+    return (planes, jl, real_slots(offsets, slots, device), atoms,
+            m // ATOM_TILE, len(failed))
+
+
+def banded_chunk(triples, device, slots: int = M_PAD):
+    """pack_structures_q16's wire of `triples`, zero-padded to `slots`
+    slots, on `device` and dequantized -> (planes [N_PLANES, slots] f32,
+    qvalid [slots] bool, tmeta [slots/128, 2] i32, real [slots] bool,
+    atoms, packed tiles)."""
+    planes4, tparams, tmeta, offsets = fk.pack_structures_q16(triples, PROBE)
+    m = planes4.shape[1]
+    if m > slots:
+        raise ValueError(f"{m} slots packed, more than {slots}")
+    pad_t = (slots - m) // ATOM_TILE
+    planes4, tparams, tmeta = fk.to_device((
+        np.pad(planes4, ((0, 0), (0, slots - m))),
+        np.pad(tparams, ((0, pad_t), (0, 0))),
+        np.pad(tmeta, ((0, pad_t), (0, 0))),
+    ), device)
+    planes, qvalid = fk.dequant_q16(planes4, tparams)
+    atoms = sum(t[0].shape[0] for t in triples)
+    return (planes, qvalid, tmeta, real_slots(offsets, slots, device), atoms,
+            m // ATOM_TILE)
+
+
 def _popcount16(x):
     return sum((x >> g) & 1 for g in range(GROUPS_PER_TILE))
 
@@ -122,6 +165,31 @@ def timed(fn, device, reps):
             out = fn()
             best = min(best, (time.perf_counter() - t0) * 1e3)
     return first_ms, best, out
+
+
+def time_variants(cases, real, atoms: int, device, reps: int):
+    """Time each (name, fn) of `cases` with `timed`.  fn() returns counts
+    [M] i32, or a tuple whose first item they are; the first case is
+    kernel 1, whose counts the others are held against at the `real`
+    slots.  Returns ({name: {"first_ms", "ms", "matoms_s", "max_dcount",
+    "mean_dcount"}}, {name: fn()'s last output})."""
+    variants, outs = {}, {}
+    prod = None
+    for name, fn in cases:
+        first_ms, ms, out = timed(fn, device, reps)
+        counts = out[0] if isinstance(out, tuple) else out
+        if prod is None:
+            prod = counts
+        d = (counts.to(torch.int64) - prod.to(torch.int64)).abs()[real]
+        variants[name] = {
+            "first_ms": first_ms,
+            "ms": ms,
+            "matoms_s": atoms / (ms * 1e-3) / 1e6,
+            "max_dcount": int(d.max()) if d.numel() else 0,
+            "mean_dcount": float(d.double().mean()) if d.numel() else 0.0,
+        }
+        outs[name] = out
+    return variants, outs
 
 
 def real_slots(offsets, m, device):

@@ -161,46 +161,27 @@ def run(triples, device, *, slots: int = _study.M_PAD, reps: int = 4,
     "margins" the (j, i, point) margins prod evaluates.
     """
     device = torch.device(device)
-    planes5, jlist, offsets, failed = fk.pack_structures(
-        triples, _study.PROBE, _study.N_POINTS
+    planes, jl, real, n_atoms, tiles, failed = _study.host_cull_chunk(
+        triples, device, slots
     )
-    m = planes5.shape[1]
-    if m > slots:
-        raise ValueError(f"{m} slots packed, more than {slots}")
-    planes, jl = fk.to_device((
-        np.pad(planes5, ((0, 0), (0, slots - m))),
-        np.pad(jlist, ((0, (slots - m) // ATOM_TILE), (0, 0))),
-    ), device)
     sphere = engine._sphere_device(_study.N_POINTS, device)
-    real = _study.real_slots(offsets, slots, device)
     passes, k = _kernels.point_passes(sphere.shape[0])
     entries = passes * int(jl[:, 0].clamp(0, JLIST_CAP).sum())
-    n_atoms = sum(off[1] for off in offsets if off is not None)
     points = passes * _kernels.SLICES * k
     margins = (int(_study.streamed_groups(jl).sum()) * J_GROUP * ATOM_TILE // 2
                * points)
 
-    variants = {}
-    prod_counts = None
-    cases = [("prod", lambda: (fk.fused_counts(planes, jl, sphere), None))]
+    cases = [("prod", lambda: fk.fused_counts(planes, jl, sphere))]
     cases += [(f"sat{ce}", lambda ce=ce: saturation_counts(
         planes, jl, sphere, check_every=ce)) for ce in checks]
-    for name, count in cases:
-        first_ms, ms, (counts, streamed) = _study.timed(count, device, reps)
-        if prod_counts is None:
-            prod_counts = counts
-        dcount = (counts.to(torch.int64) - prod_counts.to(torch.int64)).abs()
-        n_streamed = entries if streamed is None else int(streamed.sum())
-        variants[name] = {
-            "first_ms": first_ms,
-            "ms": ms,
-            "matoms_s": n_atoms / (ms * 1e-3) / 1e6,
-            "max_dcount": int(dcount[real].max()) if bool(real.any()) else 0,
-            "skipped": 1.0 - n_streamed / max(entries, 1),
-        }
+    variants, outs = _study.time_variants(cases, real, n_atoms, device, reps)
+    for name, v in variants.items():
+        n_streamed = (entries if name == "prod"
+                      else int(outs[name][1].sum()))
+        v["skipped"] = 1.0 - n_streamed / max(entries, 1)
     return {
         "structures": len(triples), "atoms": n_atoms, "slots": slots,
-        "tiles": m // ATOM_TILE, "failed": len(failed), "entries": entries,
+        "tiles": tiles, "failed": failed, "entries": entries,
         "margins": margins, "variants": variants,
     }
 

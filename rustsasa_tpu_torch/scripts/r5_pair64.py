@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import sys
 
-import numpy as np
 import torch
 
 from ..ops import _kernels, engine
@@ -148,22 +147,10 @@ def run(triples, device, *, w: int = W, slots: int = _study.M_PAD,
     evaluates.
     """
     device = torch.device(device)
-    planes4, tparams, tmeta, offsets = fk.pack_structures_q16(
-        triples, _study.PROBE
+    planes, qvalid, tmeta_d, real, n_atoms, tiles = _study.banded_chunk(
+        triples, device, slots
     )
-    m = planes4.shape[1]
-    if m > slots:
-        raise ValueError(f"{m} slots packed, more than {slots}")
-    pad_t = (slots - m) // ATOM_TILE
-    wire = fk.to_device((
-        np.pad(planes4, ((0, 0), (0, slots - m))),
-        np.pad(tparams, ((0, pad_t), (0, 0))),
-        np.pad(tmeta, ((0, pad_t), (0, 0))),
-    ), device)
     sphere = engine._sphere_device(_study.N_POINTS, device)
-    planes, qvalid = fk.dequant_q16(*wire[:2])
-    tmeta_d = wire[2]
-    real = _study.real_slots(offsets, slots, device)
 
     builders = {}
     lists = {}
@@ -179,37 +166,26 @@ def run(triples, device, *, w: int = W, slots: int = _study.M_PAD,
     jlist_a, jmask_b = lists["banded_2h"]
     jl, w1, w2 = lists["nibble"]
 
-    n_atoms = sum(t[0].shape[0] for t in triples)
-    tiles = jlist[:, 0] > 0
+    busy = jlist[:, 0] > 0
     passes, k = _kernels.point_passes(sphere.shape[0])
     points = passes * _kernels.SLICES * k  # the kernels' padded sphere
-    variants = {}
-    prod_counts = None
-    for name, count, groups in (
-        ("prod", lambda: fk.fused_counts(planes, jlist, sphere),
-         _study.streamed_groups(jlist)),
-        ("nibble", lambda: nibble_counts(planes, jl, w1, w2, sphere),
-         _study.streamed_groups(_nibble_masks(jl, w1, w2))),
-        ("pair64", lambda: pair64_counts(planes, jlist_a, jmask_b, sphere),
-         _study.streamed_groups(jlist_a, jmask_b)),
+    variants, _ = _study.time_variants((
+        ("prod", lambda: fk.fused_counts(planes, jlist, sphere)),
+        ("nibble", lambda: nibble_counts(planes, jl, w1, w2, sphere)),
+        ("pair64", lambda: pair64_counts(planes, jlist_a, jmask_b, sphere)),
+    ), real, n_atoms, device, reps)
+    for name, groups in (
+        ("prod", _study.streamed_groups(jlist)),
+        ("nibble", _study.streamed_groups(_nibble_masks(jl, w1, w2))),
+        ("pair64", _study.streamed_groups(jlist_a, jmask_b)),
     ):
-        first_ms, ms, counts = _study.timed(count, device, reps)
-        if prod_counts is None:
-            prod_counts = counts
-        dcount = (counts.to(torch.int64) - prod_counts.to(torch.int64)).abs()
         lane_groups = int(groups.sum())  # x 2
-        variants[name] = {
-            "first_ms": first_ms,
-            "ms": ms,
-            "matoms_s": n_atoms / (ms * 1e-3) / 1e6,
-            "max_dcount": int(dcount[real].max()) if bool(real.any()) else 0,
-            "j_atoms_per_atom": (lane_groups * J_GROUP / 2
-                                 / max(int(tiles.sum()), 1)),
-            "margins": lane_groups * J_GROUP * ATOM_TILE // 2 * points,
-        }
+        variants[name]["j_atoms_per_atom"] = (lane_groups * J_GROUP / 2
+                                              / max(int(busy.sum()), 1))
+        variants[name]["margins"] = lane_groups * J_GROUP * ATOM_TILE // 2 * points
     return {
         "structures": len(triples), "atoms": n_atoms, "slots": slots,
-        "tiles": m // ATOM_TILE, "builders": builders, "variants": variants,
+        "tiles": tiles, "builders": builders, "variants": variants,
     }
 
 

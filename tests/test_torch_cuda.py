@@ -12,7 +12,10 @@ import torch
 
 from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
 from rustsasa_tpu_torch.ops import fused_kernel as fk
-from rustsasa_tpu_torch.scripts import r4_saturation, r5_pair64
+from rustsasa_tpu_torch.scripts import (
+    _study, r3_kernel_variants, r3_maxplus, r4_microkernel, r4_saturation,
+    r5_pair64,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -276,3 +279,85 @@ def test_count_study_wrappers_check_inputs(cuda):
         _kernels.pair64_count(planes[:, :200].contiguous(), jl, jl, sphere)
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.saturation_count(planes.cpu(), jl.cpu(), sphere.cpu(), 1)
+
+
+@pytest.fixture(scope="module")
+def corpus_triples():
+    """The repository's FreeSASA structures of <= 32 tiles filling 65,536
+    slots, selected as process_directory selects them."""
+    return _study.load_corpus(slots=65_536, max_tiles=32)
+
+
+def _study_wires(cuda, triples):
+    """(planes, jlist, real) of a host-cull f32 corpus chunk and of the
+    buried lattice block."""
+    planes, jl, real, _atoms, _tiles, failed = _study.host_cull_chunk(
+        triples, cuda, 65_536)
+    assert failed == 0
+    lattice, lattice_jl = fk.to_device(r4_saturation.buried_block_wire(), cuda)
+    return ((planes, jl, real), (lattice, lattice_jl, lattice[4] > 0.0))
+
+
+@pytest.mark.parametrize("n_points", [100, 960])
+def test_micro_count_byte_equal_plain(cuda, corpus_triples, n_points):
+    sphere = engine._sphere_device(n_points, cuda)
+    for planes, jl, real in _study_wires(cuda, corpus_triples):
+        prod = fk.fused_counts(planes, jl, sphere)
+        for variant in r4_microkernel.VARIANTS:
+            got = _launched("micro_count", lambda: r4_microkernel.micro_counts(
+                planes, jl, sphere, variant=variant))
+            want = r4_microkernel.micro_counts_reference(
+                planes, jl, sphere, variant=variant)
+            assert torch.equal(got, want), variant
+            assert torch.equal(got[real], prod[real]), variant
+
+
+@pytest.mark.parametrize("n_points", [100, 960])
+def test_reach_count_byte_equal_plain(cuda, corpus_triples, n_points):
+    sphere = engine._sphere_device(n_points, cuda)
+    for planes, jl, real in _study_wires(cuda, corpus_triples):
+        prod = fk.fused_counts(planes, jl, sphere)
+        for variant in r3_kernel_variants.VARIANTS:
+            got, executed = _launched(
+                "reach_count", lambda: r3_kernel_variants.reach_counts(
+                    planes, jl, sphere, variant=variant))
+            want, want_executed = r3_kernel_variants.reach_counts_reference(
+                planes, jl, sphere, variant=variant)
+            assert torch.equal(got, want), variant
+            assert torch.equal(executed, want_executed), variant
+            if variant in r3_kernel_variants.F32_VARIANTS:
+                assert torch.equal(got[real], prod[real]), variant
+
+
+@pytest.mark.parametrize("n_points", [100, 960])
+def test_maxplus_count_byte_equal_plain(cuda, corpus_triples, n_points):
+    sphere = engine._sphere_device(n_points, cuda)
+    planes, qvalid, tmeta, real, _atoms, _tiles = _study.banded_chunk(
+        corpus_triples, cuda, 65_536)
+    jl = fk.build_jlist_banded(planes, qvalid, tmeta, w=32)
+    lattice, lattice_jl = fk.to_device(r4_saturation.buried_block_wire(), cuda)
+    for planes, jl, real in ((planes, jl, real),
+                             (lattice, lattice_jl, lattice[4] > 0.0)):
+        got = _launched("maxplus_count", lambda: r3_maxplus.maxplus_counts(
+            planes, jl, sphere))
+        assert torch.equal(got, r3_maxplus.maxplus_counts_reference(
+            planes, jl, sphere))
+        prod = fk.fused_counts(planes, jl, sphere)
+        flips = (got.to(torch.int64) - prod.to(torch.int64)).abs()[real]
+        assert int(flips.max()) <= r3_maxplus.MAX_FLIPS
+
+
+def test_count_study_ii_wrappers_check_inputs(cuda):
+    planes = torch.zeros((8, 256), device=cuda)
+    sphere = torch.zeros((104, 4), device=cuda)
+    jl = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="unknown variant"):
+        _kernels.micro_count(planes, jl, sphere, "g32")
+    with pytest.raises(ValueError, match="unknown variant"):
+        _kernels.reach_count(planes, jl, sphere, "fp8")
+    with pytest.raises(ValueError, match="jlist shape"):
+        _kernels.maxplus_count(planes, jl[:1], sphere)
+    with pytest.raises(TypeError):
+        _kernels.reach_count(planes, jl.float(), sphere, "base")
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.maxplus_count(planes.cpu(), jl.cpu(), sphere.cpu())

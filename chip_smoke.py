@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rustsasa_tpu_torch/ops/csrc/` and
-runs nine phases, each of which must pass:
+runs ten phases, each of which must pass:
 
   1. build: nvcc for sm_90a, one process per kernel source, all started
      together, with the compiler's register/spill report;
@@ -50,12 +50,21 @@ runs nine phases, each of which must pass:
      executed), the f32 variants equal to the count kernel at every real
      slot, bf16, bf16p and max-plus with their count difference reported;
      then the three studies' run() at 2,097,152 slots, kernels only, whose
-     launches are the three kernels' launch counts.
+     launches are the three kernels' launch counts;
+ 10. kernel experiments: the 22 variants of scripts/kernel_experiments.py
+     on its synthetic data (64 tiles x 1,408 resident j-rows), on its ones
+     and on seeded random j-data, each against its plain version:
+     byte-equal sums and executed groups (the DEFAULT variants, on the
+     tensor cores, within kernel_experiments.default_bound); then
+     kernel_experiments.run() at the script's 512 tiles, whose launches
+     are the four sources' (ke_stream, ke_maxplus, ke_bf16, ke_mxu)
+     launch counts.
 
-Prints the card's name and power limit, one JSON line with the eight
-kernels' numbers (each with its bound: the larger of its FP32
-instructions at this run's work over the 33.5T/s issue peak and its
-bytes over 3.35 TB/s), and as its last line
+Prints the card's name and power limit, one JSON line with the twelve
+kernel sources' numbers (each with its bound: the larger of its FP32
+instructions at this run's work over the 33.5T/s issue peak, for the
+DEFAULT variants also its mma work over the 989 TFLOP/s bf16
+tensor-core peak, and its bytes over 3.35 TB/s), and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
 fails.  Everything it writes goes under build/chip_smoke/.
@@ -97,6 +106,14 @@ KERNELS = {
                     "scripts/r3_kernel_variants.py:54"),
     "maxplus_count": ("rustsasa_tpu_torch/ops/csrc/maxplus_count.cu",
                       "scripts/r3_maxplus.py:66"),
+    "ke_stream": ("rustsasa_tpu_torch/ops/csrc/ke_stream.cu",
+                  "scripts/kernel_experiments.py:29,116,213"),
+    "ke_maxplus": ("rustsasa_tpu_torch/ops/csrc/ke_maxplus.cu",
+                   "scripts/kernel_experiments.py:298"),
+    "ke_bf16": ("rustsasa_tpu_torch/ops/csrc/ke_bf16.cu",
+                "scripts/kernel_experiments.py:417"),
+    "ke_mxu": ("rustsasa_tpu_torch/ops/csrc/ke_mxu.cu",
+               "scripts/kernel_experiments.py:502"),
 }
 LARGEST = ("1hbn.pdb.gz", "1n62.pdb.gz", "1jz8.pdb.gz")
 PROBE = 1.4
@@ -105,6 +122,11 @@ PROBE = 1.4
 # HBM bandwidth.
 FP32_INSTR_PER_S = 33.5e12
 HBM_BYTES_PER_S = 3.35e12
+# Dense bf16 tensor-core peak (H100 SXM data sheet).
+BF16_TC_FLOPS = 989e12
+# Tiles of the kernel experiments' checks (the full run takes the
+# script's T = 512).
+KE_CHECK_TILES = 64
 
 
 def log(msg: str) -> None:
@@ -116,7 +138,7 @@ def build_corpus(corpus_dir, target_files=TARGET_FILES,
     """bench.py's corpus rule: cycle the largest ascending-size prefix of
     the source structures whose mean atom count stays at or under the
     proteome's (10.7M / 4,400), as symlinks, until both targets are met."""
-    from rustsasa_tpu_torch._host.io.read import read_structure
+    from rustsasa_tpu_torch.io.read import read_structure
 
     files = sorted(
         os.path.join(SOURCE_DIR, f) for f in os.listdir(SOURCE_DIR)
@@ -218,10 +240,7 @@ def phase_build():
                 r"Function properties for (\S+)\n[^\n]*?(\d+) bytes spill "
                 r"stores", info.log):
             if int(stores):
-                args = re.search(r"ILi(\d+)E(?:Li(\d+)E)?E", fn)
-                log(f"[build]   {name} K={args.group(1)}"
-                    + (f" variant {args.group(2)}" if args.group(2) else "")
-                    + f": {stores} bytes of spill stores")
+                log(f"[build]   {name} {fn}: {stores} bytes of spill stores")
 
 
 def phase_kernel_vs_plain(corpus_dir, device):
@@ -293,7 +312,7 @@ def phase_golden(device, sample_dir, work):
         BatchedSasaEngine, Level, SASAOptions, SasaParams,
         calculate_sasa_internal, process_directory, read_structure,
     )
-    from rustsasa_tpu_torch._host.radii import get_vdw_radius
+    from rustsasa_tpu_torch.radii import get_vdw_radius
 
     s = read_structure(EXAMPLE)
     t = s.atoms
@@ -338,7 +357,7 @@ def phase_main_path(corpus_dir, n_files, n_atoms, device, work):
     from rustsasa_tpu_torch import (
         BatchedSasaEngine, Level, SASAOptions, SasaParams, process_directory,
     )
-    from rustsasa_tpu_torch._host.native import pipe_library
+    from rustsasa_tpu_torch.native import pipe_library
     from rustsasa_tpu_torch.ops import _kernels
 
     route = "native C++" if pipe_library() is not None else "Python"
@@ -461,8 +480,8 @@ def phase_list_path(device):
     from rustsasa_tpu_torch import (
         Level, SASAOptions, calculate_sasa_internal, read_structure,
     )
-    from rustsasa_tpu_torch._host.levels import aggregate
-    from rustsasa_tpu_torch._host.radii import get_vdw_radius
+    from rustsasa_tpu_torch.levels import aggregate
+    from rustsasa_tpu_torch.radii import get_vdw_radius
     from rustsasa_tpu_torch.ops import _kernels
 
     _kernels.reset_launch_counts()
@@ -863,6 +882,107 @@ def phase_count_studies_ii(corpus_dir, device):
     return list(records.values())
 
 
+def ke_bound(ke, variant, t, nj, executed):
+    """bound() of a kernel-experiment variant over t tiles and nj j-rows
+    whose tiles ran `executed` 8-row groups: its FP32 (or packed bf16)
+    instructions on the margins its work needs at the issue peak, at
+    DEFAULT also the mma work at the bf16 tensor-core peak, and its bytes
+    (sphere, planes rows 0-4, j-data and the outputs once) at HBM
+    bandwidth."""
+    margins = ke.needed_margins(variant, t, executed)
+    m = t * ke.A
+    nbytes = 16 * ke.P + 4 * 5 * m + 32 * nj + 4 * m + 4 * t
+    ms, by = bound(ke.instr_per_margin(variant) * margins, nbytes)
+    family, params = ke.VARIANTS[variant]
+    if params.get("default"):
+        # mma m16n8k16 with K = 16: 2 * 16 flops per output element; per
+        # j-row and tile the mxu dots have P x A outputs, the max-plus
+        # products P.
+        outputs = ke.P * ke.A if family == "mxu" else ke.P
+        flops = 2 * 16 * outputs * executed * ke.GROUP
+        tc_ms = flops / BF16_TC_FLOPS * 1e3
+        if tc_ms > ms:
+            ms, by = tc_ms, "operations"
+    return ms, by
+
+
+def phase_kernel_experiments(device):
+    """Phase 10: the kernel experiments.  Every variant against its plain
+    version at KE_CHECK_TILES tiles x NJ j-rows on the script's ones and on
+    the seeded random j-data (kernel and plain timed on the ones), then
+    kernel_experiments.run() at the script's T x NJ, whose launches are the
+    four sources' launch counts.  Returns the four sources' records, each
+    for the source's first variant."""
+    import torch
+
+    from rustsasa_tpu_torch.ops import _kernels
+    from rustsasa_tpu_torch.scripts import kernel_experiments as ke
+
+    t_phase = time.perf_counter()
+    t, nj = KE_CHECK_TILES, ke.NJ
+    errs = {name: 0.0 for name in _kernels.KE_VARIANTS}
+    check_ms = {}
+    for jdata in ("ones", "random"):
+        sphere, planes, jd = ke.synthetic_inputs(t, nj, device, jdata)
+        for variant in ke.VARIANTS:
+            def kernel(v=variant):
+                return ke.experiment(v, sphere, planes, jd)
+
+            def plain(v=variant):
+                return ke.experiment_reference(planes, v, sphere, jd)
+
+            if jdata == "ones":
+                ms, got = cuda_ms(kernel, 5)
+                plain_ms, want = cuda_ms(plain, 1)
+                check_ms[variant] = (ms, plain_ms)
+            else:
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+            err, ok = ke.agreement(variant, sphere, planes, jd, got, want)
+            src = ke.source(variant)
+            errs[src] = max(errs[src], err)
+            groups = t * (ke.jrows(variant, nj) // ke.GROUP)
+            ran = int(got[1].sum())
+            held = ("within the DEFAULT bound"
+                    if ke.VARIANTS[variant][1].get("default") else "byte-equal")
+            log(f"[ke] {jdata:6s} {variant:17s} max |kernel - plain| {err:.6g}"
+                f" ({held}: {ok}); groups skipped {groups - ran} of {groups} "
+                f"({100 * (groups - ran) / max(groups, 1):.2f} %)"
+                + (f"; {check_ms[variant][0]:.3f} ms, plain torch "
+                   f"{check_ms[variant][1]:.3f} ms" if jdata == "ones" else ""))
+            if not ok or not bool(torch.isfinite(got[0]).all()):
+                raise AssertionError(f"{variant} ({jdata}): kernel disagrees "
+                                     f"with its plain version")
+
+    _kernels.reset_launch_counts()
+    result = ke.run(device)
+    launches = dict(_kernels.launch_counts)
+    ke.report(result, device, "[ke] kernel_experiments")
+    full_t, full_nj = result["t"], result["nj"]
+    for variant, v in result["variants"].items():
+        bound_ms, by = ke_bound(ke, variant, full_t, full_nj, v["executed"])
+        log(f"[ke] {variant:17s} T={full_t}: {v['ms']:.3f} ms, "
+            f"{v['ns_per_jatom']:.4f} ns/j-atom, bound {bound_ms:.3f} ms "
+            f"({by}; {bound_ms / v['ms']:.3f} of it); T={t}: "
+            f"{check_ms[variant][0]:.3f} ms, plain {check_ms[variant][1]:.3f} ms")
+    log(f"[ke] launches in run(): {launches}")
+    records = []
+    sphere, planes, jd = ke.synthetic_inputs(full_t, full_nj, device)
+    for name, variants in _kernels.KE_VARIANTS.items():
+        variant = variants[0]
+        v = result["variants"][variant]
+        plain_ms, _ = cuda_ms(
+            lambda: ke.experiment_reference(planes, variant, sphere, jd), 1)
+        if launches[name] == 0:
+            raise AssertionError(f"{name} did not launch in run()")
+        records.append(dict(
+            record(name, launches[name], errs[name], v["ms"], plain_ms, None,
+                   ke_bound(ke, variant, full_t, full_nj, v["executed"])),
+            variant=variant))
+    log(f"[ke] phase 10 took {time.perf_counter() - t_phase:.1f}s")
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -905,9 +1025,11 @@ def main() -> int:
     phase_host_cull(device, WORK)
     studies = phase_count_studies(corpus_dir, device)
     studies_ii = phase_count_studies_ii(corpus_dir, device)
-    log(f"[smoke] nine phases in {time.perf_counter() - t_start:.1f}s")
+    experiments = phase_kernel_experiments(device)
+    log(f"[smoke] ten phases in {time.perf_counter() - t_start:.1f}s")
     log(smi)
-    print(json.dumps({"kernels": [count, listed, *studies, *studies_ii]}))
+    print(json.dumps({"kernels": [count, listed, *studies, *studies_ii,
+                                  *experiments]}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -1,13 +1,14 @@
 """Race-free build of a shared library that several processes load at once.
 
-The native host library (`rustsasa_tpu/native/libfastparse.so`) is not
-committed: every fresh checkout builds it on first use.  The reference's
-loader compiles straight into the final path, so a process that loads the
-file while another is still writing it fails `ctypes.CDLL` and gives the
-library up for good.  `build_shared_library` closes that window for the
-port: one process at a time builds under an exclusive `flock`, into a
-temporary file that `os.replace` moves into place, and a load that fails
-on a file some other writer may still be producing is retried.
+The native host library (`native/fastparse.cpp`) is not committed built:
+every fresh checkout builds it on first use, and several processes (test
+workers, batch runs) may need it at the same moment.  A loader that
+compiled straight into the final path would let a process load the file
+while another is still writing it, fail `ctypes.CDLL` and give the
+library up for good.  `build_shared_library` closes that window: one
+process at a time builds under an exclusive `flock`, into a temporary
+file that `os.replace` moves into place, and a load that fails on a file
+some other writer may still be producing is retried.
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ import time
 from typing import Callable
 
 # How long a load that fails on an existing file is retried: a writer
-# that does not take the lock (the reference's own in-place build) may be
-# between writing the file and finishing it.
+# that does not take the lock (a copy made by hand, an in-place build)
+# may be between writing the file and finishing it.
 LOAD_RETRY_SECONDS = 120.0
 _RETRY_PAUSE = 0.25
 

@@ -44,11 +44,27 @@ SLICES = 4
 MICRO_VARIANTS = ("prod", "split2", "g16", "g24", "nosmem")
 REACH_VARIANTS = ("base", "nogroupcond", "jskip", "group4", "nocond", "bf16",
                   "bf16p")
+# Variants of the kernel-experiment sources (csrc/ke_*.cu), in the order
+# of their codes; the names are scripts/kernel_experiments.py's.
+KE_VARIANTS = {
+    "ke_stream": ("full", "noscalar", "nogid", "nobig", "group8",
+                  "group8_smem", "g8", "g8_fma", "g8_fma_skip", "g8_hoist",
+                  "g8_hoist_skip"),
+    "ke_maxplus": ("mp_tile_hi", "mp_tile_def", "mp_tile_hi_skip",
+                   "mp_group_hi", "mp_group_def", "mp_tile_hi_sat"),
+    "ke_bf16": ("g8_bf16", "g8_bf16_skip"),
+    "ke_mxu": ("mxu_dots_hi", "mxu_dots_def", "mxu_dots_hi_skip"),
+}
+# Sphere points and i-atoms of a kernel experiment, and the most j-rows
+# its shared memory holds (8 floats a row beside the other buffers).
+KE_POINTS = 128
+KE_MAX_NJ = 2048
 
 launch_counts = {
     "fused_count": 0, "list_occlusion": 0, "pair64_count": 0,
     "nibble_count": 0, "saturation_count": 0, "micro_count": 0,
-    "reach_count": 0, "maxplus_count": 0,
+    "reach_count": 0, "maxplus_count": 0, "ke_stream": 0, "ke_maxplus": 0,
+    "ke_bf16": 0, "ke_mxu": 0,
 }
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
@@ -66,6 +82,7 @@ _SIGNATURES = {
     "micro_count": [_VOIDP] * 4 + [_INT] * 3 + [_VOIDP],
     "reach_count": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
     "maxplus_count": [_VOIDP] * 4 + [_INT] * 2 + [_VOIDP],
+    **{name: [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP] for name in KE_VARIANTS},
 }
 
 
@@ -336,6 +353,44 @@ def maxplus_count(planes, jlist, sphere):
     _launch("maxplus_count", device, planes.data_ptr(), jlist.data_ptr(),
             sphere.data_ptr(), out.data_ptr(), m, p)
     return out
+
+
+def kernel_experiment(name, variant, sphere, planes, jdata):
+    """Launch kernel-experiment source `name` (one of KE_VARIANTS) for
+    `variant` -> (sums [M] f32, executed [M/128] i32).
+
+    sphere [128, 4] f32 (x, y, z, 0), planes [8, M] f32 (rows x, y, z,
+    r_eff, gid of the i-atoms), jdata [NJ, 8] f32 (columns x, y, z, r,
+    gid of the resident j-atoms), all contiguous on one CUDA device; M a
+    positive multiple of 128, NJ a positive multiple of 8 (of 128 for
+    ke_maxplus, which streams whole 128-row j-tiles) up to KE_MAX_NJ.
+    sums[i] is the sum over the points, in order, of the largest margin
+    over j; executed[tile] counts the 8-row groups the tile ran.
+    """
+    if name not in KE_VARIANTS:
+        raise ValueError(f"unknown kernel-experiment source {name!r}")
+    code = variant_code(name, variant, KE_VARIANTS[name])
+    device = planes.device
+    if device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {device}")
+    _check("sphere", sphere, torch.float32, 2, device)
+    _check("planes", planes, torch.float32, 2, device)
+    _check("jdata", jdata, torch.float32, 2, device)
+    m = planes.shape[1]
+    nj = jdata.shape[0]
+    rows = 128 if name == "ke_maxplus" else 8
+    if tuple(sphere.shape) != (KE_POINTS, 4):
+        raise ValueError(f"sphere shape {tuple(sphere.shape)} != (128, 4)")
+    if planes.shape[0] != 8 or m == 0 or m % 128:
+        raise ValueError(f"planes shape {tuple(planes.shape)} unsupported")
+    if jdata.shape[1] != 8 or nj == 0 or nj % rows or nj > KE_MAX_NJ:
+        raise ValueError(f"jdata shape {tuple(jdata.shape)} unsupported")
+    out = torch.empty(m, dtype=torch.float32, device=device)
+    executed = torch.empty(m // 128, dtype=torch.int32, device=device)
+    _launch(name, device, sphere.data_ptr(), planes.data_ptr(),
+            jdata.data_ptr(), out.data_ptr(), executed.data_ptr(), m, nj,
+            code)
+    return out, executed
 
 
 def list_occlusion(vx, vy, vz, limit, area, sphere, tile_kmax):

@@ -17,8 +17,8 @@ the reference chooses on an accelerator (`resolve_backend`):
   * "list" (any number of points): exact neighbor lists and the list
     occlusion kernel (`neighbors.py`).
 
-`rustsasa_tpu/api.py` and `rustsasa_tpu/batch.py` run unchanged on this
-module (see `_host.py`), through the names they import from it:
+The port's `api.py` and `batch.py`, copies of the reference's, run on
+this module through the names they import from it:
 `calculate_sasa_internal`, `BatchedSasaEngine`, `CountsView`,
 `SasaParams`, `CHUNK_SLOT_BUDGET`.
 
@@ -35,9 +35,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._host.constants import DEFAULT_N_POINTS, DEFAULT_PROBE_RADIUS
-from .._host.ops.sphere import padded_sphere_points
-from .._host.utils import stagestats
+from ..constants import DEFAULT_N_POINTS, DEFAULT_PROBE_RADIUS
+from .sphere import padded_sphere_points
+from ..utils import stagestats
 from . import fused_kernel, neighbors
 
 # Atom slots per chunk (reference engine._FUSED_ATOM_BUDGET); the batch
@@ -153,20 +153,20 @@ class _Readback:
 
     def __init__(self, out: torch.Tensor):
         if out.device.type == "cuda":
-            self._host = torch.empty(
+            self._readback = torch.empty(
                 out.shape, dtype=out.dtype, pin_memory=True
             )
-            self._host.copy_(out, non_blocking=True)
+            self._readback.copy_(out, non_blocking=True)
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(out.device))
         else:
-            self._host = out
+            self._readback = out
             self._event = None
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
             self._event.synchronize()
-        out = self._host.numpy()
+        out = self._readback.numpy()
         return out.view(np.uint16) if out.dtype == np.int16 else out
 
 

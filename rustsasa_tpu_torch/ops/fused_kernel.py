@@ -80,7 +80,7 @@ def pack_structures_q13(structures: list, probe: float):
     — e.g. occupancy-column radii) — the caller falls back to q16.
     The native C++ packer (fastpack_q13) implements the same layout.
     """
-    from .._host.native import fastpack_q13
+    from ..native import fastpack_q13
 
     out = fastpack_q13(structures, float(probe))
     if out is not None:
@@ -183,7 +183,7 @@ def pack_structures_q16(structures: list, probe: float):
     falls back to the f32/host-cull path.  The native C++ packer
     (fastpack_q16) implements the same layout bit-identically.
     """
-    from .._host.native import fastpack_q16
+    from ..native import fastpack_q16
 
     out = fastpack_q16(structures, float(probe))
     if out is not None:
@@ -314,7 +314,7 @@ def pack_structures(
     same layout contract, parity-tested) when the library is available;
     this numpy implementation is the fallback and the executable spec.
     """
-    from .._host.native import fastpack
+    from ..native import fastpack
 
     out = fastpack(structures, float(probe))
     if out is not None:

@@ -35,7 +35,7 @@ INSTR_PER_MARGIN = 7
 def select(path):
     """(coords, radii, gids) of one file at residue level, as
     process_directory selects it."""
-    from .._host.native import native_process_file
+    from ..native import native_process_file
 
     ns = native_process_file(
         path, level="residue", include_hydrogens=False,

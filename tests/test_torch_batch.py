@@ -1,10 +1,10 @@
 """The PyTorch port's directory batch against the JAX pipeline (CPU).
 
-Both packages run the reference's own `process_directory` (the port through
-its `_host` alias) over the same files, one after the other: the native
-radius table is process-global state.  Output files must be byte-identical,
-on the native C++ host route and on the Python one, and both sides must
-take the same route.
+Both packages run their own `process_directory` (the port's is a copy of
+the reference's, on its own native library) over the same files, one
+after the other.  Output files must be byte-identical, on the native C++
+host route and on the Python one, and both sides must take the same
+route.
 """
 
 import os
@@ -17,8 +17,8 @@ import torch
 
 import rustsasa_tpu.batch as ref_batch
 import rustsasa_tpu.native as ref_native
-import rustsasa_tpu_torch._host.batch as port_batch
-import rustsasa_tpu_torch._host.native as port_native
+import rustsasa_tpu_torch.batch as port_batch
+import rustsasa_tpu_torch.native as port_native
 from conftest import REFERENCE_DATA
 from rustsasa_tpu.api import SASAOptions as RefOptions
 from rustsasa_tpu.levels import Level as RefLevel

@@ -13,8 +13,8 @@ import torch
 from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
 from rustsasa_tpu_torch.ops import fused_kernel as fk
 from rustsasa_tpu_torch.scripts import (
-    _study, r3_kernel_variants, r3_maxplus, r4_microkernel, r4_saturation,
-    r5_pair64,
+    _study, kernel_experiments, r3_kernel_variants, r3_maxplus,
+    r4_microkernel, r4_saturation, r5_pair64,
 )
 
 pytestmark = pytest.mark.gpu
@@ -361,3 +361,65 @@ def test_count_study_ii_wrappers_check_inputs(cuda):
         _kernels.reach_count(planes, jl.float(), sphere, "base")
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.maxplus_count(planes.cpu(), jl.cpu(), sphere.cpu())
+
+
+@pytest.mark.parametrize("source", list(_kernels.KE_VARIANTS))
+@pytest.mark.parametrize("jdata", ["ones", "random"])
+def test_kernel_experiments_equal_plain(cuda, source, jdata):
+    """Every variant of each kernel-experiment source against its plain
+    version: sums and executed groups byte-equal (DEFAULT's sums within
+    kernel_experiments.default_bound)."""
+    ke = kernel_experiments
+    sphere, planes, jd = ke.synthetic_inputs(6, 256, cuda, jdata)
+    for variant in _kernels.KE_VARIANTS[source]:
+        assert ke.source(variant) == source
+        got = _launched(source, lambda v=variant: ke.experiment(
+            v, sphere, planes, jd))
+        want = ke.experiment_reference(planes, variant, sphere, jd)
+        err, ok = ke.agreement(variant, sphere, planes, jd, got, want)
+        assert ok, (variant, err)
+        assert bool(torch.isfinite(got[0]).all())
+        if jdata == "random" and ke.VARIANTS[variant][1].get("skip"):
+            groups = 6 * ke.jrows(variant, 256) // ke.GROUP
+            assert 0 < int(got[1].sum()) < groups
+
+
+def test_kernel_experiment_wrapper_checks_inputs(cuda):
+    sphere, planes, jd = kernel_experiments.synthetic_inputs(1, 128, cuda)
+    with pytest.raises(ValueError, match="unknown variant"):
+        _kernels.kernel_experiment("ke_stream", "g16", sphere, planes, jd)
+    with pytest.raises(ValueError, match="jdata shape"):
+        _kernels.kernel_experiment("ke_maxplus", "mp_tile_hi", sphere,
+                                   planes, jd[:64])
+    with pytest.raises(ValueError, match="sphere shape"):
+        _kernels.kernel_experiment("ke_mxu", "mxu_dots_hi", sphere[:100],
+                                   planes, jd)
+    with pytest.raises(TypeError):
+        _kernels.kernel_experiment("ke_bf16", "g8_bf16", sphere, planes,
+                                   jd.double())
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.kernel_experiment("ke_stream", "full", sphere.cpu(),
+                                   planes.cpu(), jd.cpu())
+
+
+def test_process_directory_cuda_equals_cpu(cuda, tmp_path):
+    """The port's own host code (parser, selection, emit) around the CUDA
+    engine: three files give the CPU run's JSON, byte for byte."""
+    from rustsasa_tpu_torch import (
+        BatchedSasaEngine, Level, SASAOptions, SasaParams, process_directory,
+    )
+
+    src = tmp_path / "in"
+    src.mkdir()
+    data = _study.TEST_STRUCTURES
+    for name in ("2drt.pdb.gz", "2gpi.pdb.gz", "3uc7.pdb.gz"):
+        (src / name).symlink_to(f"{data}/{name}")
+    outs = {}
+    for dev in (cuda, "cpu"):
+        out = tmp_path / f"out_{dev}"
+        rep = process_directory(
+            str(src), str(out), SASAOptions(level=Level.RESIDUE), "json",
+            progress=False, engine=BatchedSasaEngine(SasaParams(), device=dev))
+        assert rep.n_ok == rep.n_files == 3 and not rep.errors
+        outs[str(dev)] = {f.name: f.read_bytes() for f in sorted(out.iterdir())}
+    assert outs[str(cuda)] == outs["cpu"] and len(outs["cpu"]) == 3

@@ -12,6 +12,8 @@ import sys
 import threading
 import time
 
+import numpy as np
+
 from conftest import REPO_ROOT
 from rustsasa_tpu_torch._host_build import build_shared_library
 
@@ -140,10 +142,61 @@ def test_failed_compile_reports_unavailable(tmp_path):
 
 
 def test_port_alias_loader_uses_the_locked_build():
-    import rustsasa_tpu_torch._host as host
-    import rustsasa_tpu_torch._host.native as host_native
+    """The port's own native loader builds its own fastparse.cpp under the
+    lock into build/rustsasa_tpu_torch/, keyed by source and flags."""
+    import rustsasa_tpu_torch.native as port_native
 
-    assert host_native._locate_or_build is host._locate_or_build
-    path = host_native._locate_or_build()
-    assert path == host_native._LIB
-    assert host_native.pipe_library() is not None
+    path = port_native._locate_or_build()
+    assert path == port_native._LIB
+    assert os.path.dirname(path) == str(REPO_ROOT / "build"
+                                        / "rustsasa_tpu_torch")
+    assert os.path.basename(path) == port_native._lib_name()
+    assert port_native._SRC == str(REPO_ROOT / "rustsasa_tpu_torch" / "native"
+                                   / "fastparse.cpp")
+    assert os.path.exists(path + ".lock")
+    assert port_native.pipe_library() is not None
+
+
+def test_port_radii_table_leaves_the_jax_package_alone():
+    """The two packages load two libraries, so two radius tables: a custom
+    table loaded into the port's changes the port's radii and leaves the
+    JAX package's native-pipe radii for example.cif as they were."""
+    import pytest
+
+    import rustsasa_tpu.native as ref_native
+    import rustsasa_tpu_torch.native as port_native
+
+    example = str(REPO_ROOT / "tests" / "data" / "pdbs" / "example.cif")
+    kwargs = dict(level="residue", include_hydrogens=False,
+                  include_hetatms=False, read_radii_from_occupancy=False,
+                  allow_vdw_fallback=False)
+
+    def radii(native):
+        ns = native.native_process_file(example, **kwargs)
+        try:
+            return ns.radii.copy()
+        finally:
+            ns.close()
+
+    assert build_shared_library(ref_native._SRC, ref_native._LIB,
+                                ref_native._build) is not None
+    with pytest.MonkeyPatch.context() as mp:
+        if ref_native._lib is None and ref_native._lib_failed:
+            mp.setattr(ref_native, "_lib_failed", False)
+        assert ref_native.pipe_library() is not None
+        assert port_native.pipe_library() is not None
+        assert ref_native.load_library()._name != port_native.load_library()._name
+        ref_native.set_pipe_radii(None)
+        port_native.set_pipe_radii(None)
+        before = radii(ref_native)
+        np.testing.assert_array_equal(radii(port_native), before)
+        custom = {res: {atom: 3.25 for atom in ("N", "CA", "C", "O", "CB")}
+                  for res in ("ALA", "GLY", "LEU", "SER", "VAL")}
+        try:
+            port_native.set_pipe_radii(custom)
+            changed = radii(port_native)
+            assert (changed != before).sum() > 100
+            np.testing.assert_array_equal(radii(ref_native), before)
+        finally:
+            port_native.set_pipe_radii(None)
+        np.testing.assert_array_equal(radii(port_native), before)

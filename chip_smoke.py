@@ -60,8 +60,11 @@ runs ten phases, each of which must pass:
      are the four sources' (ke_stream, ke_maxplus, ke_bf16, ke_mxu)
      launch counts.
 
-Prints the card's name and power limit, one JSON line with the twelve
-kernel sources' numbers (each with its bound: the larger of its FP32
+Phases 9 and 10 log the two kernels redesigned for this card
+(maxplus_count, ke_mxu's mxu_dots_def) with their bound, share of it,
+FP32 instruction rate and ptxas registers.  Prints the card's name and
+power limit, one JSON line with the twelve kernel sources' numbers and a
+record of its own for mxu_dots_def (each with its bound: the larger of its FP32
 instructions at this run's work over the 33.5T/s issue peak, for the
 DEFAULT variants also its mma work over the 989 TFLOP/s bf16
 tensor-core peak, and its bytes over 3.35 TB/s), and as its last line
@@ -114,6 +117,9 @@ KERNELS = {
                 "scripts/kernel_experiments.py:417"),
     "ke_mxu": ("rustsasa_tpu_torch/ops/csrc/ke_mxu.cu",
                "scripts/kernel_experiments.py:502"),
+    # ke_mxu.cu's DEFAULT variant (wgmma), recorded beside mxu_dots_hi.
+    "ke_mxu_def": ("rustsasa_tpu_torch/ops/csrc/ke_mxu.cu",
+                   "scripts/kernel_experiments.py:502"),
 }
 LARGEST = ("1hbn.pdb.gz", "1n62.pdb.gz", "1jz8.pdb.gz")
 PROBE = 1.4
@@ -222,10 +228,79 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps, out
 
 
+def ptxas_entries(log):
+    """{mangled kernel name: (registers, spill store bytes)} from the
+    ptxas -v report of one build."""
+    entries = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        fn = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        stores = re.search(r"(\d+) bytes spill stores", chunk)
+        entries[fn] = (int(regs.group(1)) if regs else None,
+                       int(stores.group(1)) if stores else None)
+    return entries
+
+
+def redesigned_log(tag, build_log, kernel, ms, bound_ms_by, instr, fn_part,
+                   smem):
+    """One line for a kernel redesigned for this card: its time, bound,
+    share of the bound, FP32 instructions/s at its own work, and the ptxas
+    registers and spills (from its source's `build_log`) of its
+    instantiation whose mangled name contains `fn_part`, beside its
+    dynamic shared memory (bytes)."""
+    regs = [v for fn, v in ptxas_entries(build_log).items()
+            if fn_part in fn]
+    log(f"{tag} redesigned {kernel}: {ms:.3f} ms, bound {bound_ms_by[0]:.3f} "
+        f"ms ({bound_ms_by[1]}), {bound_ms_by[0] / ms:.3f} of the bound, "
+        f"{instr / (ms * 1e-3) / 1e12:.2f}T FP32 instr/s at its own work; "
+        f"ptxas (registers, spill stores) {regs}; {smem} bytes of dynamic "
+        f"shared memory per CTA")
+
+
+class SmClocks:
+    """SM clock (MHz) and power draw (W) that nvidia-smi samples every
+    100 ms while the `with` block runs; summary() gives their range and
+    median.  The peaks in bound() assume the data sheet's 1,980 MHz."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.samples = []
+        for line in out.splitlines():
+            try:
+                mhz, watts = (float(v) for v in line.split(","))
+            except ValueError:
+                continue
+            self.samples.append((mhz, watts))
+        return False
+
+    def summary(self):
+        if not self.samples:
+            return "no nvidia-smi samples"
+        mhz = sorted(v[0] for v in self.samples)
+        watts = sorted(v[1] for v in self.samples)
+        return (f"SM clock {mhz[0]:.0f}-{mhz[-1]:.0f} MHz (median "
+                f"{mhz[len(mhz) // 2]:.0f}), power {watts[0]:.1f}-"
+                f"{watts[-1]:.1f} W over {len(mhz)} samples")
+
+
 def phase_build():
+    """Builds every kernel source; returns {source name: nvcc/ptxas log}."""
     from rustsasa_tpu_torch.ops import _kernels
 
+    logs = {}
     for name, info in _kernels.build().items():
+        logs[name] = info.log
+        for line in info.log.splitlines():
+            if "serialized" in line or "warning" in line.lower():
+                log(f"[build]   {name}: {line.strip()}")
         log(f"[build] {KERNELS[name][0]} -> "
             f"{os.path.relpath(info.path, ROOT)} in {info.seconds:.1f}s "
             f"(nvcc {' '.join(_kernels.NVCC_FLAGS)})")
@@ -241,6 +316,7 @@ def phase_build():
                 r"stores", info.log):
             if int(stores):
                 log(f"[build]   {name} {fn}: {stores} bytes of spill stores")
+    return logs
 
 
 def phase_kernel_vs_plain(corpus_dir, device):
@@ -773,7 +849,7 @@ def phase_count_studies(corpus_dir, device):
     return list(records.values())
 
 
-def phase_count_studies_ii(corpus_dir, device):
+def phase_count_studies_ii(corpus_dir, device, build_logs):
     """Phase 9: the count-kernel studies II.  The loop micro-variants and
     the reach-test kernel on a host-cull f32 corpus chunk, the max-plus
     kernel on the banded q16 chunk of the same structures, each against
@@ -855,6 +931,18 @@ def phase_count_studies_ii(corpus_dir, device):
     log(f"[studies-ii] maxplus_count at {margins_q * 2 / (ms * 1e-3) / 1e12:.2f}T "
         f"FP32 instr/s at its own work (2 per margin), fused_count at "
         f"{margins_q * 7 / (prod_q_ms * 1e-3) / 1e12:.2f}T (7 per margin)")
+    mp_passes = -(-p // 128)
+    mp_k = -(-p // (8 * mp_passes))
+    # maxplus_count.cu's maxplus_smem: sphere, LIMT [16][2][128] float4,
+    # TJ [8K][136], two j-tiles, the j-list row and the counters.
+    mp_smem = (16 * (mp_passes * 8 * mp_k + 16 * 2 * 128)
+               + 4 * (8 * mp_k * 136 + 2 * 5 * 128) + 4 * 2 * 128)
+    redesigned_log("[studies-ii]", build_logs["maxplus_count"],
+                   f"maxplus_count (P={p}: {mp_passes} pass(es) of 8 x "
+                   f"K={mp_k})", ms, (records["maxplus_count"]["bound_ms"],
+                                      records["maxplus_count"]["bound_by"]),
+                   margins_q * r3m.MAXPLUS_INSTR_PER_MARGIN, f"ILi{mp_k}E",
+                   mp_smem)
 
     # Full size: the studies' own entry, kernels only.
     t0 = time.perf_counter()
@@ -864,8 +952,10 @@ def phase_count_studies_ii(corpus_dir, device):
     _kernels.reset_launch_counts()
     micro = r4m.run(full, device)
     reach = r3v.run(full, device)
-    maxplus = r3m.run(full, device)
+    with SmClocks() as clocks:
+        maxplus = r3m.run(full, device)
     launches = dict(_kernels.launch_counts)
+    log(f"[studies-ii] during r3_maxplus.run(): {clocks.summary()}")
     r4m.report(micro, device, "[studies-ii] r4_microkernel")
     r3v.report(reach, device, "[studies-ii] r3_kernel_variants")
     r3m.report(maxplus, device, "[studies-ii] r3_maxplus")
@@ -906,13 +996,13 @@ def ke_bound(ke, variant, t, nj, executed):
     return ms, by
 
 
-def phase_kernel_experiments(device):
+def phase_kernel_experiments(device, build_logs):
     """Phase 10: the kernel experiments.  Every variant against its plain
     version at KE_CHECK_TILES tiles x NJ j-rows on the script's ones and on
     the seeded random j-data (kernel and plain timed on the ones), then
     kernel_experiments.run() at the script's T x NJ, whose launches are the
     four sources' launch counts.  Returns the four sources' records, each
-    for the source's first variant."""
+    for the source's first variant, and one for mxu_dots_def."""
     import torch
 
     from rustsasa_tpu_torch.ops import _kernels
@@ -920,7 +1010,7 @@ def phase_kernel_experiments(device):
 
     t_phase = time.perf_counter()
     t, nj = KE_CHECK_TILES, ke.NJ
-    errs = {name: 0.0 for name in _kernels.KE_VARIANTS}
+    errs = {variant: 0.0 for variant in ke.VARIANTS}
     check_ms = {}
     for jdata in ("ones", "random"):
         sphere, planes, jd = ke.synthetic_inputs(t, nj, device, jdata)
@@ -939,8 +1029,7 @@ def phase_kernel_experiments(device):
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
             err, ok = ke.agreement(variant, sphere, planes, jd, got, want)
-            src = ke.source(variant)
-            errs[src] = max(errs[src], err)
+            errs[variant] = max(errs[variant], err)
             groups = t * (ke.jrows(variant, nj) // ke.GROUP)
             ran = int(got[1].sum())
             held = ("within the DEFAULT bound"
@@ -955,8 +1044,10 @@ def phase_kernel_experiments(device):
                                      f"with its plain version")
 
     _kernels.reset_launch_counts()
-    result = ke.run(device)
+    with SmClocks() as clocks:
+        result = ke.run(device)
     launches = dict(_kernels.launch_counts)
+    log(f"[ke] during kernel_experiments.run(): {clocks.summary()}")
     ke.report(result, device, "[ke] kernel_experiments")
     full_t, full_nj = result["t"], result["nj"]
     for variant, v in result["variants"].items():
@@ -966,18 +1057,32 @@ def phase_kernel_experiments(device):
             f"({by}; {bound_ms / v['ms']:.3f} of it); T={t}: "
             f"{check_ms[variant][0]:.3f} ms, plain {check_ms[variant][1]:.3f} ms")
     log(f"[ke] launches in run(): {launches}")
+    v = result["variants"]["mxu_dots_def"]
+    region = max(full_nj * 8, ke.P * ke.A)
+    # ke_common.cuh's base_smem plus ke_mxu.cu's kDefExtra (the sphere as
+    # B, 4096 B; two group slots of [3][8][128] words).
+    def_smem = (16 * ke.P + 4 * (7 * ke.A + region) + 4096
+                + 4 * 2 * 3 * ke.GROUP * ke.A)
+    redesigned_log("[ke]", build_logs["ke_mxu"],
+                   f"mxu_dots_def (wgmma, T={full_t})",
+                   v["ms"], ke_bound(ke, "mxu_dots_def", full_t, full_nj,
+                                     v["executed"]),
+                   v["instr_per_margin"] * v["margins"], "ke_mxu_def_kernel",
+                   def_smem)
     records = []
     sphere, planes, jd = ke.synthetic_inputs(full_t, full_nj, device)
-    for name, variants in _kernels.KE_VARIANTS.items():
-        variant = variants[0]
+    for name, variant in [(name, variants[0]) for name, variants
+                          in _kernels.KE_VARIANTS.items()] + [
+                              ("ke_mxu_def", "mxu_dots_def")]:
         v = result["variants"][variant]
         plain_ms, _ = cuda_ms(
             lambda: ke.experiment_reference(planes, variant, sphere, jd), 1)
-        if launches[name] == 0:
-            raise AssertionError(f"{name} did not launch in run()")
+        source = ke.source(variant)
+        if launches[source] == 0:
+            raise AssertionError(f"{source} did not launch in run()")
         records.append(dict(
-            record(name, launches[name], errs[name], v["ms"], plain_ms, None,
-                   ke_bound(ke, variant, full_t, full_nj, v["executed"])),
+            record(name, launches[source], errs[variant], v["ms"], plain_ms,
+                   None, ke_bound(ke, variant, full_t, full_nj, v["executed"])),
             variant=variant))
     log(f"[ke] phase 10 took {time.perf_counter() - t_phase:.1f}s")
     return records
@@ -1000,7 +1105,7 @@ def main() -> int:
     log(f"[device] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    phase_build()
+    build_logs = phase_build()
     corpus_dir = os.path.join(WORK, "corpus")
     t0 = time.perf_counter()
     n_files, n_atoms, n_distinct = build_corpus(corpus_dir)
@@ -1024,8 +1129,8 @@ def main() -> int:
     listed["launches"] = phase_list_path(device)
     phase_host_cull(device, WORK)
     studies = phase_count_studies(corpus_dir, device)
-    studies_ii = phase_count_studies_ii(corpus_dir, device)
-    experiments = phase_kernel_experiments(device)
+    studies_ii = phase_count_studies_ii(corpus_dir, device, build_logs)
+    experiments = phase_kernel_experiments(device, build_logs)
     log(f"[smoke] ten phases in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     print(json.dumps({"kernels": [count, listed, *studies, *studies_ii,

@@ -3,7 +3,10 @@
 The counterpart of SASAOptions<T> (reference: src/options.rs:59-76,
 496-619).  Same defaults, same with_* builder surface, one `process` entry
 point; the level is a parameter rather than a zero-sized type.  `process`
-computes on the port's engine, on CUDA.
+computes on the port's engine on `device`: "cuda" by default, which
+raises on a host without CUDA (no silent fallback), or "cpu" when asked
+for with `SASAOptions(device="cpu")` or `.with_device("cpu")`, where the
+plain-torch kernels run.
 
 Example:
     from rustsasa_tpu_torch import SASAOptions, Level, read_structure
@@ -49,6 +52,7 @@ class SASAOptions:
     allow_vdw_fallback: bool = False
     include_hetatms: bool = False
     read_radii_from_occupancy: bool = False
+    device: str = "cuda"
 
     # Builder surface mirroring the reference's with_* methods.
     def with_probe_radius(self, radius: float) -> "SASAOptions":
@@ -74,6 +78,9 @@ class SASAOptions:
 
     def with_radii_config(self, config: RadiiConfig) -> "SASAOptions":
         return replace(self, radii_config=config)
+
+    def with_device(self, device: str) -> "SASAOptions":
+        return replace(self, device=device)
 
     # Convenience constructors (reference: options.rs:565-587).
     @staticmethod
@@ -120,5 +127,6 @@ class SASAOptions:
             group_ids=sel.group_ids,
             probe_radius=self.probe_radius,
             n_points=self.n_points,
+            device=self.device,
         )
         return aggregate(sel, atom_sasa, self.level), sel

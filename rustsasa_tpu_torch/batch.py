@@ -1,7 +1,8 @@
 """Directory batch processing: the proteome-throughput pipeline.
 
 Pass `engine=BatchedSasaEngine(params, device=...)` to choose the device;
-without one `process_directory` builds a CUDA engine.
+without one `process_directory` builds its engine on `options.device`
+(CUDA by default).
 
 Redesign of the reference's batch mode (reference:
 src/main.rs:341-480, rayon par_iter over files with inner threads=1):
@@ -168,7 +169,8 @@ def process_directory(
 
     workers = workers or min(32, (os.cpu_count() or 4) * 2)
     engine = engine or BatchedSasaEngine(
-        SasaParams(probe_radius=options.probe_radius, n_points=options.n_points)
+        SasaParams(probe_radius=options.probe_radius, n_points=options.n_points),
+        device=options.device,
     )
 
     # The native C++ pipeline (parse + select + aggregate + emit, all

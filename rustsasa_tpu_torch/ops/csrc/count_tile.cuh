@@ -4,7 +4,9 @@
 // (sm_90a).
 //
 // The variants keep fused_count.cu's layout and arithmetic and change
-// only which j-groups a thread streams, or when a CTA stops:
+// only which j-groups a thread streams, or when a CTA stops
+// (maxplus_count.cu takes its own thread layout and shares only the
+// constants, IAtom, load_i_atom, stage_sphere and RUSTSASA_SWITCH_K):
 //   * one CTA per 128-atom i-tile; 512 threads = 128 i-atoms x 4 point
 //     slices, a warp being 32 consecutive i-atoms of one slice (thread
 //     tid owns atom tid % 128 of slice tid / 128; pair64_count.cu places

@@ -329,14 +329,26 @@ def test_reach_count_byte_equal_plain(cuda, corpus_triples, n_points):
                 assert torch.equal(got[real], prod[real]), variant
 
 
-@pytest.mark.parametrize("n_points", [100, 960])
+# n_points 1, 64, 65, 100, 128, 129, 960 and 2048 pad to 8, 64, 72, 104,
+# 128, 136, 960 and 2048 points: each pass and K boundary of the kernel's
+# split (passes of 8 x K <= 16 points) and of the other count kernels'
+# (4 x K <= 16).
+@pytest.mark.parametrize("n_points", [1, 64, 65, 100, 128, 129, 960, 2048])
 def test_maxplus_count_byte_equal_plain(cuda, corpus_triples, n_points):
     sphere = engine._sphere_device(n_points, cuda)
     planes, qvalid, tmeta, real, _atoms, _tiles = _study.banded_chunk(
         corpus_triples, cuda, 65_536)
     jl = fk.build_jlist_banded(planes, qvalid, tmeta, w=32)
+    # Tile 0 with an empty j-list, tile 1 with 127 entries of all 16
+    # groups over repeated j-tiles (0xFFFF masks: negative as int32).
+    edge = jl.clone()
+    edge[0, 0] = 0
+    edge[1, 0] = fk.JLIST_CAP
+    ents = (0xFFFF << 16) | (torch.arange(fk.JLIST_CAP, device=cuda)
+                             % edge.shape[0])
+    edge[1, 1:] = (ents - (1 << 32)).to(torch.int32)
     lattice, lattice_jl = fk.to_device(r4_saturation.buried_block_wire(), cuda)
-    for planes, jl, real in ((planes, jl, real),
+    for planes, jl, real in ((planes, jl, real), (planes, edge, real),
                              (lattice, lattice_jl, lattice[4] > 0.0)):
         got = _launched("maxplus_count", lambda: r3_maxplus.maxplus_counts(
             planes, jl, sphere))
@@ -382,6 +394,24 @@ def test_kernel_experiments_equal_plain(cuda, source, jdata):
         if jdata == "random" and ke.VARIANTS[variant][1].get("skip"):
             groups = 6 * ke.jrows(variant, 256) // ke.GROUP
             assert 0 < int(got[1].sum()) < groups
+
+
+# NJ = 8 (one group) and 2,048 (the most resident j-rows).
+@pytest.mark.parametrize("nj", [8, 2048])
+@pytest.mark.parametrize("jdata", ["ones", "random"])
+def test_mxu_dots_def_equal_plain(cuda, nj, jdata):
+    """The DEFAULT matrix-unit dots (wgmma) against their plain version:
+    sums within kernel_experiments.default_bound, executed groups
+    byte-equal."""
+    ke = kernel_experiments
+    sphere, planes, jd = ke.synthetic_inputs(6, nj, cuda, jdata)
+    got = _launched("ke_mxu", lambda: ke.experiment(
+        "mxu_dots_def", sphere, planes, jd))
+    want = ke.experiment_reference(planes, "mxu_dots_def", sphere, jd)
+    err, ok = ke.agreement("mxu_dots_def", sphere, planes, jd, got, want)
+    assert ok, err
+    assert bool(torch.isfinite(got[0]).all())
+    assert torch.equal(got[1], torch.full_like(got[1], nj // ke.GROUP))
 
 
 def test_kernel_experiment_wrapper_checks_inputs(cuda):

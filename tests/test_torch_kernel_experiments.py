@@ -492,3 +492,17 @@ def test_run_on_cpu():
     assert variants["nobig"]["instr_per_margin"] == 1
     assert variants["mxu_dots_def"]["instr_per_margin"] == 2
     assert variants["full"]["instr_per_margin"] == 7
+
+
+def test_mxu_overlap_cuts_apply_to_the_kernel_source():
+    """scripts/mxu_overlap.py times ke_mxu.cu with its tensor-core or its
+    CUDA-core work cut out; each cut must find its text exactly once."""
+    from rustsasa_tpu_torch.scripts import mxu_overlap
+
+    with open(mxu_overlap.SOURCE, encoding="utf-8") as f:
+        text = f.read()
+    assert [tag for tag, _ in mxu_overlap.CUTS] == [
+        "full", "cuda_cores", "tensor_cores", "unread"]
+    for _tag, subs in mxu_overlap.CUTS:
+        for old, _new in subs:
+            assert text.count(old) == 1

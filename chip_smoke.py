@@ -60,9 +60,10 @@ runs ten phases, each of which must pass:
      are the four sources' (ke_stream, ke_maxplus, ke_bf16, ke_mxu)
      launch counts.
 
-Phases 9 and 10 log the two kernels redesigned for this card
-(maxplus_count, ke_mxu's mxu_dots_def) with their bound, share of it,
-FP32 instruction rate and ptxas registers.  Prints the card's name and
+Phases 9 and 10 log the kernels redesigned for this card
+(maxplus_count; ke_mxu's mxu_dots_def, ke_maxplus's six variants and
+ke_bf16's two) with their bound, share of it, FP32 instruction rate,
+ptxas registers and spills and shared memory.  Prints the card's name and
 power limit, one JSON line with the twelve kernel sources' numbers and a
 record of its own for mxu_dots_def (each with its bound: the larger of its FP32
 instructions at this run's work over the 33.5T/s issue peak, for the
@@ -250,6 +251,8 @@ def redesigned_log(tag, build_log, kernel, ms, bound_ms_by, instr, fn_part,
     dynamic shared memory (bytes)."""
     regs = [v for fn, v in ptxas_entries(build_log).items()
             if fn_part in fn]
+    if not regs:
+        raise AssertionError(f"{kernel}: no ptxas report names {fn_part}")
     log(f"{tag} redesigned {kernel}: {ms:.3f} ms, bound {bound_ms_by[0]:.3f} "
         f"ms ({bound_ms_by[1]}), {bound_ms_by[0] / ms:.3f} of the bound, "
         f"{instr / (ms * 1e-3) / 1e12:.2f}T FP32 instr/s at its own work; "
@@ -996,6 +999,28 @@ def ke_bound(ke, variant, t, nj, executed):
     return ms, by
 
 
+def ke_redesigned(ke, variant, nj):
+    """(part of the mangled kernel name, dynamic shared memory bytes) of a
+    ke_maxplus.cu or ke_bf16.cu variant at nj j-rows: the template flags
+    of its launcher's case, and ke_common.cuh's base_smem plus the
+    source's own buffers."""
+    from rustsasa_tpu_torch.ops import _kernels
+
+    source = ke.source(variant)
+    code = _kernels.KE_VARIANTS[source].index(variant)
+    base = 16 * ke.P + 4 * (7 * ke.A + max(nj * 8, ke.P * ke.A))
+    if source == "ke_bf16":
+        # Two ring slots of [8 rows][4 quantities][128 atoms] words.
+        return f"ke_bf16_kernelILb{code}EE", base + 4 * 2 * 4 * ke.GROUP * ke.A
+    # (per_tile, DEFAULT, skip, sat) of ke_maxplus_launch's cases.
+    flags = ((1, 0, 0, 0), (1, 1, 0, 0), (1, 0, 1, 0), (0, 0, 0, 0),
+             (0, 1, 0, 0), (1, 0, 0, 1))[code]
+    # The j-tile's limits [128][128], each of 16 warps' SXJ ([128 or
+    # 2 x 8 j][8 points]) and 16 votes.
+    smem = base + 4 * (128 * ke.A + 16 * (128 if flags[0] else 16) * 8) + 64
+    return "ke_maxplus_kernelI" + "".join(f"Lb{f}E" for f in flags) + "E", smem
+
+
 def phase_kernel_experiments(device, build_logs):
     """Phase 10: the kernel experiments.  Every variant against its plain
     version at KE_CHECK_TILES tiles x NJ j-rows on the script's ones and on
@@ -1069,6 +1094,14 @@ def phase_kernel_experiments(device, build_logs):
                                      v["executed"]),
                    v["instr_per_margin"] * v["margins"], "ke_mxu_def_kernel",
                    def_smem)
+    for variant in (*_kernels.KE_VARIANTS["ke_maxplus"],
+                    *_kernels.KE_VARIANTS["ke_bf16"]):
+        v = result["variants"][variant]
+        fn_part, smem = ke_redesigned(ke, variant, full_nj)
+        redesigned_log("[ke]", build_logs[ke.source(variant)],
+                       f"{variant} (T={full_t})", v["ms"],
+                       ke_bound(ke, variant, full_t, full_nj, v["executed"]),
+                       v["instr_per_margin"] * v["margins"], fn_part, smem)
     records = []
     sphere, planes, jd = ke.synthetic_inputs(full_t, full_nj, device)
     for name, variant in [(name, variants[0]) for name, variants

@@ -167,6 +167,52 @@ def build() -> dict[str, BuildInfo]:
     return out
 
 
+def cut_sources(name: str, cuts) -> dict[str, str]:
+    """{tag: csrc/<name>.cu with each (text, replacement) of that tag's
+    list applied}, for the (tag, [(text, replacement), ...]) pairs of
+    `cuts`: the studies' timing-only builds of a kernel with a part cut
+    out.  RuntimeError if a text is not in the source exactly once."""
+    with open(os.path.join(CSRC_DIR, f"{name}.cu"), encoding="utf-8") as f:
+        text = f.read()
+    sources = {}
+    for tag, subs in cuts:
+        src = text
+        for old, new in subs:
+            if src.count(old) != 1:
+                raise RuntimeError(f"{tag}: cut does not apply to {name}.cu")
+            src = src.replace(old, new)
+        sources[tag] = src
+    return sources
+
+
+def build_sources(stem: str, sources: dict[str, str], fn_name: str,
+                  argtypes) -> dict:
+    """{tag: the C function fn_name of sources[tag]}, each source text
+    built in parallel (csrc/ on the include path) into BUILD_DIR as
+    <stem>_<tag>_<hash of text and flags>."""
+    procs = {}
+    for tag, src in sources.items():
+        key = hashlib.sha256((src + " ".join(NVCC_FLAGS)).encode())
+        path = os.path.join(BUILD_DIR, f"{stem}_{tag}_{key.hexdigest()[:12]}")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(path + ".cu", "w", encoding="utf-8") as f:
+            f.write(src)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", path + ".so",
+               path + ".cu"]
+        procs[tag] = (path + ".so", subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for tag, (lib, proc) in procs.items():
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the {tag} build:\n{log}")
+        fn = getattr(ctypes.CDLL(lib), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[tag] = fn
+    return fns
+
+
 def _library(name: str):
     with _build_lock:
         if name not in _launchers:

@@ -16,10 +16,21 @@
 // rounding).  The _rn forms keep the compiler from fusing a multiply and
 // an add into one rounding.
 //
-// Bound: FP32-pipe issue, 5 packed instructions per 2 margins.  Layout:
-// 256 threads, each 16 points (8 pairs) x 4 atoms; the sphere pairs are
-// re-read from shared memory for every row, as the script reads its bf16
-// sphere scratch.
+// Bound: FP32-pipe issue, 7 packed instructions per 2 margins (3 mul,
+// 2 add, 1 sub, 1 max), 1.234 ms at T = 512 x NJ = 1,408 (chip_smoke.py's
+// ke_bound).  The design keeps the rest off the margins:
+//   * each (row, atom) is computed once per CTA: the group prologue
+//     (ke_common's group_entries, the f32 limit chain) stores lim, vx, vy
+//     and vz as bf16x2 broadcasts into a [row][quantity][atom] slot of
+//     16 KB, which a thread (lane l: atoms 4l..4l+3, warp w: points
+//     16w..16w+15 as 8 pairs) reads as four LDS.128 per row, the next
+//     row's in flight during a row's 224 packed instructions;
+//   * the sphere's 8 x 3 point pairs stay in registers;
+//   * a two-slot ring: each thread computes group g + 1's prologue
+//     beside group g's margins, and one __syncthreads_or per group
+//     publishes the slot and votes g + 1's reach test;
+//   * ~104 KB of shared memory and <= 128 registers hold two CTAs (16
+//     warps) per SM.
 
 #include "ke_common.cuh"
 
@@ -28,83 +39,126 @@ namespace {
 using namespace ke;
 
 constexpr int kPairs = kPts / 2;
+constexpr int kQuant = 4;  // lim, vx, vy, vz
+constexpr int kSlotWords = kGroup * kQuant * kA;
+
+__device__ __forceinline__ uint32_t bf16x2_bits(float x) {
+  const __nv_bfloat162 v = __float2bfloat162_rn(x);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf16x2(uint32_t u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
+// Word k (a constant once unrolled) of v.
+__device__ __forceinline__ uint32_t part(const uint4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// One row's lim, vx, vy, vz for the thread's 4 atoms.
+struct RowOps {
+  uint4 q[kQuant];
+};
+
+__device__ __forceinline__ RowOps row_ops(const uint32_t* row, int a0) {
+  RowOps o;
+#pragma unroll
+  for (int u = 0; u < kQuant; ++u) {
+    o.q[u] = *reinterpret_cast<const uint4*>(row + u * kA + a0);
+  }
+  return o;
+}
+
+__device__ __forceinline__ void row_margins(
+    __nv_bfloat162 (&occ)[kPairs][kAts], const __nv_bfloat162 (&sx)[kPairs],
+    const __nv_bfloat162 (&sy)[kPairs], const __nv_bfloat162 (&sz)[kPairs],
+    const RowOps& o) {
+#pragma unroll
+  for (int k = 0; k < kAts; ++k) {
+    const __nv_bfloat162 lim = as_bf16x2(part(o.q[0], k));
+    const __nv_bfloat162 vx = as_bf16x2(part(o.q[1], k));
+    const __nv_bfloat162 vy = as_bf16x2(part(o.q[2], k));
+    const __nv_bfloat162 vz = as_bf16x2(part(o.q[3], k));
+#pragma unroll
+    for (int q = 0; q < kPairs; ++q) {
+      const __nv_bfloat162 dots =
+          __hadd2_rn(__hmul2_rn(sx[q], vx),
+                     __hadd2_rn(__hmul2_rn(sy[q], vy), __hmul2_rn(sz[q], vz)));
+      occ[q][k] = __hmax2(occ[q][k], __hsub2_rn(lim, dots));
+    }
+  }
+}
 
 template <bool kSkip>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 2)
 ke_bf16_kernel(const float4* __restrict__ sphere,
                const float* __restrict__ planes,
                const float* __restrict__ jdata, float* __restrict__ out,
                int32_t* __restrict__ executed, int m, int nj) {
   extern __shared__ float4 smem_raw[];
   const Smem s = carve(smem_raw, nj);
-  // The sphere as bf16 point pairs: [3][kP / 2].
-  __nv_bfloat162* s2 = reinterpret_cast<__nv_bfloat162*>(s.extra);
-  for (int q = threadIdx.x; q < kP / 2; q += kThreads) {
-    const float4 lo = sphere[2 * q];
-    const float4 hi = sphere[2 * q + 1];
-    s2[q] = __floats2bfloat162_rn(lo.x, hi.x);
-    s2[kP / 2 + q] = __floats2bfloat162_rn(lo.y, hi.y);
-    s2[kP + q] = __floats2bfloat162_rn(lo.z, hi.z);
-  }
+  uint32_t* slots = reinterpret_cast<uint32_t*>(s.extra);  // [2][8][4][128]
   stage_inputs(s, sphere, planes, jdata, m, nj);
 
   const int tid = threadIdx.x;
   const int a0 = (tid % 32) * kAts;
   const int p0 = (tid / 32) * kPts;
-  IAtom at[kAts];
+  // The sphere as bf16 point pairs (p0 + 2q, p0 + 2q + 1).
+  __nv_bfloat162 sx[kPairs], sy[kPairs], sz[kPairs];
 #pragma unroll
-  for (int k = 0; k < kAts; ++k) at[k] = i_atom(s.irec, a0 + k);
-  const __nv_bfloat162 neg_big =
-      __bfloat162bfloat162(__float2bfloat16_rn(kNegBig));
+  for (int q = 0; q < kPairs; ++q) {
+    const float4 lo = s.sph[p0 + 2 * q];
+    const float4 hi = s.sph[p0 + 2 * q + 1];
+    sx[q] = __floats2bfloat162_rn(lo.x, hi.x);
+    sy[q] = __floats2bfloat162_rn(lo.y, hi.y);
+    sz[q] = __floats2bfloat162_rn(lo.z, hi.z);
+  }
+  const IAtom at = i_atom(s.irec, tid % kA);
+  const __nv_bfloat162 neg_big = __float2bfloat162_rn(kNegBig);
   __nv_bfloat162 occ[kPairs][kAts];
 #pragma unroll
   for (int q = 0; q < kPairs; ++q)
 #pragma unroll
     for (int k = 0; k < kAts; ++k) occ[q][k] = neg_big;
 
+  // Group g's prologue into slot g % 2; returns the thread's reach vote.
+  const auto prologue = [&](int g) {
+    uint32_t* slot = slots + (g & 1) * kSlotWords;
+    return group_entries<true>(
+        at, s.jd + g * kGroup * kJCols,
+        [&](int r, int a, float vx, float vy, float vz, float lim) {
+          uint32_t* e = slot + r * kQuant * kA + a;
+          e[0] = bf16x2_bits(lim);
+          e[kA] = bf16x2_bits(vx);
+          e[2 * kA] = bf16x2_bits(vy);
+          e[3 * kA] = bf16x2_bits(vz);
+        });
+  };
+  const int n_groups = nj / kGroup;
+  bool hit = __syncthreads_or(prologue(0)) != 0;
   int groups_run = 0;
-  for (int g = 0; g < nj / kGroup; ++g) {
-    const float* rows = s.jd + g * kGroup * kJCols;
-    if (kSkip && !group_vote(s.irec, rows)) continue;
-    ++groups_run;
-    float4 lo[kGroup];
-    float gk[kGroup];
+  for (int g = 0; g < n_groups; ++g) {
+    // Slot (g + 1) % 2 was last read in group g - 1, before the last
+    // barrier.
+    const bool next = g + 1 < n_groups && prologue(g + 1);
+    if (!kSkip || hit) {
+      ++groups_run;
+      const uint32_t* slot = slots + (g & 1) * kSlotWords;
+      RowOps ops[2];
+      ops[0] = row_ops(slot, a0);
 #pragma unroll
-    for (int r = 0; r < kGroup; ++r) {
-      lo[r] = *reinterpret_cast<const float4*>(rows + r * kJCols);
-      gk[r] = rows[r * kJCols + 4];
-    }
-#pragma unroll
-    for (int r = 0; r < kGroup; ++r) {
-      __nv_bfloat162 lim2[kAts], vx2[kAts], vy2[kAts], vz2[kAts];
-#pragma unroll
-      for (int k = 0; k < kAts; ++k) {
-        float vx, vy, vz, v2;
-        const float lim = limit<true>(at[k], lo[r].x, lo[r].y, lo[r].z,
-                                      __fmul_rn(lo[r].w, lo[r].w), gk[r], vx,
-                                      vy, vz, v2);
-        lim2[k] = __bfloat162bfloat162(__float2bfloat16_rn(lim));
-        vx2[k] = __bfloat162bfloat162(__float2bfloat16_rn(vx));
-        vy2[k] = __bfloat162bfloat162(__float2bfloat16_rn(vy));
-        vz2[k] = __bfloat162bfloat162(__float2bfloat16_rn(vz));
-      }
-#pragma unroll
-      for (int q = 0; q < kPairs; ++q) {
-        const int pi = p0 / 2 + q;
-        const __nv_bfloat162 sx = s2[pi];
-        const __nv_bfloat162 sy = s2[kP / 2 + pi];
-        const __nv_bfloat162 sz = s2[kP + pi];
-#pragma unroll
-        for (int k = 0; k < kAts; ++k) {
-          const __nv_bfloat162 dots = __hadd2_rn(
-              __hmul2_rn(sx, vx2[k]),
-              __hadd2_rn(__hmul2_rn(sy, vy2[k]), __hmul2_rn(sz, vz2[k])));
-          occ[q][k] = __hmax2(occ[q][k], __hsub2_rn(lim2[k], dots));
+      for (int r = 0; r < kGroup; ++r) {
+        if (r + 1 < kGroup) {
+          ops[(r + 1) & 1] = row_ops(slot + (r + 1) * kQuant * kA, a0);
         }
+        row_margins(occ, sx, sy, sz, ops[r & 1]);
       }
     }
+    // Publishes slot (g + 1) % 2 and its vote; after the last group, the
+    // j-data is no longer read.
+    hit = __syncthreads_or(next) != 0;
   }
-  __syncthreads();  // the j-data is no longer read
 #pragma unroll
   for (int q = 0; q < kPairs; ++q) {
 #pragma unroll
@@ -119,7 +173,7 @@ ke_bf16_kernel(const float4* __restrict__ sphere,
 template <bool kSkip>
 int launch(const float4* sphere, const float* planes, const float* jdata,
            float* out, int32_t* executed, int m, int nj, cudaStream_t stream) {
-  const size_t smem = base_smem(nj) + sizeof(__nv_bfloat162) * 3 * (kP / 2);
+  const size_t smem = base_smem(nj) + sizeof(uint32_t) * 2 * kSlotWords;
   return launch_tiles(ke_bf16_kernel<kSkip>, smem, m, stream, sphere, planes,
                       jdata, out, executed, m, nj);
 }

@@ -2,7 +2,8 @@
 // ke_bf16.cu, ke_mxu.cu): the ports of scripts/kernel_experiments.py's six
 // `make_*` Pallas kernels, for NVIDIA Hopper (sm_90a).
 //
-// One CTA of kThreads threads per 128-atom i-tile.  It stages, once:
+// One CTA per 128-atom i-tile, of kThreads threads (ke_maxplus.cu: 512).
+// It stages, once:
 //   * the sphere, [128] float4 (x, y, z, 0);
 //   * the i-atoms' records, [7][128] (x, y, z, r, gid, r*r,
 //     0.5 / max(r, 1e-6)), the script's per-tile prologue;
@@ -11,7 +12,8 @@
 //     j-data, so it is data, not constants the compiler could fold.
 // Per 8-row group a kernel may take the script's reach vote
 // (min over rows and atoms of v2 - (r_i + r_j)^2 < 0, CTA-uniform through
-// __syncthreads_or), and at the end it stages its [128 points][128 atoms]
+// __syncthreads_or, or group_entries' part of it for a kernel that places
+// its own barrier), and at the end it stages its [128 points][128 atoms]
 // running maxima through shared memory (over the j-data, which is no
 // longer read) and one thread per atom sums p = 0..127 in order, as the
 // plain version does.  Every f32 operation is a separately rounded
@@ -63,14 +65,16 @@ __device__ __forceinline__ Smem carve(void* raw, int nj) {
   return s;
 }
 
-// Stages the sphere, the tile's i-atom records and the j-data.
+// Stages the sphere, the tile's i-atom records and the j-data; a CTA of
+// kNThreads threads.
+template <int kNThreads = kThreads>
 __device__ __forceinline__ void stage_inputs(const Smem& s,
                                              const float4* __restrict__ sphere,
                                              const float* __restrict__ planes,
                                              const float* __restrict__ jdata,
                                              int64_t m, int nj) {
   const int tid = threadIdx.x;
-  for (int q = tid; q < kP; q += kThreads) s.sph[q] = sphere[q];
+  for (int q = tid; q < kP; q += kNThreads) s.sph[q] = sphere[q];
   if (tid < kA) {
     const int64_t i = static_cast<int64_t>(blockIdx.x) * kA + tid;
     const float r = planes[3 * m + i];
@@ -84,7 +88,7 @@ __device__ __forceinline__ void stage_inputs(const Smem& s,
   }
   const float4* src = reinterpret_cast<const float4*>(jdata);
   float4* dst = reinterpret_cast<float4*>(s.jd);
-  for (int q = tid; q < nj * (kJCols / 4); q += kThreads) dst[q] = src[q];
+  for (int q = tid; q < nj * (kJCols / 4); q += kNThreads) dst[q] = src[q];
   __syncthreads();
 }
 
@@ -122,19 +126,18 @@ __device__ __forceinline__ bool reaches(float v2, float ri, float rk) {
   return __fsub_rn(v2, __fmul_rn(reach, reach)) < 0.0f;
 }
 
-// The group prologue: thread t takes atom t % 128 and rows
-// (t / 128) * 4 + 0..3 of the 8-row group at `rows`, hands each
-// (row, atom)'s v and limit to store(r, a, vx, vy, vz, lim), and votes
-// the reach test.  Returns the CTA's vote; the barrier also publishes
-// what store wrote.
+// A thread's share of the group prologue, without a barrier: thread t of
+// kThreads takes atom t % 128 and rows (t / 128) * 4 + 0..3 of the 8-row
+// group at `rows` (atom record `at`, i_atom(irec, t % 128)), hands each
+// (row, atom)'s v and limit to store(r, a, vx, vy, vz, lim), and returns
+// its part of the reach vote.
 template <bool kGid, typename Store>
-__device__ __forceinline__ bool group_prologue(const float* irec,
-                                               const float* rows,
-                                               Store store) {
+__device__ __forceinline__ bool group_entries(const IAtom& at,
+                                              const float* rows,
+                                              Store store) {
   constexpr int kRowsPerThread = kGroup * kA / kThreads;
   const int a = threadIdx.x % kA;
   const int r0 = (threadIdx.x / kA) * kRowsPerThread;
-  const IAtom at = i_atom(irec, a);
   bool hit = false;
 #pragma unroll
   for (int q = 0; q < kRowsPerThread; ++q) {
@@ -147,7 +150,17 @@ __device__ __forceinline__ bool group_prologue(const float* irec,
     store(r, a, vx, vy, vz, lim);
     hit |= reaches(v2, at.r, row[3]);
   }
-  return __syncthreads_or(hit) != 0;
+  return hit;
+}
+
+// The group prologue: group_entries, then the CTA's vote; the barrier
+// also publishes what store wrote.
+template <bool kGid, typename Store>
+__device__ __forceinline__ bool group_prologue(const float* irec,
+                                               const float* rows,
+                                               Store store) {
+  const IAtom at = i_atom(irec, threadIdx.x % kA);
+  return __syncthreads_or(group_entries<kGid>(at, rows, store)) != 0;
 }
 
 // The reach vote alone (ke_stream.cu, whose rows live in registers).
@@ -173,14 +186,15 @@ __device__ __forceinline__ void finish(const Smem& s, float* __restrict__ out,
   if (tid == 0) executed[blockIdx.x] = groups_run;
 }
 
-// Stages a thread's maxima of the f32 layouts: points p0 + 0..15, atoms
+// Stages a thread's maxima of the f32 layouts: points p0 + 0..kN-1, atoms
 // a0 + 0..3.
+template <int kN>
 __device__ __forceinline__ void stage_occ(const Smem& s,
-                                          const float (&occ)[kPts][kAts],
+                                          const float (&occ)[kN][kAts],
                                           int p0, int a0) {
   __syncthreads();  // the j-data is no longer read
 #pragma unroll
-  for (int q = 0; q < kPts; ++q) {
+  for (int q = 0; q < kN; ++q) {
     *reinterpret_cast<float4*>(s.jd + (p0 + q) * kA + a0) =
         make_float4(occ[q][0], occ[q][1], occ[q][2], occ[q][3]);
   }
@@ -206,16 +220,16 @@ __device__ __forceinline__ void mma_bf16(const uint32_t (&a)[4],
         "f"(0.0f));
 }
 
-// Launches `kernel` with `smem` bytes of dynamic shared memory, one CTA per
-// i-tile; returns the cudaError_t of the launch.
-template <typename Kernel, typename... Args>
+// Launches `kernel` with `smem` bytes of dynamic shared memory, one CTA of
+// kNThreads threads per i-tile; returns the cudaError_t of the launch.
+template <int kNThreads = kThreads, typename Kernel, typename... Args>
 int launch_tiles(Kernel kernel, size_t smem, int m, cudaStream_t stream,
                  Args... args) {
   const cudaError_t set = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (set != cudaSuccess) return static_cast<int>(set);
-  kernel<<<m / kA, kThreads, smem, stream>>>(args...);
+  kernel<<<m / kA, kNThreads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 

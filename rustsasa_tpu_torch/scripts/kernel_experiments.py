@@ -56,6 +56,9 @@ NEG_BIG = -1e30
 # Random j-data: coordinates are normals times this spread, so that some
 # 8-row groups lie out of every i-atom's reach.
 RANDOM_SPREAD = 8.0
+# Far j-data: the groups and the i-tile moved this far (in Angstrom) lie
+# out of reach of everything else.
+FAR = 1.0e3
 
 # name -> (family, parameters).  Families: "stream" (make_kernel,
 # make_grouped_kernel, make_v2_kernel), "maxplus" (make_v3_kernel), "bf16"
@@ -87,8 +90,9 @@ VARIANTS = {
 # FP32 instructions per margin at each family's own work: the f32 stream
 # 3 mul, 2 add (or 3 sub), 1 sub, 1 max; nobig 1 max; max-plus add, max;
 # the mxu dots on CUDA cores mul, 2 fma, sub, max; on the tensor cores
-# sub, max; bf16 5 packed instructions per 2 margins.
-_INSTR = {"stream": 7, "maxplus": 2, "bf16": 2.5, "mxu": 5}
+# sub, max; bf16 7 packed instructions per 2 margins (3 mul, 2 add, 1 sub,
+# 1 max: it rounds after every op, so no multiply-add).
+_INSTR = {"stream": 7, "maxplus": 2, "bf16": 3.5, "mxu": 5}
 
 
 def instr_per_margin(variant: str) -> float:
@@ -122,6 +126,10 @@ def synthetic_inputs(t: int = T, nj: int = NJ, device="cpu", jdata="ones",
     coordinates as normals times RANDOM_SPREAD, radii uniform in [1, 3)
     and integer gids 0-7 (columns 0-4; 5-7 are zero), and sets plane row 4
     to integer gids 0-7, so that the gid mask and the reach test fire.
+    "far" is "random" with the first and last 8-row group of each 128-row
+    j-tile (of the last, partial one too) moved FAR along x, y and z, and
+    the last i-tile moved FAR the other way, so that the reach test leaves
+    out those groups everywhere and every group for that tile.
     """
     m = t * A
     sphere128 = np.random.default_rng(0).normal(size=(P, 128)).astype(np.float32)
@@ -130,15 +138,22 @@ def synthetic_inputs(t: int = T, nj: int = NJ, device="cpu", jdata="ones",
     planes = np.random.default_rng(1).normal(size=(8, m)).astype(np.float32)
     if jdata == "ones":
         jd = np.ones((nj, 8), np.float32)
-    elif jdata == "random":
+    elif jdata in ("random", "far"):
         rng = np.random.default_rng(seed)
         jd = np.zeros((nj, 8), np.float32)
         jd[:, :3] = rng.normal(size=(nj, 3)) * RANDOM_SPREAD
         jd[:, 3] = rng.uniform(1.0, 3.0, nj)
         jd[:, 4] = rng.integers(0, 8, nj)
         planes[4] = rng.integers(0, 8, m)
+        if jdata == "far":
+            for j0 in range(0, nj, A):
+                j1 = min(nj, j0 + A)
+                jd[j0:j0 + GROUP, :3] += FAR
+                jd[j1 - GROUP:j1, :3] += FAR
+            planes[:3, m - A:] -= FAR
     else:
-        raise ValueError(f"jdata {jdata!r}: expected 'ones' or 'random'")
+        raise ValueError(
+            f"jdata {jdata!r}: expected 'ones', 'random' or 'far'")
     return tuple(torch.from_numpy(x).to(device) for x in (sphere, planes, jd))
 
 

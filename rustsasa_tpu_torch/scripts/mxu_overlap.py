@@ -27,10 +27,7 @@ made from the source by a text substitution that must apply.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import os
-import subprocess
 import sys
 
 import torch
@@ -57,50 +54,14 @@ CUTS = (
 )
 
 
-def build(cuts):
-    """{tag: ke_mxu_launch} of the source with each cut applied, built in
-    parallel into build/rustsasa_tpu_torch/."""
-    with open(SOURCE, encoding="utf-8") as f:
-        text = f.read()
-    sources = {}
-    for tag, subs in cuts:
-        src = text
-        for old, new in subs:
-            if src.count(old) != 1:
-                raise RuntimeError(f"{tag}: cut does not apply to ke_mxu.cu")
-            src = src.replace(old, new)
-        sources[tag] = src
-    procs = {}
-    for tag, src in sources.items():
-        key = hashlib.sha256((src + " ".join(_kernels.NVCC_FLAGS)).encode())
-        stem = os.path.join(_kernels.BUILD_DIR,
-                            f"mxu_overlap_{tag}_{key.hexdigest()[:12]}")
-        os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
-        with open(stem + ".cu", "w", encoding="utf-8") as f:
-            f.write(src)
-        cmd = [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I", _kernels.CSRC_DIR,
-               "-o", stem + ".so", stem + ".cu"]
-        procs[tag] = (stem + ".so", subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for tag, (lib, proc) in procs.items():
-        log, _ = proc.communicate(timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the {tag} build:\n{log}")
-        fn = ctypes.CDLL(lib).ke_mxu_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[tag] = fn
-    return fns
-
-
 def run(device, *, t: int = ke.T, nj: int = ke.NJ, reps: int = 10):
     """{tag: best warm ms} of mxu_dots_def per build, timed in turns
     (full, cuda_cores, tensor_cores, unread, then back), the best of both
     turns."""
     device = torch.device(device)
-    fns = build(CUTS)
+    fns = _kernels.build_sources(
+        "mxu_overlap", _kernels.cut_sources("ke_mxu", CUTS), "ke_mxu_launch",
+        _kernels._SIGNATURES["ke_mxu"])
     sphere, planes, jd = ke.synthetic_inputs(t, nj, device)
     m = planes.shape[1]
     out = torch.empty(m, dtype=torch.float32, device=device)

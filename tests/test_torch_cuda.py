@@ -414,6 +414,34 @@ def test_mxu_dots_def_equal_plain(cuda, nj, jdata):
     assert torch.equal(got[1], torch.full_like(got[1], nj // ke.GROUP))
 
 
+# The far j-data (the first and last group of each j-tile and the last
+# i-tile out of reach) at the fewest, the script's and the most j-rows of
+# each source.
+@pytest.mark.parametrize("source, nj", [
+    ("ke_maxplus", 128), ("ke_maxplus", 1408), ("ke_maxplus", 2048),
+    ("ke_bf16", 8), ("ke_bf16", 256), ("ke_bf16", 2048)])
+def test_kernel_experiments_on_far_groups(cuda, source, nj):
+    """ke_maxplus.cu and ke_bf16.cu against their plain versions where the
+    reach test leaves whole groups and a whole tile out: sums byte-equal
+    (DEFAULT within default_bound), executed byte-equal, and 0 for the
+    tile that reaches no group."""
+    ke = kernel_experiments
+    sphere, planes, jd = ke.synthetic_inputs(6, nj, cuda, "far")
+    for variant in _kernels.KE_VARIANTS[source]:
+        got = _launched(source, lambda v=variant: ke.experiment(
+            v, sphere, planes, jd))
+        want = ke.experiment_reference(planes, variant, sphere, jd)
+        err, ok = ke.agreement(variant, sphere, planes, jd, got, want)
+        assert ok, (variant, err)
+        assert bool(torch.isfinite(got[0]).all())
+        groups = ke.jrows(variant, nj) // ke.GROUP
+        if ke.VARIANTS[variant][1].get("skip"):
+            assert int(got[1][-1]) == 0
+            assert int(got[1].max()) <= groups - min(2, groups)
+        else:
+            assert torch.equal(got[1], torch.full_like(got[1], groups))
+
+
 def test_kernel_experiment_wrapper_checks_inputs(cuda):
     sphere, planes, jd = kernel_experiments.synthetic_inputs(1, 128, cuda)
     with pytest.raises(ValueError, match="unknown variant"):

@@ -312,6 +312,95 @@ def test_variant_matches_script(script, variant, kind):
         assert int((got != hi_got).sum()) > 0
 
 
+def _groups_in_reach(variant, planes, jd):
+    """[T]: the 8-row groups of each tile that some (row, atom) pair
+    reaches, v2 < (r_i + r_j)^2 in float64."""
+    t = planes.shape[1] // ke.A
+    nj = ke.jrows(variant, jd.shape[0])
+    p = planes.double().numpy()
+    j = jd[:nj].double().numpy()
+    counts = []
+    for tile in range(t):
+        ci = p[:3, tile * ke.A:(tile + 1) * ke.A]  # [3, A]
+        v2 = ((ci[:, None, :] - j[:, :3].T[:, :, None]) ** 2).sum(axis=0)
+        reach = p[3, tile * ke.A:(tile + 1) * ke.A][None] + j[:, 3:4]
+        hit = (v2 < reach * reach).reshape(nj // ke.GROUP, -1).any(axis=1)
+        counts.append(int(hit.sum()))
+    return counts
+
+
+@pytest.mark.parametrize("variant", ["mp_tile_hi_skip", "g8_bf16_skip"])
+def test_skip_variants_match_script_on_far_groups(script, variant):
+    """The far j-data: the first and last 8-row group of each j-tile lie
+    out of every atom's reach, and the last i-tile out of every group's.
+    The plain version's sums match the script's, and its executed groups
+    are those the reach test admits: none for the far tile."""
+    sphere, planes, jd, sphere128 = _case(variant, "far")
+    want = _script_sums(script, variant, planes, sphere128, jdata=jd.numpy())
+    got, executed = ke.experiment(variant, sphere, planes, jd)
+    _assert_votes_agree(variant, planes, jd)
+    groups = ke.jrows(variant, jd.shape[0]) // ke.GROUP
+    assert executed.tolist() == _groups_in_reach(variant, planes, jd)
+    assert int(executed[-1]) == 0 and int(executed[0]) <= groups - 2
+    occ, _ = ke.plain_occ(variant, sphere, planes, jd)
+    _assert_within(got, want, _bound(variant, sphere, planes, jd, occ))
+    if ke.VARIANTS[variant][0] == "bf16":
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+# Each family's operations per margin: (variant, operations, margins they
+# cover).  bf16 rounds after every op, so its 7 packed ops take no
+# multiply-add; the tensor cores take the DEFAULT dots' products.
+OPS = {
+    "full": (["mul"] * 3 + ["add"] * 2 + ["sub", "max"], 1),
+    "nobig": (["max"], 1),
+    "mp_tile_hi": (["add", "max"], 1),
+    "g8_bf16": (["mul"] * 3 + ["add"] * 2 + ["sub", "max"], 2),
+    "mxu_dots_hi": (["mul", "fma", "fma", "sub", "max"], 1),
+    "mxu_dots_def": (["sub", "max"], 1),
+}
+
+
+@pytest.mark.parametrize("variant", list(OPS))
+def test_instr_per_margin_counts_each_familys_ops(variant):
+    ops, margins = OPS[variant]
+    assert ke.instr_per_margin(variant) == len(ops) / margins
+
+
+def test_sass_mix_finds_innermost_loops():
+    """scripts/sass_mix.py's reading of cuobjdump -sass: functions,
+    predicated branches back to a loop head, and the trailing self-branch
+    every kernel ends with."""
+    from rustsasa_tpu_torch.scripts import sass_mix
+
+    text = """
+\tcode for sm_90a
+\t\tFunction : _Z3fooPf
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;      /* 0x00000a00ff017b82 */
+                                                               /* 0x000fe40000000800 */
+        /*0010*/                   MOV R2, RZ ;                /* 0x000000ff00027202 */
+        /*0020*/                   LDS.128 R4, [R3] ;          /* 0x0000000003047984 */
+        /*0030*/                   FADD R5, R4, R6 ;           /* 0x0000000604057221 */
+        /*0040*/                   FMNMX R7, R7, R5, !PT ;     /* 0x0000000507077209 */
+        /*0050*/              @!P0 BRA 0x20 ;                  /* 0xfffffffc00008947 */
+        /*0060*/                   EXIT ;                      /* 0x000000000000794d */
+        /*0070*/                   BRA 0x70;                   /* 0xfffffffc00fc7947 */
+\t\tFunction : _Z3barv
+        /*0000*/                   EXIT ;                      /* 0x000000000000794d */
+"""
+    functions = sass_mix.parse(text)
+    assert list(functions) == ["_Z3fooPf", "_Z3barv"]
+    code = functions["_Z3fooPf"]
+    assert len(code) == 8 and code[5] == (0x50, "@!P0 BRA 0x20")
+    assert sass_mix.opcode(code[5][1]) == "BRA"
+    assert sass_mix.opcode(code[2][1]) == "LDS.128"
+    assert sass_mix.innermost_loops(code) == [(2, 5), (7, 7)]
+    assert sass_mix.mix(code, 2, 5) == {"LDS.128": 1, "FADD": 1, "FMNMX": 1,
+                                        "BRA": 1}
+    assert sass_mix.innermost_loops(functions["_Z3barv"]) == []
+
+
 @pytest.mark.parametrize("variant", ["full", "group8", "g8_fma_skip",
                                      "mp_tile_hi", "g8_bf16", "mxu_dots_hi"])
 def test_family_matches_unpatched_script(script, variant):
@@ -489,9 +578,8 @@ def test_run_on_cpu():
             assert v["groups"] == 0  # NJ // 128 = 0 j-tiles, as the script
         else:
             assert v["groups"] == T_SMALL * NJ_SMALL // ke.GROUP
-    assert variants["nobig"]["instr_per_margin"] == 1
-    assert variants["mxu_dots_def"]["instr_per_margin"] == 2
-    assert variants["full"]["instr_per_margin"] == 7
+    for name, (ops, margins) in OPS.items():
+        assert variants[name]["instr_per_margin"] == len(ops) / margins
 
 
 def test_mxu_overlap_cuts_apply_to_the_kernel_source():
@@ -506,3 +594,20 @@ def test_mxu_overlap_cuts_apply_to_the_kernel_source():
     for _tag, subs in mxu_overlap.CUTS:
         for old, _new in subs:
             assert text.count(old) == 1
+
+
+def test_loop_ceiling_cuts_apply_to_the_kernel_sources():
+    """scripts/loop_ceiling.py times ke_maxplus.cu and ke_bf16.cu with
+    their barriers or prologues cut out; each cut must find its text
+    exactly once, and the first build is the source as it is."""
+    from rustsasa_tpu_torch.scripts import loop_ceiling
+
+    assert set(loop_ceiling.CUTS) == set(loop_ceiling.CUT_VARIANTS)
+    for name, cuts in loop_ceiling.CUTS.items():
+        sources = _kernels.cut_sources(name, cuts)
+        assert list(sources) == ["full", "nobar", "noprologue"]
+        with open(f"{_kernels.CSRC_DIR}/{name}.cu", encoding="utf-8") as f:
+            assert sources["full"] == f.read()
+        assert len(set(sources.values())) == len(cuts)
+        for variant in loop_ceiling.CUT_VARIANTS[name]:
+            assert ke.source(variant) == name

@@ -23,7 +23,11 @@ runs ten phases, each of which must pass:
      count in the timed pass must equal the chunks the engine dispatched;
   5. list kernel vs plain: the neighbor phase's records for 1jz8 (the
      largest test structure) at 100 points, through the list-occlusion
-     kernel and its plain-torch version; byte-equal, both timed;
+     kernel and its plain-torch version; byte-equal, both timed, with the
+     tiles' neighbor bounds (min, mean, max), the device time of the
+     records' four K-major copies and the wrapper's host time a call; and
+     byte-equal again at 960 and 50,000 points (several blocks of points a
+     tile, beyond one wave of CTAs);
   6. list path: `calculate_sasa_internal(backend="list")` on example.cif
      against the golden array and protein total, and the closed-form cases
      of tests/test_sanity.py at 50,000 points within 0.5 %; the list
@@ -60,10 +64,11 @@ runs ten phases, each of which must pass:
      are the four sources' (ke_stream, ke_maxplus, ke_bf16, ke_mxu)
      launch counts.
 
-Phases 9 and 10 log the kernels redesigned for this card
-(maxplus_count; ke_mxu's mxu_dots_def, ke_maxplus's six variants and
-ke_bf16's two) with their bound, share of it, FP32 instruction rate,
-ptxas registers and spills and shared memory.  Prints the card's name and
+Phases 5, 9 and 10 log the kernels redesigned for this card
+(list_occlusion; maxplus_count; ke_mxu's mxu_dots_def, ke_maxplus's six
+variants, ke_bf16's two and ke_stream's nobig and noscalar) with their
+bound, share of it, FP32 instruction rate, ptxas registers and spills
+and shared memory.  Prints the card's name and
 power limit, one JSON line with the twelve kernel sources' numbers and a
 record of its own for mxu_dots_def (each with its bound: the larger of its FP32
 instructions at this run's work over the 33.5T/s issue peak, for the
@@ -134,6 +139,12 @@ BF16_TC_FLOPS = 989e12
 # Tiles of the kernel experiments' checks (the full run takes the
 # script's T = 512).
 KE_CHECK_TILES = 64
+# csrc/list_occlusion.cu's dynamic shared memory per CTA: two stages of
+# [4 planes][16 rows][128 atoms] floats, 128 sphere points, 128 counts.
+LIST_SMEM = 4 * 2 * 4 * 16 * 128 + 16 * 128 + 4 * 128
+# Sphere sizes phase 5 also holds the list kernel to its plain version at
+# on 1jz8's records: 8 and 391 blocks of points a tile.
+LIST_BIG_SPHERES = (960, 50_000)
 
 
 def log(msg: str) -> None:
@@ -248,7 +259,7 @@ def redesigned_log(tag, build_log, kernel, ms, bound_ms_by, instr, fn_part,
     share of the bound, FP32 instructions/s at its own work, and the ptxas
     registers and spills (from its source's `build_log`) of its
     instantiation whose mangled name contains `fn_part`, beside its
-    dynamic shared memory (bytes)."""
+    shared memory per CTA (bytes)."""
     regs = [v for fn, v in ptxas_entries(build_log).items()
             if fn_part in fn]
     if not regs:
@@ -256,8 +267,8 @@ def redesigned_log(tag, build_log, kernel, ms, bound_ms_by, instr, fn_part,
     log(f"{tag} redesigned {kernel}: {ms:.3f} ms, bound {bound_ms_by[0]:.3f} "
         f"ms ({bound_ms_by[1]}), {bound_ms_by[0] / ms:.3f} of the bound, "
         f"{instr / (ms * 1e-3) / 1e12:.2f}T FP32 instr/s at its own work; "
-        f"ptxas (registers, spill stores) {regs}; {smem} bytes of dynamic "
-        f"shared memory per CTA")
+        f"ptxas (registers, spill stores) {regs}; {smem} bytes of shared "
+        f"memory per CTA")
 
 
 class SmClocks:
@@ -481,35 +492,18 @@ def phase_main_path(corpus_dir, n_files, n_atoms, device, work):
     return results["timed"][1]
 
 
-def phase_list_kernel(device):
+def phase_list_kernel(device, build_logs):
     """Kernel 2 and its plain version on the neighbor phase's records for
     the largest test structure; returns its JSON record."""
     import torch
 
     from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
-    from rustsasa_tpu_torch.scripts._study import select
+    from rustsasa_tpu_torch.scripts import layout_probe
 
-    coords, radii, gids = select(os.path.join(SOURCE_DIR, LARGEST[-1]))
-    n = coords.shape[0]
-    n_pad = neighbors._round_bucket(n, neighbors._N_BUCKETS)
-    packed, g = (torch.from_numpy(a[0]).to(device)
-                 for a in engine._pack(n_pad, [(coords, radii, gids)]))
-    k = neighbors._initial_k(n_pad)
-    t0 = time.perf_counter()
-    while True:
-        v, limit, counts, mc = neighbors._neighbor_phase(
-            packed, g, probe=PROBE, k=k
-        )
-        if int(mc) <= k:
-            break
-        k = min(neighbors._round_bucket(int(mc), neighbors._K_BUCKETS), n_pad)
-    torch.cuda.synchronize()
-    nbr_s = time.perf_counter() - t0
-    area = neighbors._area_factor(packed[:, 3], g >= 0, PROBE, 100)
-    kmax = neighbors.tile_kmax(counts, limit.shape[1])
-    planes = [t.T.contiguous() for t in (v[..., 0], v[..., 1], v[..., 2],
-                                        limit)]
-    sphere = engine._sphere_device(100, device)
+    rec = layout_probe.list_records(device, os.path.join(SOURCE_DIR,
+                                                         LARGEST[-1]))
+    planes, area, sphere, kmax = (rec[key] for key in
+                                  ("planes", "area", "sphere", "kmax"))
     kernel_ms, got = cuda_ms(
         lambda: _kernels.list_occlusion(*planes, area, sphere, kmax), 20
     )
@@ -519,24 +513,57 @@ def phase_list_kernel(device):
     )
     max_err = float((got - want).abs().max())
     equal = bool(torch.equal(got, want))
-    kdim = limit.shape[1]
+    kdim, n_pad = planes[0].shape
+    n = rec["n"]
+    kd = kmax.double()
     log(f"[list-kernel] {LARGEST[-1]}: {n} atoms, N={n_pad} slots, "
-        f"K={kdim} (max candidates {int(mc)}), P={sphere.shape[0]}, mean "
-        f"tile bound {float(kmax.double().mean()):.1f}; neighbor phase "
-        f"{nbr_s * 1e3:.1f} ms (host clock, first call)")
-    log(f"[list-kernel] list_occlusion {kernel_ms:.3f} ms, plain torch "
+        f"K={kdim} (max candidates {rec['max_count']}), P={sphere.shape[0]}"
+        f"; tile bound min {int(kmax.min())}, mean {float(kd.mean()):.1f}, "
+        f"max {int(kmax.max())} over {kmax.numel()} tiles; neighbor phase "
+        f"{rec['neighbor_s'] * 1e3:.1f} ms (host clock, first call)")
+    # The wrapper's host time per call: its checks, allocations and
+    # launches, enqueued back to back ahead of the card.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        _kernels.list_occlusion(*planes, area, sphere, kmax)
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    log(f"[list-kernel] list_occlusion {kernel_ms:.4f} ms (host "
+        f"{host_us:.1f} us a call), its four K-major record copies "
+        f"(neighbors.occlusion_sasa) {rec['copy_ms']:.4f} ms, plain torch "
         f"{plain_ms:.3f} ms; max |diff| {max_err}, byte-equal: {equal}")
     if not equal or not bool(torch.isfinite(got).all()):
         raise AssertionError("list kernel disagrees with its plain version")
     if not bool((got[:n] > 0).any()):
         raise AssertionError("list kernel found no accessible surface")
-    # Work: 6 FP32 instructions per (point, atom, k < the tile's bound);
+    # Spheres over 128 points: several blocks of points a tile, their
+    # counts added with atomicAdd and finished by a second kernel, on more
+    # CTAs than the card holds at once (2 a SM).
+    for p_big in LIST_BIG_SPHERES:
+        big = engine._sphere_device(p_big, device)
+        blocks = _kernels.list_point_plan(p_big)[0]
+        ms_big, got_big = cuda_ms(
+            lambda b=big: _kernels.list_occlusion(*planes, area, b, kmax), 3)
+        want_big = neighbors.occlusion_sasa_reference(*planes, area, big,
+                                                      kmax)
+        equal_big = bool(torch.equal(got_big, want_big))
+        log(f"[list-kernel] list_occlusion at P={p_big}: {blocks} blocks of "
+            f"points, {blocks * kmax.numel()} CTAs, {ms_big:.4f} ms; "
+            f"byte-equal to plain torch: {equal_big}")
+        if not equal_big:
+            raise AssertionError(f"list kernel at P={p_big} disagrees with "
+                                 "its plain version")
+    # Work: LIST_INSTR_PER_TRIPLE per (point, atom, k < the tile's bound);
     # bytes: those records (vx, vy, vz, limit), area, sphere, tile bounds
     # and the output.
     k_rows = int(kmax.to(torch.int64).clamp(max=kdim).sum()) * 128
     p = sphere.shape[0]
-    work = bound(6 * k_rows * p,
-                 16 * k_rows + 8 * n_pad + 16 * p + 4 * kmax.numel())
+    instr = _kernels.LIST_INSTR_PER_TRIPLE * k_rows * p
+    work = bound(instr, 16 * k_rows + 8 * n_pad + 16 * p + 4 * kmax.numel())
+    redesigned_log("[list-kernel]", build_logs["list_occlusion"],
+                   "list_occlusion (1jz8)", kernel_ms, work, instr,
+                   "list_occlusion_kernel", LIST_SMEM)
     return record("list_occlusion", None, max_err, kernel_ms, plain_ms, None,
                   work)
 
@@ -1000,13 +1027,20 @@ def ke_bound(ke, variant, t, nj, executed):
 
 
 def ke_redesigned(ke, variant, nj):
-    """(part of the mangled kernel name, dynamic shared memory bytes) of a
-    ke_maxplus.cu or ke_bf16.cu variant at nj j-rows: the template flags
+    """(part of the mangled kernel name, shared memory bytes) of a
+    ke_maxplus.cu or ke_bf16.cu variant at nj j-rows (the template flags
     of its launcher's case, and ke_common.cuh's base_smem plus the
-    source's own buffers."""
+    source's own buffers), or of ke_stream.cu's nobig and noscalar
+    kernels."""
     from rustsasa_tpu_torch.ops import _kernels
 
     source = ke.source(variant)
+    if variant == "nobig":
+        # The staged j-rows (x, y, z, r*r and the gid) and the 8 j-slices'
+        # maxima, [8][128].
+        return "ke_nobig_kernel", 20 * nj + 4 * 8 * ke.A
+    if variant == "noscalar":
+        return "ke_noscalar_kernel", 16 * ke.P  # the sphere (static)
     code = _kernels.KE_VARIANTS[source].index(variant)
     base = 16 * ke.P + 4 * (7 * ke.A + max(nj * 8, ke.P * ke.A))
     if source == "ke_bf16":
@@ -1095,7 +1129,7 @@ def phase_kernel_experiments(device, build_logs):
                    v["instr_per_margin"] * v["margins"], "ke_mxu_def_kernel",
                    def_smem)
     for variant in (*_kernels.KE_VARIANTS["ke_maxplus"],
-                    *_kernels.KE_VARIANTS["ke_bf16"]):
+                    *_kernels.KE_VARIANTS["ke_bf16"], "nobig", "noscalar"):
         v = result["variants"][variant]
         fn_part, smem = ke_redesigned(ke, variant, full_nj)
         redesigned_log("[ke]", build_logs[ke.source(variant)],
@@ -1158,7 +1192,7 @@ def main() -> int:
     count["launches"] = phase_main_path(
         corpus_dir, n_files, n_atoms, device, WORK
     )
-    listed = phase_list_kernel(device)
+    listed = phase_list_kernel(device, build_logs)
     listed["launches"] = phase_list_path(device)
     phase_host_cull(device, WORK)
     studies = phase_count_studies(corpus_dir, device)

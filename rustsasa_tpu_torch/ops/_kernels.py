@@ -44,6 +44,14 @@ SLICES = 4
 MICRO_VARIANTS = ("prod", "split2", "g16", "g24", "nosmem")
 REACH_VARIANTS = ("base", "nogroupcond", "jskip", "group4", "nocond", "bf16",
                   "bf16p")
+# Sphere points a list-occlusion CTA covers (csrc/list_occlusion.cu
+# kBlockPoints: 2 halves of up to 64 points), and the instructions each
+# (point, atom, k) triple needs: 3 FMUL, 2 FADD and one FSETP.LT.OR that
+# folds the compare into the point's predicate (the kernel's loop, by
+# scripts/sass_mix.py: 407 instructions for 16 records x 4 points, 384
+# of them these).
+LIST_BLOCK_POINTS = 128
+LIST_INSTR_PER_TRIPLE = 6
 # Variants of the kernel-experiment sources (csrc/ke_*.cu), in the order
 # of their codes; the names are scripts/kernel_experiments.py's.
 KE_VARIANTS = {
@@ -75,7 +83,7 @@ _INT = ctypes.c_int
 # C signature of each kernel's launch function, by source name.
 _SIGNATURES = {
     "fused_count": [_VOIDP] * 4 + [_INT] * 2 + [_VOIDP],
-    "list_occlusion": [_VOIDP] * 8 + [_INT] * 3 + [_VOIDP],
+    "list_occlusion": [_VOIDP] * 9 + [_INT] * 6 + [_VOIDP],
     "pair64_count": [_VOIDP] * 5 + [_INT] * 2 + [_VOIDP],
     "nibble_count": [_VOIDP] * 6 + [_INT] * 2 + [_VOIDP],
     "saturation_count": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
@@ -123,6 +131,19 @@ def point_passes(p: int) -> tuple[int, int]:
     (pass+1)*SLICES*K)."""
     passes = -(-p // (SLICES * MAX_K))
     return passes, -(-p // (SLICES * passes))
+
+
+def list_point_plan(p: int) -> tuple[int, int, int]:
+    """(blocks, block points pb, half points hp) of the list-occlusion
+    kernel for a P-point sphere: the fewest blocks of at most
+    LIST_BLOCK_POINTS points, split evenly.  Block b covers points
+    [b*pb, min(P, (b+1)*pb)), its half h [b*pb + h*hp, min(block end,
+    b*pb + (h+1)*hp))."""
+    if p <= 0:
+        raise ValueError(f"list_point_plan: {p} points")
+    blocks = -(-p // LIST_BLOCK_POINTS)
+    pb = -(-p // blocks)
+    return blocks, pb, -(-pb // 2)
 
 
 def _target(name: str) -> str:
@@ -445,7 +466,8 @@ def list_occlusion(vx, vy, vz, limit, area, sphere, tile_kmax):
 
     vx, vy, vz, limit [K, N] f32 (K-major), area [N] f32, sphere [P, 4]
     f32, tile_kmax [ceil(N/128)] i32, all contiguous on one CUDA device;
-    N, K, P positive.  Any number of sphere points.
+    N, K, P positive, N a multiple of 4 (`neighbors.occlusion_sasa` pads
+    to one).  Any number of sphere points.
     """
     device = limit.device
     if device.type != "cuda":
@@ -470,8 +492,17 @@ def list_occlusion(vx, vy, vz, limit, area, sphere, tile_kmax):
         raise ValueError(
             f"tile_kmax shape {tuple(tile_kmax.shape)} != ({-(-n // 128)},)"
         )
+    if n % 4:
+        raise ValueError(f"list_occlusion: N = {n} is not a multiple of 4 "
+                         "(the kernel copies record rows 16 bytes at a time)")
+    blocks, pb, hp = list_point_plan(p)
     out = torch.empty(n, dtype=torch.float32, device=device)
+    # Integer counts the blocks of points add to, when there are several.
+    counts = (torch.empty(n, dtype=torch.int32, device=device)
+              if blocks > 1 else None)
     _launch("list_occlusion", device, vx.data_ptr(), vy.data_ptr(),
             vz.data_ptr(), limit.data_ptr(), area.data_ptr(),
-            sphere.data_ptr(), tile_kmax.data_ptr(), out.data_ptr(), n, k, p)
+            sphere.data_ptr(), tile_kmax.data_ptr(),
+            None if counts is None else counts.data_ptr(), out.data_ptr(),
+            n, k, p, blocks, pb, hp)
     return out

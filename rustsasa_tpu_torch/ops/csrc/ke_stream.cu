@@ -16,17 +16,35 @@
 //   * the sphere: re-read from shared memory for every row (each point a
 //     broadcast LDS.128), or held in registers for the whole loop (hoist);
 //   * skip: an 8-row group runs only if the CTA's reach vote says some
-//     (row, atom) pair of it has v2 < (r_i + r_j)^2;
-//   * noscalar: the j-row is the script's constants (1, 2, 3, r*r = 3.1*3.1
-//     rounded to f32, gid 7), folded by the compiler.
+//     (row, atom) pair of it has v2 < (r_i + r_j)^2.
 // Every operation is a separately rounded __f*_rn intrinsic in the
 // script's order, so each variant equals its plain version bit for bit.
 //
-// Bound: FP32 issue, 7 instructions per margin (1 for nobig).  Layout:
-// 256 threads, each 16 points x 4 atoms (a warp shares its points, so the
-// sphere reads are broadcasts); per j-row each thread first computes v and
-// the limit of its 4 atoms (about 14 instructions per atom, 1/8 of the
-// margin work), then 64 margins.
+// Bound: FP32 issue, 7 instructions per margin.  Layout: 256 threads,
+// each 16 points x 4 atoms (a warp shares its points, so the sphere reads
+// are broadcasts); per j-row each thread first computes v and the limit
+// of its 4 atoms (about 14 instructions per atom, 1/8 of the margin
+// work), then 64 margins.
+//
+// Two variants do less work than their loop form, and run kernels of
+// their own that do only what the function needs:
+//   * nobig's margin is the limit, which does not depend on the point, so
+//     every point's maximum is M_a = max(-1e30, max_j lim_aj) and the sum
+//     is 128 in-order copies of it.  fmaxf is exact and order-free on
+//     these non-NaN values, so M_a may be folded in any split of the
+//     rows.  Bound: the limit chain and one max per (atom, j-row) pair
+//     (kernel_experiments.NOBIG_INSTR_PER_PAIR).  One CTA per i-tile,
+//     256 threads = 4 atoms x 32 lanes x 8 warps; warp w folds the j-rows
+//     of slice w of 8, read as warp-uniform broadcasts (x, y, z, r*r as
+//     one LDS.128 and the gid) from the j-data staged once per CTA; the
+//     slices' maxima meet in shared memory and one thread per atom adds
+//     its M_a 128 times in order.  No [128][128] maxima are staged.
+//   * noscalar's j-row is the script's constants (1, 2, 3, r*r = 3.1*3.1
+//     rounded to f32, gid 7), the same for every row, and
+//     fmaxf(fmaxf(x, m), m) == fmaxf(x, m): the result is that one row's
+//     128 x 128 margins, max(-1e30, lim - dots), summed in order.  One
+//     thread per atom; launch-bound.
+// Both write executed = nj / 8, as the plain versions report.
 
 #include "ke_common.cuh"
 
@@ -38,7 +56,7 @@ enum Rows { kPerRow = 0, kGroupRegs = 1, kGroupSmem = 2 };
 
 // One j-row (xk, yk, zk, rr = rk*rk, gk) against a thread's 16 x 4
 // margins: v and the limit of its atoms, then the margins.
-template <bool kGid, bool kBig, bool kFma, bool kHoist>
+template <bool kGid, bool kFma, bool kHoist>
 __device__ __forceinline__ void stream_row(const IAtom (&at)[kAts],
                                            float (&occ)[kPts][kAts],
                                            const float4 (&sreg)[kPts],
@@ -57,9 +75,7 @@ __device__ __forceinline__ void stream_row(const IAtom (&at)[kAts],
 #pragma unroll
     for (int k = 0; k < kAts; ++k) {
       float mg;
-      if (!kBig) {
-        mg = lim[k];
-      } else if (kFma) {
+      if (kFma) {
         mg = __fsub_rn(lim[k], __fmul_rn(sp.x, vx[k]));
         mg = __fsub_rn(mg, __fmul_rn(sp.y, vy[k]));
         mg = __fsub_rn(mg, __fmul_rn(sp.z, vz[k]));
@@ -75,8 +91,8 @@ __device__ __forceinline__ void stream_row(const IAtom (&at)[kAts],
 
 // kVariant only names the instantiation: variants with the same
 // arithmetic and loop (group8, g8) still run as kernels of their own.
-template <int kVariant, bool kConst, bool kGid, bool kBig, bool kFma,
-          bool kSkip, bool kHoist, int kRows>
+template <int kVariant, bool kGid, bool kFma, bool kSkip, bool kHoist,
+          int kRows>
 __global__ void __launch_bounds__(kThreads, 1)
 ke_stream_kernel(const float4* __restrict__ sphere,
                  const float* __restrict__ planes,
@@ -104,19 +120,14 @@ ke_stream_kernel(const float4* __restrict__ sphere,
   }
   const float4* sph = s.sph + p0;
 #define KE_ROW(xk, yk, zk, rr, gk) \
-  stream_row<kGid, kBig, kFma, kHoist>(at, occ, sreg, sph, xk, yk, zk, rr, gk)
+  stream_row<kGid, kFma, kHoist>(at, occ, sreg, sph, xk, yk, zk, rr, gk)
 
   int groups_run = 0;
   if (kRows == kPerRow) {
     for (int j = 0; j < nj; ++j) {
-      if (kConst) {
-        // The script's Python constants; 3.1 * 3.1 rounds to 9.61f.
-        KE_ROW(1.0f, 2.0f, 3.0f, 9.61f, 7.0f);
-      } else {
-        const float4 r = *reinterpret_cast<const float4*>(s.jd + j * kJCols);
-        const float gk = s.jd[j * kJCols + 4];
-        KE_ROW(r.x, r.y, r.z, __fmul_rn(r.w, r.w), gk);
-      }
+      const float4 r = *reinterpret_cast<const float4*>(s.jd + j * kJCols);
+      const float gk = s.jd[j * kJCols + 4];
+      KE_ROW(r.x, r.y, r.z, __fmul_rn(r.w, r.w), gk);
     }
     groups_run = nj / kGroup;
   } else {
@@ -151,14 +162,132 @@ ke_stream_kernel(const float4* __restrict__ sphere,
   finish(s, out, executed, groups_run);
 }
 
-template <int kVariant, bool kConst, bool kGid, bool kBig, bool kFma,
-          bool kSkip, bool kHoist, int kRows>
+template <int kVariant, bool kGid, bool kFma, bool kSkip, bool kHoist,
+          int kRows>
 int launch(const float4* sphere, const float* planes, const float* jdata,
            float* out, int32_t* executed, int m, int nj, cudaStream_t stream) {
   return launch_tiles(
-      ke_stream_kernel<kVariant, kConst, kGid, kBig, kFma, kSkip, kHoist,
-                       kRows>,
+      ke_stream_kernel<kVariant, kGid, kFma, kSkip, kHoist, kRows>,
       base_smem(nj), m, stream, sphere, planes, jdata, out, executed, m, nj);
+}
+
+// j-slices of a nobig CTA: one per warp.
+constexpr int kNobigSlices = kThreads / 32;
+
+// Atom i's record from the planes, as stage_inputs computes it.
+__device__ __forceinline__ IAtom plane_atom(const float* __restrict__ planes,
+                                            int64_t m, int64_t i) {
+  const float r = planes[3 * m + i];
+  return IAtom{planes[i], planes[m + i], planes[2 * m + i], r,
+               planes[4 * m + i], __fmul_rn(r, r),
+               __fdiv_rn(0.5f, fmaxf(r, 1e-6f))};
+}
+
+// 128 in-order copies of v: the plain version's point sum of a maximum
+// that every point shares.
+__device__ __forceinline__ float point_sum_of(float v) {
+  float acc = v;
+  for (int p = 1; p < kP; ++p) acc = __fadd_rn(acc, v);
+  return acc;
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
+ke_nobig_kernel(const float* __restrict__ planes,
+                const float* __restrict__ jdata, float* __restrict__ out,
+                int32_t* __restrict__ executed, int m, int nj) {
+  extern __shared__ float4 smem_raw[];
+  float4* rows = smem_raw;                                // [nj] x, y, z, r*r
+  float* gids = reinterpret_cast<float*>(rows + nj);      // [nj]
+  float* red = gids + nj;                                 // [slices][kA]
+
+  const int tid = threadIdx.x;
+  const int slice = tid / 32;  // the warp's j-slice
+  const int lane = tid % 32;
+  for (int j = tid; j < nj; j += kThreads) {
+    const float4 r = *reinterpret_cast<const float4*>(jdata + j * kJCols);
+    rows[j] = make_float4(r.x, r.y, r.z, __fmul_rn(r.w, r.w));
+    gids[j] = jdata[j * kJCols + 4];
+  }
+  IAtom at[kAts];
+  float mx[kAts];
+#pragma unroll
+  for (int k = 0; k < kAts; ++k) {
+    at[k] = plane_atom(planes, m,
+                       static_cast<int64_t>(blockIdx.x) * kA + lane * kAts + k);
+    mx[k] = kNegBig;
+  }
+  __syncthreads();
+  const int per = nj / kNobigSlices;
+  const int j1 = (slice + 1) * per;
+#pragma unroll 4
+  for (int j = slice * per; j < j1; ++j) {
+    const float4 r = rows[j];
+    const float gk = gids[j];
+#pragma unroll
+    for (int k = 0; k < kAts; ++k) {
+      float vx, vy, vz, v2;
+      mx[k] = fmaxf(mx[k], limit<true>(at[k], r.x, r.y, r.z, r.w, gk, vx, vy,
+                                       vz, v2));
+    }
+  }
+  *reinterpret_cast<float4*>(red + slice * kA + lane * kAts) =
+      make_float4(mx[0], mx[1], mx[2], mx[3]);
+  __syncthreads();
+  if (tid < kA) {
+    float v = red[tid];
+    for (int sl = 1; sl < kNobigSlices; ++sl) v = fmaxf(v, red[sl * kA + tid]);
+    out[static_cast<int64_t>(blockIdx.x) * kA + tid] = point_sum_of(v);
+  }
+  if (tid == 0) executed[blockIdx.x] = nj / kGroup;
+}
+
+__global__ void __launch_bounds__(kA)
+ke_noscalar_kernel(const float4* __restrict__ sphere,
+                   const float* __restrict__ planes, float* __restrict__ out,
+                   int32_t* __restrict__ executed, int m, int nj) {
+  __shared__ float4 sph[kP];
+  static_assert(kP == kA, "one thread per atom stages one point");
+  const int a = threadIdx.x;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kA + a;
+  sph[a] = sphere[a];
+  const IAtom at = plane_atom(planes, m, i);
+  __syncthreads();
+  float vx, vy, vz, v2;
+  // The script's Python constants; 3.1 * 3.1 rounds to 9.61f.
+  const float lim = limit<true>(at, 1.0f, 2.0f, 3.0f, 9.61f, 7.0f, vx, vy,
+                                vz, v2);
+  float acc = 0.0f;
+  for (int p = 0; p < kP; ++p) {
+    const float4 s = sph[p];
+    const float occ = fmaxf(
+        kNegBig,
+        __fsub_rn(lim, __fadd_rn(__fmul_rn(s.x, vx),
+                                 __fadd_rn(__fmul_rn(s.y, vy),
+                                           __fmul_rn(s.z, vz)))));
+    acc = p == 0 ? occ : __fadd_rn(acc, occ);
+  }
+  out[i] = acc;
+  if (a == 0) executed[blockIdx.x] = nj / kGroup;
+}
+
+int launch_nobig(const float* planes, const float* jdata, float* out,
+                 int32_t* executed, int m, int nj, cudaStream_t stream) {
+  const size_t smem = sizeof(float4) * nj + sizeof(float) * nj +
+                      sizeof(float) * kThreads / 32 * kA;
+  const cudaError_t set = cudaFuncSetAttribute(
+      ke_nobig_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  ke_nobig_kernel<<<m / kA, kThreads, smem, stream>>>(planes, jdata, out,
+                                                      executed, m, nj);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_noscalar(const float4* sphere, const float* planes, float* out,
+                    int32_t* executed, int m, int nj, cudaStream_t stream) {
+  ke_noscalar_kernel<<<m / kA, kA, 0, stream>>>(sphere, planes, out,
+                                                 executed, m, nj);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -183,17 +312,17 @@ extern "C" int ke_stream_launch(const void* sphere, const void* planes,
   auto* ex = static_cast<int32_t*>(executed);
   auto st = static_cast<cudaStream_t>(stream);
   switch (variant) {
-    case 0: return launch<0, false, true, true, false, false, false, kPerRow>(sp, pl, jd, o, ex, m, nj, st);
-    case 1: return launch<1, true, true, true, false, false, false, kPerRow>(sp, pl, jd, o, ex, m, nj, st);
-    case 2: return launch<2, false, false, true, false, false, false, kPerRow>(sp, pl, jd, o, ex, m, nj, st);
-    case 3: return launch<3, false, true, false, false, false, false, kPerRow>(sp, pl, jd, o, ex, m, nj, st);
-    case 4: return launch<4, false, true, true, false, false, false, kGroupRegs>(sp, pl, jd, o, ex, m, nj, st);
-    case 5: return launch<5, false, true, true, false, false, false, kGroupSmem>(sp, pl, jd, o, ex, m, nj, st);
-    case 6: return launch<6, false, true, true, false, false, false, kGroupRegs>(sp, pl, jd, o, ex, m, nj, st);
-    case 7: return launch<7, false, true, true, true, false, false, kGroupRegs>(sp, pl, jd, o, ex, m, nj, st);
-    case 8: return launch<8, false, true, true, true, true, false, kGroupRegs>(sp, pl, jd, o, ex, m, nj, st);
-    case 9: return launch<9, false, true, true, false, false, true, kGroupRegs>(sp, pl, jd, o, ex, m, nj, st);
-    case 10: return launch<10, false, true, true, false, true, true, kGroupRegs>(sp, pl, jd, o, ex, m, nj, st);
+    case 0: return launch<0, true, false, false, false, kPerRow>(sp, pl, jd, o, ex, m, nj, st);
+    case 1: return launch_noscalar(sp, pl, o, ex, m, nj, st);
+    case 2: return launch<2, false, false, false, false, kPerRow>(sp, pl, jd, o, ex, m, nj, st);
+    case 3: return launch_nobig(pl, jd, o, ex, m, nj, st);
+    case 4: return launch<4, true, false, false, false, kGroupRegs>(sp, pl, jd, o, ex, m, nj, st);
+    case 5: return launch<5, true, false, false, false, kGroupSmem>(sp, pl, jd, o, ex, m, nj, st);
+    case 6: return launch<6, true, false, false, false, kGroupRegs>(sp, pl, jd, o, ex, m, nj, st);
+    case 7: return launch<7, true, true, false, false, kGroupRegs>(sp, pl, jd, o, ex, m, nj, st);
+    case 8: return launch<8, true, true, true, false, kGroupRegs>(sp, pl, jd, o, ex, m, nj, st);
+    case 9: return launch<9, true, false, false, true, kGroupRegs>(sp, pl, jd, o, ex, m, nj, st);
+    case 10: return launch<10, true, false, true, true, kGroupRegs>(sp, pl, jd, o, ex, m, nj, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -11,20 +11,31 @@
 //     (sx*vx + sy*vy) + sz*vz < limit,
 // and the output is area[i] * (number of valid points not occluded).
 //
-// Bound: FP32 ALU throughput.  Each (point, atom, k) triple costs 6
-// instructions (3 mul, 2 add, 1 compare-and-set); a neighbor record
-// (16 B) is read from shared memory once per (atom, k) and reused by the
-// K <= 16 points a thread keeps in registers.  The design:
-//   * one CTA per 128-atom tile; 512 threads = 128 atoms x 4 point
-//     slices, a warp being 32 atoms of one slice, so a staged record row
-//     is read by consecutive threads from consecutive words;
-//   * the tile's records are staged through shared memory 16 rows of k at
-//     a time (32 KB), loaded coalesced from the K-major planes, and the
-//     loop stops at the tile's own bound, uniform across the CTA;
-//   * the occlusion of a thread's points is an OR-accumulated bit mask;
-//   * no cap on the number of points: a sphere of more than 4 x 16 points
-//     is covered in passes, each re-streaming the tile's records, so the
-//     50,000-point analytic case runs here too.
+// Bound: FP32 issue.  Per (point, atom, k) triple the test needs 3 FMUL,
+// 2 FADD and a compare; the design keeps everything else off the triple:
+//   * the loops are rotated: a thread holds kRecs = 16 of its atom's
+//     records in registers and reads the points from shared memory as
+//     warp-uniform LDS.128 broadcasts, so one point's test over the 16
+//     records folds into one predicate (a chain of FSETP.LT.OR) and sets
+//     one bit: 6.36 instructions a triple in the loop's SASS (a tail of
+//     at most 8 rows takes an 8-record chunk);
+//   * one CTA covers a (tile, block of up to 128 points) work item: 256
+//     threads = 128 atoms x 2 point halves of up to 64 points (two
+//     occlusion words), a warp being 32 atoms of one half.  P <= 128
+//     takes one block, so each record is read once per tile;
+//   * the tile's records stream through shared memory 16 rows a stage,
+//     double-buffered with 16-byte cp.async copies (n is a multiple of 4,
+//     so every row starts 16-byte aligned; zero-filled past the tile's
+//     bound or the last atom: v = 0, limit = 0 never occludes), one
+//     barrier a stage; the loop stops at the tile's own bound, uniform
+//     across the CTA;
+//   * 68,096 B of shared memory and <= 128 registers hold 2 CTAs on an
+//     SM: one wave for 1jz8's 256 tiles.  Tiles run in index order;
+//   * a sphere of more than 128 points is split over CTAs: each adds its
+//     integer count to counts[i] with atomicAdd (exact in any order) and
+//     a finishing kernel multiplies by the area; with one block a CTA
+//     writes area * count itself.  No cap on the number of points.
+// scripts/layout_probe.py times the choices against their alternatives.
 // The result equals the plain version bit for bit: every product and sum
 // is an explicitly rounded __f*_rn intrinsic in the reference's order, and
 // the library is built with --fmad=false.
@@ -35,14 +46,89 @@
 namespace {
 
 constexpr int kAtomTile = 128;
-constexpr int kSlices = 4;
-constexpr int kThreads = kAtomTile * kSlices;
-constexpr int kMaxK = 16;
+constexpr int kHalves = 2;
+constexpr int kThreads = kAtomTile * kHalves;
+constexpr int kWords = 2;
+constexpr int kBlockPoints = kHalves * kWords * 32;
+constexpr int kRecs = 16;
+constexpr int kPointUnroll = 4;
+constexpr int kMinCtas = 2;
 constexpr int kStageRows = 16;
-constexpr float kNegBig = -1e30f;
+constexpr int kPlanes = 4;
+constexpr int kStageFloats = kPlanes * kStageRows * kAtomTile;
+constexpr size_t kSmemBytes =
+    sizeof(float) * 2 * kStageFloats + sizeof(float4) * kBlockPoints +
+    sizeof(int) * kAtomTile;
 
-template <int K>
-__global__ void __launch_bounds__(kThreads, 1)
+// Rows [k0, k0 + 16) of the tile's four record planes into buf
+// ([plane][row][atom]) as 16-byte cp.async copies of 4 atoms, 8 a thread,
+// zero-filled past the tile's bound and the last atom (n is a multiple of
+// 4); one commit group.
+__device__ __forceinline__ void stage_rows(float* buf,
+                                           const float* const (&planes)[4],
+                                           int64_t nn, int64_t base, int k0,
+                                           int kmax) {
+  constexpr int kCols = kAtomTile / 4;        // copies a row
+  constexpr int kRowStep = kThreads / kCols;  // rows a pass
+  const int c = (threadIdx.x % kCols) * 4;
+  const bool atom_ok = base + c < nn;
+#pragma unroll
+  for (int pl = 0; pl < kPlanes; ++pl) {
+#pragma unroll
+    for (int q = 0; q < kStageRows / kRowStep; ++q) {
+      const int r = q * kRowStep + threadIdx.x / kCols;
+      const bool ok = atom_ok && k0 + r < kmax;
+      const float* src =
+          ok ? planes[pl] + static_cast<int64_t>(k0 + r) * nn + base + c
+             : planes[pl];
+      const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(
+          buf + (pl * kStageRows + r) * kAtomTile + c));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       dst),
+                   "l"(src), "r"(ok ? 16 : 0)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// ORs into words[] the occlusion of the thread's points sph[0, np) by
+// rows r0 .. r0 + R - 1 of the staged records buf (atom a), held in
+// registers (bit q of words[w] is point 32 w + q).
+template <int R>
+__device__ __forceinline__ void occlude(uint32_t (&words)[kWords],
+                                        const float* buf, int r0, int a,
+                                        const float4* sph, int np) {
+  float vx[R], vy[R], vz[R], lim[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    vx[r] = buf[(0 * kStageRows + r0 + r) * kAtomTile + a];
+    vy[r] = buf[(1 * kStageRows + r0 + r) * kAtomTile + a];
+    vz[r] = buf[(2 * kStageRows + r0 + r) * kAtomTile + a];
+    lim[r] = buf[(3 * kStageRows + r0 + r) * kAtomTile + a];
+  }
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    const int q_end = min(32, np - 32 * w);
+    uint32_t bits = 0u;
+#pragma unroll kPointUnroll
+    for (int q = 0; q < q_end; ++q) {
+      const float4 s = sph[32 * w + q];
+      bool o = false;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float dot = __fadd_rn(
+            __fadd_rn(__fmul_rn(s.x, vx[r]), __fmul_rn(s.y, vy[r])),
+            __fmul_rn(s.z, vz[r]));
+        o |= dot < lim[r];
+      }
+      bits |= static_cast<uint32_t>(o) << q;
+    }
+    words[w] |= bits;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinCtas)
 list_occlusion_kernel(const float* __restrict__ vx,       // [kdim, n]
                       const float* __restrict__ vy,       // [kdim, n]
                       const float* __restrict__ vz,       // [kdim, n]
@@ -50,117 +136,132 @@ list_occlusion_kernel(const float* __restrict__ vx,       // [kdim, n]
                       const float* __restrict__ area,     // [n]
                       const float4* __restrict__ sphere,  // [p]
                       const int32_t* __restrict__ tile_kmax,  // [tiles]
+                      int32_t* __restrict__ counts,       // [n] or null
                       float* __restrict__ out,            // [n]
-                      int n, int kdim, int p, int passes) {
-  __shared__ float4 rows[kStageRows][kAtomTile];
-  __shared__ int cnt[kAtomTile];
+                      int n, int kdim, int p, int blocks, int pb, int hp) {
+  extern __shared__ float4 smem[];
+  float* stages = reinterpret_cast<float*>(smem);        // [2][4][16][128]
+  float4* sph = reinterpret_cast<float4*>(stages + 2 * kStageFloats);
+  int* cnt = reinterpret_cast<int*>(sph + kBlockPoints);  // [128]
 
   const int tid = threadIdx.x;
   const int a = tid % kAtomTile;
-  const int slice = tid / kAtomTile;
+  const int h = tid / kAtomTile;
+  const int tile = blockIdx.x / blocks;
+  const int b = blockIdx.x % blocks;
   const int64_t nn = n;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kAtomTile;
-  const int kmax = min(max(tile_kmax[blockIdx.x], 0), kdim);
+  const int64_t base = static_cast<int64_t>(tile) * kAtomTile;
+  const int kmax = min(max(tile_kmax[tile], 0), kdim);
+  const float* const planes[4] = {vx, vy, vz, lim};
 
-  if (tid < kAtomTile) cnt[tid] = 0;
-  __syncthreads();
+  // This CTA's points [b0, b1), this half's [lo, hi).
+  const int b0 = b * pb;
+  const int b1 = min(p, b0 + pb);
+  const int lo = min(b1, b0 + h * hp);
+  const int np = min(b1, lo + hp) - lo;
+  for (int q = tid; q < b1 - b0; q += kThreads) sph[q] = sphere[b0 + q];
+
+  const int n_stages = (kmax + kStageRows - 1) / kStageRows;
+  if (n_stages > 0) stage_rows(stages, planes, nn, base, 0, kmax);
+  uint32_t words[kWords] = {0u, 0u};
+  for (int st = 0; st < n_stages; ++st) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // Stage st is visible, and every thread is done with the buffer the
+    // next stage overwrites.
+    __syncthreads();
+    if (st + 1 < n_stages) {
+      stage_rows(stages + ((st + 1) & 1) * kStageFloats, planes, nn, base,
+                 (st + 1) * kStageRows, kmax);
+    }
+    const float* buf = stages + (st & 1) * kStageFloats;
+    const int rows = min(kStageRows, kmax - st * kStageRows);
+    for (int r0 = 0; r0 < rows; r0 += kRecs) {
+      // A tail of at most kRecs / 2 rows takes the half-size chunk.
+      if (rows - r0 > kRecs / 2) {
+        occlude<kRecs>(words, buf, r0, a, sph + (lo - b0), np);
+      } else {
+        occlude<kRecs / 2>(words, buf, r0, a, sph + (lo - b0), np);
+      }
+    }
+  }
+  if (n_stages == 0) __syncthreads();  // the sphere is staged
 
   int accessible = 0;
-  for (int pass = 0; pass < passes; ++pass) {
-    const int p0 = (pass * kSlices + slice) * K;
-    float sx[K], sy[K], sz[K];
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    const int q_end = min(32, np - 32 * w);
     uint32_t valid = 0u;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int q = p0 + k;
-      const float4 s = q < p ? sphere[q] : make_float4(0.f, 0.f, 0.f, 0.f);
-      sx[k] = s.x;
-      sy[k] = s.y;
-      sz[k] = s.z;
-      if (s.w > 0.0f) valid |= 1u << k;
+    for (int q = 0; q < q_end; ++q) {
+      if (sph[lo - b0 + 32 * w + q].w > 0.0f) valid |= 1u << q;
     }
-    uint32_t occ = 0u;
-    for (int k0 = 0; k0 < kmax; k0 += kStageRows) {
-      const int n_rows = min(kStageRows, kmax - k0);
-      __syncthreads();  // the previous rows are consumed
-      for (int q = tid; q < n_rows * kAtomTile; q += kThreads) {
-        const int r = q / kAtomTile;
-        const int c = q % kAtomTile;
-        float4 rec = make_float4(0.f, 0.f, 0.f, kNegBig);
-        if (base + c < nn) {
-          const int64_t off = static_cast<int64_t>(k0 + r) * nn + base + c;
-          rec = make_float4(vx[off], vy[off], vz[off], lim[off]);
-        }
-        rows[r][c] = rec;
-      }
-      __syncthreads();
-      for (int r = 0; r < n_rows; ++r) {
-        const float4 rec = rows[r][a];
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const float dot = __fadd_rn(
-              __fadd_rn(__fmul_rn(sx[k], rec.x), __fmul_rn(sy[k], rec.y)),
-              __fmul_rn(sz[k], rec.z));
-          if (dot < rec.w) occ |= 1u << k;
-        }
-      }
-    }
-    accessible += __popc(valid & ~occ);
+    accessible += __popc(valid & ~words[w]);
   }
-  atomicAdd(&cnt[a], accessible);
+  if (h == 1) cnt[a] = accessible;
   __syncthreads();
-  if (slice == 0 && base + a < nn) {
-    out[base + a] = __fmul_rn(static_cast<float>(cnt[a]), area[base + a]);
+  if (h == 0 && base + a < nn) {
+    accessible += cnt[a];
+    if (counts == nullptr) {
+      out[base + a] =
+          __fmul_rn(static_cast<float>(accessible), area[base + a]);
+    } else {
+      atomicAdd(&counts[base + a], accessible);
+    }
   }
 }
 
-template <int K>
-int launch(const float* vx, const float* vy, const float* vz,
-           const float* lim, const float* area, const float4* sphere,
-           const int32_t* tile_kmax, float* out, int n, int kdim, int p,
-           int passes, cudaStream_t stream) {
-  const int tiles = (n + kAtomTile - 1) / kAtomTile;
-  list_occlusion_kernel<K><<<tiles, kThreads, 0, stream>>>(
-      vx, vy, vz, lim, area, sphere, tile_kmax, out, n, kdim, p, passes);
-  return static_cast<int>(cudaGetLastError());
+// out = area * counts, after every block of points has added its count.
+__global__ void list_finish_kernel(const int32_t* __restrict__ counts,
+                                   const float* __restrict__ area,
+                                   float* __restrict__ out, int n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = __fmul_rn(static_cast<float>(counts[i]), area[i]);
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` without synchronizing.  vx, vy, vz,
-// lim: f32 [kdim, n]; area: f32 [n]; sphere: f32 [p, 4]; tile_kmax: i32
-// [ceil(n / 128)]; out: f32 [n].  n, kdim and p are positive.  Returns
-// the cudaError_t of the launch (0 = success).
+// Launches the kernel and, for blocks > 1, the finishing kernel on
+// `stream` without synchronizing.  vx, vy, vz, lim: f32 [kdim, n] with n
+// a multiple of 4; area: f32 [n]; sphere: f32 [p, 4]; tile_kmax: i32
+// [ceil(n / 128)]; counts: i32 scratch [n] when blocks > 1 (else
+// unused); out: f32 [n].  The sphere is covered by `blocks` blocks of pb
+// points, each split into two halves of hp points (the wrapper's
+// list_point_plan): blocks * pb >= p, pb <= 128, hp <= 64, 2 * hp >= pb.
+// Returns the cudaError_t of the launches (0 = success).
 extern "C" int list_occlusion_launch(const void* vx, const void* vy,
                                      const void* vz, const void* lim,
                                      const void* area, const void* sphere,
-                                     const void* tile_kmax, void* out, int n,
-                                     int kdim, int p, void* stream) {
-  if (n <= 0 || kdim <= 0 || p <= 0) {
+                                     const void* tile_kmax, void* counts,
+                                     void* out, int n, int kdim, int p,
+                                     int blocks, int pb, int hp,
+                                     void* stream) {
+  const int tiles = (n + kAtomTile - 1) / kAtomTile;
+  if (n <= 0 || n % 4 != 0 || kdim <= 0 || p <= 0 || blocks <= 0 ||
+      static_cast<int64_t>(blocks) * pb < p || pb > kBlockPoints ||
+      hp > kWords * 32 || kHalves * hp < pb ||
+      static_cast<int64_t>(tiles) * blocks > 0x7fffffff ||
+      (blocks > 1 && counts == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // Fewest passes of 4 x kMaxK points, then the smallest K covering p.
-  const int passes = (p + kSlices * kMaxK - 1) / (kSlices * kMaxK);
-  const int k = (p + kSlices * passes - 1) / (kSlices * passes);
-  const auto* x = static_cast<const float*>(vx);
-  const auto* y = static_cast<const float*>(vy);
-  const auto* z = static_cast<const float*>(vz);
-  const auto* l = static_cast<const float*>(lim);
-  const auto* ar = static_cast<const float*>(area);
-  const auto* sp = static_cast<const float4*>(sphere);
-  const auto* km = static_cast<const int32_t*>(tile_kmax);
+  auto* cts = blocks > 1 ? static_cast<int32_t*>(counts) : nullptr;
   auto* o = static_cast<float*>(out);
+  const auto* ar = static_cast<const float*>(area);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-#define RUSTSASA_CASE(K) \
-  case K:                \
-    return launch<K>(x, y, z, l, ar, sp, km, o, n, kdim, p, passes, s);
-    RUSTSASA_CASE(1) RUSTSASA_CASE(2) RUSTSASA_CASE(3) RUSTSASA_CASE(4)
-    RUSTSASA_CASE(5) RUSTSASA_CASE(6) RUSTSASA_CASE(7) RUSTSASA_CASE(8)
-    RUSTSASA_CASE(9) RUSTSASA_CASE(10) RUSTSASA_CASE(11) RUSTSASA_CASE(12)
-    RUSTSASA_CASE(13) RUSTSASA_CASE(14) RUSTSASA_CASE(15) RUSTSASA_CASE(16)
-#undef RUSTSASA_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      list_occlusion_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (cts != nullptr) {
+    e = cudaMemsetAsync(cts, 0, sizeof(int32_t) * n, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  list_occlusion_kernel<<<tiles * blocks, kThreads, kSmemBytes, s>>>(
+      static_cast<const float*>(vx), static_cast<const float*>(vy),
+      static_cast<const float*>(vz), static_cast<const float*>(lim), ar,
+      static_cast<const float4*>(sphere),
+      static_cast<const int32_t*>(tile_kmax), cts, o, n, kdim, p, blocks, pb,
+      hp);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || cts == nullptr) return static_cast<int>(e);
+  list_finish_kernel<<<(n + 255) / 256, 256, 0, s>>>(cts, ar, o, n);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -199,15 +199,24 @@ def occlusion_sasa(v, limit, area, sphere, kmax):
     Mirrors the reference's `occlusion_sasa_pallas`: the neighbor records
     go K-major, so one neighbor step reads one contiguous row of atoms.
     CPU tensors take the plain-torch version; CUDA tensors launch the
-    hand-written kernel (or raise) and never fall back.
+    hand-written kernel (or raise) and never fall back.  The kernel takes
+    N a multiple of 4: on CUDA the copies are padded to one with records
+    that never occlude (v = 0, limit = 0) and the result cut back to N.
     """
-    vx, vy, vz = (v[:, :, a].T.contiguous() for a in range(3))
-    lim = limit.T.contiguous()
     if v.device.type == "cpu":
-        return occlusion_sasa_reference(vx, vy, vz, lim, area, sphere, kmax)
+        vx, vy, vz = (v[:, :, a].T.contiguous() for a in range(3))
+        return occlusion_sasa_reference(vx, vy, vz, limit.T.contiguous(),
+                                        area, sphere, kmax)
     if v.device.type != "cuda":
         raise ValueError(f"occlusion_sasa: unsupported device {v.device}")
-    return _kernels.list_occlusion(vx, vy, vz, lim, area, sphere, kmax)
+    n = limit.shape[0]
+    pad = -n % 4
+    vx, vy, vz, lim = (torch.nn.functional.pad(t.T, (0, pad)).contiguous()
+                       if pad else t.T.contiguous()
+                       for t in (v[:, :, 0], v[:, :, 1], v[:, :, 2], limit))
+    if pad:
+        area = torch.nn.functional.pad(area, (0, pad))
+    return _kernels.list_occlusion(vx, vy, vz, lim, area, sphere, kmax)[:n]
 
 
 def _occlusion_sasa(v, limit, counts, radii, valid, sphere, *, probe: float,

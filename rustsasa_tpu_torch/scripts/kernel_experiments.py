@@ -88,17 +88,25 @@ VARIANTS = {
     "mxu_dots_hi_skip": ("mxu", {"skip": True}),
 }
 # FP32 instructions per margin at each family's own work: the f32 stream
-# 3 mul, 2 add (or 3 sub), 1 sub, 1 max; nobig 1 max; max-plus add, max;
-# the mxu dots on CUDA cores mul, 2 fma, sub, max; on the tensor cores
-# sub, max; bf16 7 packed instructions per 2 margins (3 mul, 2 add, 1 sub,
-# 1 max: it rounds after every op, so no multiply-add).
+# 3 mul, 2 add (or 3 sub), 1 sub, 1 max; max-plus add, max; the mxu dots
+# on CUDA cores mul, 2 fma, sub, max; on the tensor cores sub, max; bf16 7
+# packed instructions per 2 margins (3 mul, 2 add, 1 sub, 1 max: it
+# rounds after every op, so no multiply-add).
 _INSTR = {"stream": 7, "maxplus": 2, "bf16": 3.5, "mxu": 5}
+# nobig's margin is its limit, which all P points share: its work is the
+# limit and one max per (atom, j-row) pair, as the SASS of its row loop
+# (csrc/ke_stream.cu ke_nobig_kernel, scripts/sass_mix.py: 65
+# instructions for 1 row x 4 atoms, 9 of them the row's loads and loop
+# work) counts them: v 3 sub, v2 3 mul and 2 add, the limit 2 sub and 1
+# mul, the gid mask a compare (FSETP.EQ.OR with the row's gk == 0) and a
+# select, and the max.
+NOBIG_INSTR_PER_PAIR = 14
 
 
 def instr_per_margin(variant: str) -> float:
     family, params = VARIANTS[variant]
     if params.get("big") is False:
-        return 1
+        return NOBIG_INSTR_PER_PAIR / P
     if family == "mxu" and params.get("default"):
         return 2
     return _INSTR[family]

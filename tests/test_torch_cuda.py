@@ -119,9 +119,9 @@ def _records(n, k, seed):
     return v, limit, counts, area
 
 
-# P = 104, 960 and 5,000 padded points: 2 passes of K = 13, 15 of 16,
-# 79 of 16 (the last pass partly past the sphere's end).
-@pytest.mark.parametrize("n_points", [100, 960, 5000])
+# P = 104 and 128 padded points: one block of points; 129, 960, 5,000
+# and 50,000: 2, 8, 40 and 391 blocks, each CTA adding its counts.
+@pytest.mark.parametrize("n_points", [100, 128, 129, 960, 5000, 50_000])
 def test_list_occlusion_byte_equal_plain(cuda, n_points):
     v, limit, counts, area = (t.to(cuda) for t in _records(700, 40, 3))
     sphere = engine._sphere_device(n_points, cuda)
@@ -135,6 +135,35 @@ def test_list_occlusion_byte_equal_plain(cuda, n_points):
     want = neighbors.occlusion_sasa_reference(*planes, area, sphere, kmax)
     assert torch.equal(got, want)
     assert (got > 0).any() and (got < area * n_points).any()
+
+
+# Tiles at bound 0, K and in between, n neither a multiple of 128 nor of
+# 4 (occlusion_sasa pads the K-major copies to 304 atoms), at one and at
+# several blocks of points.  The records past each tile's bound hold real
+# limits, which would occlude if they were read.
+@pytest.mark.parametrize("n_points", [100, 300])
+def test_list_occlusion_tile_bounds_byte_equal_plain(cuda, n_points):
+    n, k = 301, 24
+    rng = np.random.default_rng(12)
+    v = torch.from_numpy(rng.uniform(-6, 6, (n, k, 3)).astype(np.float32))
+    limit = torch.from_numpy(rng.uniform(-8, 2, (n, k)).astype(np.float32))
+    area = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32))
+    v, limit, area = v.to(cuda), limit.to(cuda), area.to(cuda)
+    sphere = engine._sphere_device(n_points, cuda)
+    for bounds in ([0, k, 7], [k, 0, 1], [5, 9, k]):
+        kmax = torch.tensor(bounds, dtype=torch.int32, device=cuda)
+        got = _launched("list_occlusion", lambda: neighbors.occlusion_sasa(
+            v, limit, area, sphere, kmax))
+        planes = [t.T.contiguous() for t in (v[..., 0], v[..., 1],
+                                            v[..., 2], limit)]
+        want = neighbors.occlusion_sasa_reference(*planes, area, sphere,
+                                                  kmax)
+        assert torch.equal(got, want), bounds
+        for t, bound in enumerate(bounds):
+            if bound == 0:  # nothing occludes: every point counts
+                rows = slice(128 * t, min(n, 128 * t + 128))
+                assert torch.equal(got[rows], area[rows] * float(n_points))
+        assert (got < area * n_points).any()
 
 
 def test_list_path_engine_cuda_equals_cpu(cuda):
@@ -189,6 +218,9 @@ def test_list_occlusion_wrapper_checks_inputs(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.list_occlusion(*(t.cpu() for t in (v, v, v, v, area,
                                                      sphere, kmax)))
+    w = v[:, :254].contiguous()
+    with pytest.raises(ValueError, match="multiple of 4"):
+        _kernels.list_occlusion(w, w, w, w, area[:254], sphere, kmax)
 
 
 def _launched(name, fn):
@@ -412,6 +444,32 @@ def test_mxu_dots_def_equal_plain(cuda, nj, jdata):
     assert ok, err
     assert bool(torch.isfinite(got[0]).all())
     assert torch.equal(got[1], torch.full_like(got[1], nj // ke.GROUP))
+
+
+# nobig and noscalar run kernels of their own (a fold of the limits, one
+# constant row): byte-equal to the plain versions at one group, the
+# script's and the most j-rows, on 5 tiles (nobig's last CTA holds one),
+# on the ones, random and far j-data, and on random j-data whose rows
+# all share tile 0's gid ("one_gid": every limit of that tile masked).
+@pytest.mark.parametrize("nj", [8, 1408, 2048])
+@pytest.mark.parametrize("jdata", ["ones", "random", "far", "one_gid"])
+def test_nobig_and_noscalar_byte_equal_plain(cuda, nj, jdata):
+    ke = kernel_experiments
+    sphere, planes, jd = ke.synthetic_inputs(
+        5, nj, cuda, "random" if jdata == "one_gid" else jdata)
+    if jdata == "one_gid":
+        jd[:, 4] = 5.0
+        planes[4, :ke.A] = 5.0
+    for variant in ("nobig", "noscalar"):
+        got = _launched("ke_stream", lambda v=variant: ke.experiment(
+            v, sphere, planes, jd))
+        want = ke.experiment_reference(planes, variant, sphere, jd)
+        assert torch.equal(got[0], want[0]), variant
+        assert torch.equal(got[1], want[1]), variant
+        assert bool(torch.isfinite(got[0]).all())
+        if variant == "nobig" and jdata == "one_gid":
+            # Every limit of tile 0 is masked: 128 x -1e30, in order.
+            assert bool((got[0][:ke.A] < -1e31).all())
 
 
 # The far j-data (the first and last group of each j-tile and the last

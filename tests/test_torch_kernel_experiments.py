@@ -350,10 +350,14 @@ def test_skip_variants_match_script_on_far_groups(script, variant):
 
 # Each family's operations per margin: (variant, operations, margins they
 # cover).  bf16 rounds after every op, so its 7 packed ops take no
-# multiply-add; the tensor cores take the DEFAULT dots' products.
+# multiply-add; the tensor cores take the DEFAULT dots' products.  nobig's
+# margin is its limit, shared by all P points: one limit chain (v, v2, the
+# limit, the gid mask's compare folded with the row's gk == 0 and its
+# select) and one max cover a pair's P margins.
 OPS = {
     "full": (["mul"] * 3 + ["add"] * 2 + ["sub", "max"], 1),
-    "nobig": (["max"], 1),
+    "nobig": (["sub"] * 3 + ["mul"] * 3 + ["add"] * 2 + ["sub"] * 2
+              + ["mul"] + ["cmp_or", "sel", "max"], ke.P),
     "mp_tile_hi": (["add", "max"], 1),
     "g8_bf16": (["mul"] * 3 + ["add"] * 2 + ["sub", "max"], 2),
     "mxu_dots_hi": (["mul", "fma", "fma", "sub", "max"], 1),
@@ -365,6 +369,58 @@ OPS = {
 def test_instr_per_margin_counts_each_familys_ops(variant):
     ops, margins = OPS[variant]
     assert ke.instr_per_margin(variant) == len(ops) / margins
+
+
+def _in_order_sum_of_copies(x, n):
+    """n copies of x [t, A] added in order, as point_sum adds P points."""
+    acc = x
+    for _ in range(1, n):
+        acc = acc + x
+    return acc.reshape(-1)
+
+
+@pytest.mark.parametrize("kind", ["ones", "random", "far"])
+def test_nobig_is_the_sum_of_copies_of_each_atoms_max_limit(kind):
+    """The fold csrc/ke_stream.cu's nobig kernel does: its plain version
+    equals, bit for bit, 128 in-order copies of max(-1e30, max_j lim) per
+    atom, with the j-rows folded in any split (here: all at once, and
+    two halves met with a max)."""
+    t, nj = 3, 48
+    sphere, planes, jd = ke.synthetic_inputs(t, nj, "cpu", kind)
+    want, executed = ke.experiment_reference(planes, "nobig", sphere, jd)
+    i = ke._i_tiles(planes, 0, t)
+    lim = ke._lim(i, ke._j_block(jd, 0, nj))[4]  # [t, nj, 1, A]
+    m_a = torch.clamp_min(lim.amax(dim=1)[:, 0], ke.NEG_BIG)
+    halves = torch.maximum(lim[:, :nj // 2].amax(dim=1),
+                           lim[:, nj // 2:].amax(dim=1))[:, 0]
+    assert torch.equal(torch.clamp_min(halves, ke.NEG_BIG), m_a)
+    assert torch.equal(_in_order_sum_of_copies(m_a, ke.P), want)
+    assert executed.tolist() == [nj // ke.GROUP] * t
+    if kind == "random":
+        assert bool((lim == ke.NEG_BIG).any())  # the gid mask fires
+
+
+@pytest.mark.parametrize("kind", ["ones", "random", "far"])
+def test_noscalar_is_one_constant_row(kind):
+    """The fold csrc/ke_stream.cu's noscalar kernel does: the output does
+    not depend on how many copies of its constant j-row there are (nj =
+    8 and the script's 1,408), and equals that one row's margins,
+    max(-1e30, lim - dots), summed over the points in order."""
+    t = 2
+    sphere, planes, jd = ke.synthetic_inputs(t, ke.NJ, "cpu", kind)
+    sums = []
+    for nj in (8, ke.NJ):
+        got, executed = ke.experiment_reference(planes, "noscalar", sphere,
+                                                jd[:nj])
+        assert executed.tolist() == [nj // ke.GROUP] * t
+        sums.append(got)
+    assert torch.equal(sums[0], sums[1])
+    i = ke._i_tiles(planes, 0, t)
+    vx, vy, vz, _v2, lim = ke._lim(i, ke._j_block(jd, 0, 1, noscalar=True))
+    sx, sy, sz = (sphere[:, c].reshape(1, 1, ke.P, 1) for c in range(3))
+    m = lim - (sx * vx + (sy * vy + sz * vz))  # [t, 1, P, A]
+    occ = torch.clamp_min(m[:, 0], ke.NEG_BIG)
+    assert torch.equal(ke.point_sum(occ), sums[0])
 
 
 def test_sass_mix_finds_innermost_loops():
@@ -611,3 +667,18 @@ def test_loop_ceiling_cuts_apply_to_the_kernel_sources():
         assert len(set(sources.values())) == len(cuts)
         for variant in loop_ceiling.CUT_VARIANTS[name]:
             assert ke.source(variant) == name
+
+
+def test_layout_probe_cuts_apply_to_the_kernel_sources():
+    """scripts/layout_probe.py times list_occlusion.cu with other records
+    a thread and points a loop step, and without its barriers or loads;
+    each cut must find its text exactly once, and the first build is the
+    source as it is."""
+    from rustsasa_tpu_torch.scripts import layout_probe
+
+    for name, cuts in layout_probe.CUTS.items():
+        sources = _kernels.cut_sources(name, cuts)
+        assert list(sources) == [tag for tag, _ in cuts]
+        with open(f"{_kernels.CSRC_DIR}/{name}.cu", encoding="utf-8") as f:
+            assert next(iter(sources.values())) == f.read()
+        assert len(set(sources.values())) == len(cuts)

@@ -26,6 +26,7 @@ import torch
 
 import rustsasa_tpu.ops.engine as ref_engine
 from rustsasa_tpu.ops import pallas_kernel
+from rustsasa_tpu_torch.ops import _kernels
 from rustsasa_tpu_torch.ops import engine as port_engine
 from rustsasa_tpu_torch.ops import neighbors
 
@@ -99,6 +100,34 @@ def test_occlusion_reference_stops_at_tile_bound():
     got = neighbors.occlusion_sasa(*args).numpy()
     np.testing.assert_array_equal(got[:128], area[:128] * np.float32(100.0))
     assert (got[128:] < area[128:] * np.float32(100.0)).any()
+
+
+@pytest.mark.parametrize("p", [1, 64, 104, 128, 129, 960, 5000, 50_000])
+def test_list_point_plan_covers_every_point_once(p):
+    """csrc/list_occlusion.cu's work items: blocks of at most 128 points,
+    each split into two halves of at most 64 (a thread's two occlusion
+    words), as the kernel cuts them from the plan; P <= 128 is one
+    block."""
+    blocks, pb, hp = _kernels.list_point_plan(p)
+    assert blocks == -(-p // 128) and pb <= 128 and hp <= 64
+    covered = np.zeros(p, np.int64)
+    for b in range(blocks):
+        b0, b1 = b * pb, min(p, b * pb + pb)
+        for h in range(2):
+            lo = min(b1, b0 + h * hp)
+            hi = min(b1, lo + hp)
+            assert 0 <= hi - lo <= hp
+            covered[lo:hi] += 1
+    assert (covered == 1).all()
+    with pytest.raises(ValueError):
+        _kernels.list_point_plan(0)
+
+
+def test_list_instr_per_triple_counts_the_loops_ops():
+    """The bound's count per (point, atom, k) triple: the dot's 3 mul and
+    2 add and one compare folded into the point's predicate."""
+    ops = ["mul"] * 3 + ["add"] * 2 + ["setp_or"]
+    assert _kernels.LIST_INSTR_PER_TRIPLE == len(ops)
 
 
 def _neighbor_inputs(n, seed, spread=40.0, pad=0):

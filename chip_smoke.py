@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rustsasa_tpu_torch/ops/csrc/` and
-runs ten phases, each of which must pass:
+runs thirteen phases, each of which must pass:
 
   1. build: nvcc for sm_90a, one process per kernel source, all started
      together, with the compiler's register/spill report;
@@ -16,11 +16,13 @@ runs ten phases, each of which must pass:
      array (tests/test_golden.py) and the protein total within 1500 of
      20268; a 3-file directory batch gives byte-identical JSON on CUDA
      and on the CPU (plain-torch kernels);
-  4. main path: `process_directory` at residue level, JSON output, on
-     CUDA, over a corpus built by bench.py's rule (the 88 FreeSASA test
-     structures cycled to >= 4,400 files and >= 10.7M atoms), one warm and
-     one timed pass; every file must succeed and the count kernel's launch
-     count in the timed pass must equal the chunks the engine dispatched;
+  4. main path: the port's bench (`rustsasa_tpu_torch.bench.run`):
+     `process_directory` at residue level, JSON output, on CUDA, over a
+     corpus built by bench.py's rule (the 88 FreeSASA test structures
+     cycled to >= 4,400 files and >= 10.7M atoms), one warm and five timed
+     passes (median and spread), then the quality gate; every file must
+     succeed, the gate pass, and the count kernel's launch count in each
+     pass equal the chunks the engine dispatched;
   5. list kernel vs plain: the neighbor phase's records for 1jz8 (the
      largest test structure) at 100 points, through the list-occlusion
      kernel and its plain-torch version; byte-equal, both timed, with the
@@ -62,7 +64,20 @@ runs ten phases, each of which must pass:
      tensor cores, within kernel_experiments.default_bound); then
      kernel_experiments.run() at the script's 512 tiles, whose launches
      are the four sources' (ke_stream, ke_maxplus, ke_bf16, ke_mxu)
-     launch counts.
+     launch counts;
+ 11. CLI: `python -m rustsasa_tpu_torch.cli` in a subprocess on
+     example.cif at residue level with --device cuda and --device cpu
+     (every value within 1e-3; whether the files are byte-equal is
+     printed), in directory mode over the 88 FreeSASA files, and with -T
+     on a 16-frame DCD; each run's wall time and launches;
+ 12. trajectory: `compute_trajectory_sasa` over example.cif x 2,500
+     jittered frames (benches/md_trajectory.py's workload), a warm and a
+     timed pass; frames 0, 1,250 and 2,499 byte-equal to
+     `calculate_sasa_internal` of the same frame on the card, frame 0
+     within 1e-3 of the CPU's plain path;
+ 13. quality gate: `scripts/quality_gate.run_gate` on the card, all four
+     depths and the occupancy row, 88/88 files and a pass in every row;
+     the count and list kernels must launch.
 
 Phases 5, 9 and 10 log the kernels redesigned for this card
 (list_occlusion; maxplus_count; ke_mxu's mxu_dots_def, ke_maxplus's six
@@ -76,7 +91,8 @@ DEFAULT variants also its mma work over the 989 TFLOP/s bf16
 tensor-core peak, and its bytes over 3.35 TB/s), and as its last line
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
-fails.  Everything it writes goes under build/chip_smoke/.
+fails.  Everything it writes goes under build/chip_smoke/, apart from
+the bench's quality artifact (build/rustsasa_tpu_torch/).
 """
 
 from __future__ import annotations
@@ -95,8 +111,6 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 SOURCE_DIR = os.path.join(ROOT, "tests", "data", "freesasa_pdbs")
 EXAMPLE = os.path.join(ROOT, "tests", "data", "pdbs", "example.cif")
 GOLDEN = os.path.join(ROOT, "tests", "data", "golden_example_atom_sasa.npy")
-TARGET_FILES = 4400
-TARGET_ATOMS = 10_700_000
 CHECK_CHUNK_SLOTS = 524_288
 KERNELS = {
     "fused_count": ("rustsasa_tpu_torch/ops/csrc/fused_count.cu",
@@ -142,6 +156,9 @@ KE_CHECK_TILES = 64
 # csrc/list_occlusion.cu's dynamic shared memory per CTA: two stages of
 # [4 planes][16 rows][128 atoms] floats, 128 sphere points, 128 counts.
 LIST_SMEM = 4 * 2 * 4 * 16 * 128 + 16 * 128 + 4 * 128
+# The JAX package's gate, residue depth (BENCH_r05.json): the same q13
+# counts, read back as f16.
+REFERENCE_RESIDUE_RMSE = 45.9163
 # Sphere sizes phase 5 also holds the list kernel to its plain version at
 # on 1jz8's records: 8 and 391 blocks of points a tile.
 LIST_BIG_SPHERES = (960, 50_000)
@@ -149,44 +166,6 @@ LIST_BIG_SPHERES = (960, 50_000)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def build_corpus(corpus_dir, target_files=TARGET_FILES,
-                 target_atoms=TARGET_ATOMS):
-    """bench.py's corpus rule: cycle the largest ascending-size prefix of
-    the source structures whose mean atom count stays at or under the
-    proteome's (10.7M / 4,400), as symlinks, until both targets are met."""
-    from rustsasa_tpu_torch.io.read import read_structure
-
-    files = sorted(
-        os.path.join(SOURCE_DIR, f) for f in os.listdir(SOURCE_DIR)
-        if f.endswith((".pdb", ".cif", ".pdb.gz", ".cif.gz"))
-    )
-    sizes = {f: read_structure(f).n_atoms() for f in files}
-    target_mean = target_atoms / target_files
-    prefix, total = [], 0
-    for f in sorted(files, key=lambda f: sizes[f]):
-        if prefix and (total + sizes[f]) / (len(prefix) + 1) > target_mean:
-            break
-        prefix.append(f)
-        total += sizes[f]
-    if os.path.isdir(corpus_dir):
-        shutil.rmtree(corpus_dir)
-    os.makedirs(corpus_dir)
-    count = n_atoms = 0
-    while count < target_files or n_atoms < target_atoms:
-        f = prefix[count % len(prefix)]
-        # "1jcd.pdb.gz" -> "1jcd_00005.pdb.gz": every copy gets its own
-        # output file (bench.py's "1jcd.pdb_00005.gz" copies all write
-        # 1jcd.json).
-        base = os.path.basename(f)
-        stem = base.split(".")[0]
-        os.symlink(f, os.path.join(
-            corpus_dir, f"{stem}_{count:05d}{base[len(stem):]}"
-        ))
-        n_atoms += sizes[f]
-        count += 1
-    return count, n_atoms, len(prefix)
 
 
 def bound(instructions, nbytes):
@@ -224,11 +203,13 @@ def record(name, launches, max_err, ms, plain_ms, vs_fused_count_ms,
     }
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of `fn()` over `reps` runs, after one warm run."""
+def cuda_ms(fn, reps, warm=True):
+    """Mean milliseconds of `fn()` over `reps` runs, after one warm run
+    (none with warm=False)."""
     import torch
 
-    out = fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -443,53 +424,38 @@ def phase_golden(device, sample_dir, work):
         f"byte-identical to the CPU plain-torch output")
 
 
-def phase_main_path(corpus_dir, n_files, n_atoms, device, work):
-    from rustsasa_tpu_torch import (
-        BatchedSasaEngine, Level, SASAOptions, SasaParams, process_directory,
-    )
+def phase_main_path(device):
+    """The main path through the port's bench (`rustsasa_tpu_torch.bench`,
+    called as a function): one warm and five timed passes over the
+    proteome-equivalent corpus, then the quality gate; returns the count
+    kernel's launches in the last timed pass."""
+    from rustsasa_tpu_torch import bench
     from rustsasa_tpu_torch.native import pipe_library
-    from rustsasa_tpu_torch.ops import _kernels
 
     route = "native C++" if pipe_library() is not None else "Python"
-    options = SASAOptions(level=Level.RESIDUE)
-    results = {}
-    for name in ("warm", "timed"):
-        out_dir = os.path.join(work, f"out_{name}")
-        shutil.rmtree(out_dir, ignore_errors=True)
-        engine = BatchedSasaEngine(SasaParams(), device=device)
-        _kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        report = process_directory(
-            corpus_dir, out_dir, options, "json", progress=False,
-            engine=engine,
-        )
-        elapsed = time.perf_counter() - t0
-        launches = _kernels.launch_counts["fused_count"]
-        log(f"[main] {name} pass: {report.n_ok}/{report.n_files} files, "
-            f"{n_atoms} atoms in {elapsed:.3f}s "
-            f"({n_atoms / elapsed / 1e6:.3f} Matoms/s); host route {route}; "
-            f"{engine.chunks_dispatched} chunks dispatched, "
-            f"{launches} fused_count launches; errors {len(report.errors)}")
-        for e in report.errors[:5]:
-            log(f"[main]   error: {e}")
-        if report.n_ok != n_files or report.n_files != n_files:
-            raise AssertionError(f"{name}: {report.n_ok}/{n_files} files ok")
-        if launches != engine.chunks_dispatched or launches == 0:
-            raise AssertionError(
-                f"{name}: {launches} launches for "
-                f"{engine.chunks_dispatched} chunks"
-            )
-        if not report.total_area > 0.0:
-            raise AssertionError(f"{name}: total area {report.total_area}")
-        results[name] = (report, launches)
-    outputs = sorted(os.listdir(os.path.join(work, "out_timed")))
+    record = bench.run(device, WORK, say=lambda msg: log(f"[main] {msg}"))
+    log(f"[main] host route {route}; median {record['median']:.3f}s, "
+        f"spread {record['spread']:.4f} over passes {record['passes']}")
+    log(f"[main] bench: {json.dumps(record)}")
+    n_files = record["n_files"]
+    if record["n_files"] < bench.TARGET_FILES or (
+            record["n_atoms"] < bench.TARGET_ATOMS):
+        raise AssertionError("corpus below the proteome-equivalent size")
+    if record["n_ok"] != [n_files] * bench.PASSES or record["n_errors"]:
+        raise AssertionError(f"files ok {record['n_ok']} of {n_files}")
+    launches = record["fused_count_launches"]
+    if launches != record["chunks"] or 0 in launches:
+        raise AssertionError(
+            f"{launches} launches for {record['chunks']} chunks")
+    if not record["quality_pass"]:
+        raise AssertionError("the bench's quality gate failed")
+    outputs = sorted(os.listdir(os.path.join(WORK, "out")))
     if len(outputs) != n_files:
         raise AssertionError(f"{len(outputs)} outputs for {n_files} files")
-    with open(os.path.join(work, "out_timed", outputs[0]), encoding="utf-8") as f:
-        doc = json.load(f)
-    if not doc:
-        raise AssertionError(f"empty output {outputs[0]}")
-    return results["timed"][1]
+    with open(os.path.join(WORK, "out", outputs[0]), encoding="utf-8") as f:
+        if not json.load(f):
+            raise AssertionError(f"empty output {outputs[0]}")
+    return launches[-1]
 
 
 def phase_list_kernel(device, build_logs):
@@ -729,15 +695,17 @@ def phase_host_cull(device, work):
 
 
 def _kernel_vs_plain(name, kernel, plain, prod, real, equal_to_prod=True):
-    """Time a study kernel (10 launches) and its plain version (1) on the
-    same tensors; every output byte-equal to the plain version's and, with
+    """Time a study kernel (10 launches) and its plain version (one call,
+    no warm call: it takes seconds, and twice that would hold the smoke
+    past its time budget) on the same tensors; every output byte-equal to
+    the plain version's and, with
     equal_to_prod, the counts equal to fused_count's `prod` at the `real`
     slots (else their difference is only reported).  Returns (ms,
     plain_ms, max |diff| over the outputs, kernel outputs)."""
     import torch
 
     ms, got = cuda_ms(kernel, 10)
-    plain_ms, want = cuda_ms(plain, 1)
+    plain_ms, want = cuda_ms(plain, 1, warm=False)
     got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
     max_err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                   for g, w in zip(got, want))
@@ -1155,6 +1123,182 @@ def phase_kernel_experiments(device, build_logs):
     return records
 
 
+# Runs `python -m rustsasa_tpu_torch.cli` (runpy, as -m does) with the
+# arguments given, and prints the kernels' launch counts of that process
+# to stderr when it ends.
+CLI_RUNNER = """
+import json, runpy, sys
+from rustsasa_tpu_torch.ops import _kernels
+try:
+    runpy.run_module('rustsasa_tpu_torch.cli', run_name='__main__',
+                     alter_sys=True)
+finally:
+    print('LAUNCHES ' + json.dumps(_kernels.launch_counts), file=sys.stderr)
+"""
+
+
+def run_cli(args, tag):
+    """One CLI process; returns (wall seconds, its launch counts)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_RUNNER, *args], cwd=ROOT,
+        capture_output=True, text=True, timeout=600,
+    )
+    wall = time.perf_counter() - t0
+    counts = [line for line in proc.stderr.splitlines()
+              if line.startswith("LAUNCHES ")]
+    if proc.returncode != 0 or not counts:
+        raise AssertionError(f"CLI {tag} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    launches = json.loads(counts[-1].split(" ", 1)[1])
+    log(f"[cli] {tag}: {wall:.3f}s wall (process start included), "
+        f"{launches['fused_count']} fused_count and "
+        f"{launches['list_occlusion']} list_occlusion launches")
+    return wall, launches
+
+
+def phase_cli(smi):
+    """`python -m rustsasa_tpu_torch.cli` on example.cif with --device
+    cuda and --device cpu (every value within 1e-3), over the 88 FreeSASA
+    files in directory mode, and with -T on a 16-frame DCD."""
+    from rustsasa_tpu_torch.benches.md_trajectory import jitter_frames
+    from rustsasa_tpu_torch.trajectory import write_dcd
+
+    work = os.path.join(WORK, "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    docs, raw = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(work, f"example_{dev}.json")
+        _, launches = run_cli([EXAMPLE, out, "--output-depth", "residue",
+                               "--device", dev], f"example.cif --device {dev}")
+        if launches["fused_count"] != (1 if dev == "cuda" else 0):
+            raise AssertionError(f"--device {dev}: launches {launches}")
+        with open(out, "rb") as f:
+            raw[dev] = f.read()
+        docs[dev] = json.loads(raw[dev])["Residue"]
+    if len(docs["cuda"]) != len(docs["cpu"]) or not docs["cpu"]:
+        raise AssertionError("cuda and cpu residue counts differ")
+    worst, first = 0.0, None
+    for got, want in zip(docs["cuda"], docs["cpu"]):
+        if {k: v for k, v in got.items() if k != "value"} != {
+                k: v for k, v in want.items() if k != "value"}:
+            raise AssertionError(f"residue fields differ: {got} {want}")
+        diff = abs(got["value"] - want["value"])
+        worst = max(worst, diff)
+        if diff and first is None:
+            first = (got, want)
+    log(f"[cli] example.cif residue JSON: {len(docs['cpu'])} residues, max "
+        f"|cuda - cpu| {worst:.6g} (limit 1e-3); files byte-equal: "
+        f"{raw['cuda'] == raw['cpu']}"
+        + (f"; first differing value {first}" if first else ""))
+    if not worst <= 1e-3:
+        raise AssertionError(f"cuda and cpu differ by {worst}")
+
+    out_dir = os.path.join(work, "freesasa_out")
+    _, launches = run_cli([SOURCE_DIR, out_dir, "--format", "json",
+                           "--device", "cuda"], "88 FreeSASA files, directory")
+    n_out = len(os.listdir(out_dir))
+    if n_out != len(os.listdir(SOURCE_DIR)) or not launches["fused_count"]:
+        raise AssertionError(f"directory mode: {n_out} outputs, {launches}")
+
+    dcd = os.path.join(work, "traj16.dcd")
+    write_dcd(dcd, jitter_frames(EXAMPLE, 16))
+    out = os.path.join(work, "traj16.json")
+    _, launches = run_cli([dcd, out, "-T", EXAMPLE, "--device", "cuda"],
+                          "-T example.cif, 16 frames")
+    with open(out, encoding="utf-8") as f:
+        doc = json.load(f)
+    if doc["n_frames"] != 16 or len(doc["residues"]) != 16 or not all(
+            math.isfinite(v) and v > 0 for v in doc["totals"]):
+        raise AssertionError(f"-T output: {doc['n_frames']} frames")
+    if launches["fused_count"] != 1:
+        raise AssertionError(f"-T launches {launches}")
+    log(f"[cli] -T: {doc['n_frames']} frames, totals {min(doc['totals']):.1f}"
+        f"-{max(doc['totals']):.1f}; times beside {smi}")
+
+
+def phase_trajectory(device, smi):
+    """example.cif x 2,500 jittered frames (the MD bench's workload):
+    three frames byte-equal to calculate_sasa_internal on the card, one
+    within 1e-3 of the CPU's plain path."""
+    import numpy as np
+
+    from rustsasa_tpu_torch import (
+        Level, SASAOptions, calculate_sasa_internal, read_structure,
+    )
+    from rustsasa_tpu_torch.benches import md_trajectory
+    from rustsasa_tpu_torch.levels import _residue_sums
+    from rustsasa_tpu_torch.ops import _kernels
+    from rustsasa_tpu_torch.trajectory import read_dcd
+
+    n_frames = md_trajectory.N_FRAMES
+    dcd = os.path.join(WORK, "traj.dcd")
+    _kernels.reset_launch_counts()
+    record = md_trajectory.run(EXAMPLE, n_frames, "cuda", dcd_path=dcd,
+                               say=lambda msg: log(f"[traj] {msg}"))
+    launches = dict(_kernels.launch_counts)
+    result = record.pop("result")
+    log(f"[traj] {json.dumps(record)}")
+    log(f"[traj] launches over the warm and the timed pass: {launches}")
+    if result.n_frames != n_frames or result.residue_values.shape[0] != (
+            n_frames) or not launches["fused_count"]:
+        raise AssertionError(f"{result.n_frames} frames, {launches}")
+    _, frames = read_dcd(dcd)
+    opts = SASAOptions(level=Level.RESIDUE)
+    sel = opts.build_selection(read_structure(EXAMPLE))
+
+    def frame_sasa(f, dev):
+        return calculate_sasa_internal(
+            frames[f][sel.atom_indices], sel.radii, group_ids=sel.group_ids,
+            device=dev)
+
+    for f in (0, n_frames // 2, n_frames - 1):
+        atom_sasa = frame_sasa(f, device)
+        if not (result.totals[f] == np.float32(float(atom_sasa.sum()))
+                and np.array_equal(result.residue_values[f],
+                                   _residue_sums(sel, atom_sasa))):
+            raise AssertionError(f"frame {f} differs from "
+                                 f"calculate_sasa_internal")
+    cpu = _residue_sums(sel, frame_sasa(0, "cpu"))
+    err = float(np.abs(result.residue_values[0] - cpu).max())
+    log(f"[traj] frames 0, {n_frames // 2}, {n_frames - 1} byte-equal to "
+        f"calculate_sasa_internal on the card; frame 0 residues within "
+        f"{err:.6g} of the CPU's plain path (limit 1e-3); {smi}")
+    if not err <= 1e-3:
+        raise AssertionError(f"frame 0 vs CPU: {err}")
+
+
+def phase_quality_gate(device, smi):
+    """The port's FreeSASA gate on the card: four depths and the
+    occupancy row, 88/88 files each, every row passing."""
+    from rustsasa_tpu_torch.ops import _kernels
+    from rustsasa_tpu_torch.scripts import quality_gate
+
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = quality_gate.run_gate(device)
+    elapsed = time.perf_counter() - t0
+    launches = dict(_kernels.launch_counts)
+    quality_gate.write_artifact(result, os.path.join(WORK,
+                                                     "quality_latest.json"))
+    for row in result["rows"]:
+        log(f"[gate] {row['depth']:17s} rmse {row['rmse']} pearson_r "
+            f"{row['pearson_r']} n={row['n']} {row['n_ok']}/{row['n_files']} "
+            f"files pass={row['pass']}")
+    log(f"[gate] residue rmse {result['rmse']} against the JAX package's "
+        f"{REFERENCE_RESIDUE_RMSE} (BENCH_r05.json): gap "
+        f"{result['rmse'] - REFERENCE_RESIDUE_RMSE:+.4f}; {elapsed:.1f}s; "
+        f"launches {launches}; {smi}")
+    n = len(os.listdir(SOURCE_DIR))
+    if not result["pass"] or any(
+            not row["pass"] or row["n_ok"] != row["n_files"] or row["n_files"]
+            != n for row in result["rows"]):
+        raise AssertionError("the quality gate failed")
+    if not launches["fused_count"] or not launches["list_occlusion"]:
+        raise AssertionError(f"gate launches {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -1172,14 +1316,14 @@ def main() -> int:
     log(f"[device] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
+    from rustsasa_tpu_torch.bench import build_corpus
+
     build_logs = phase_build()
     corpus_dir = os.path.join(WORK, "corpus")
     t0 = time.perf_counter()
     n_files, n_atoms, n_distinct = build_corpus(corpus_dir)
     log(f"[corpus] {n_files} files, {n_atoms} atoms ({n_distinct} distinct "
         f"structures) built in {time.perf_counter() - t0:.1f}s")
-    if n_files < TARGET_FILES or n_atoms < TARGET_ATOMS:
-        raise AssertionError("corpus below the proteome-equivalent size")
     sample_dir = os.path.join(WORK, "sample")
     shutil.rmtree(sample_dir, ignore_errors=True)
     os.makedirs(sample_dir)
@@ -1189,16 +1333,17 @@ def main() -> int:
 
     count = phase_kernel_vs_plain(corpus_dir, device)
     phase_golden(device, sample_dir, WORK)
-    count["launches"] = phase_main_path(
-        corpus_dir, n_files, n_atoms, device, WORK
-    )
+    count["launches"] = phase_main_path(device)
     listed = phase_list_kernel(device, build_logs)
     listed["launches"] = phase_list_path(device)
     phase_host_cull(device, WORK)
     studies = phase_count_studies(corpus_dir, device)
     studies_ii = phase_count_studies_ii(corpus_dir, device, build_logs)
     experiments = phase_kernel_experiments(device, build_logs)
-    log(f"[smoke] ten phases in {time.perf_counter() - t_start:.1f}s")
+    phase_cli(smi)
+    phase_trajectory(device, smi)
+    phase_quality_gate(device, smi)
+    log(f"[smoke] thirteen phases in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     print(json.dumps({"kernels": [count, listed, *studies, *studies_ii,
                                   *experiments]}))

@@ -6,6 +6,8 @@ file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -539,3 +541,86 @@ def test_process_directory_cuda_equals_cpu(cuda, tmp_path):
         assert rep.n_ok == rep.n_files == 3 and not rep.errors
         outs[str(dev)] = {f.name: f.read_bytes() for f in sorted(out.iterdir())}
     assert outs[str(cuda)] == outs["cpu"] and len(outs["cpu"]) == 3
+
+
+DATA = pathlib.Path(__file__).resolve().parent / "data"
+
+
+def test_cli_cuda_equals_cpu(cuda, tmp_path):
+    """The CLI's single-file route on example.cif at residue level: every
+    value of the cuda run within 1e-3 of the cpu run's (the count kernel
+    is byte-equal to its plain version, so the files are expected equal)."""
+    import json
+
+    from rustsasa_tpu_torch.cli import main
+
+    docs = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.json"
+        _kernels.reset_launch_counts()
+        assert main([str(DATA / "pdbs" / "example.cif"), str(out),
+                     "--output-depth", "residue", "--device", dev]) == 0
+        assert _kernels.launch_counts["fused_count"] == (dev == "cuda")
+        docs[dev] = json.loads(out.read_text())["Residue"]
+    assert len(docs["cuda"]) == len(docs["cpu"]) > 100
+    for got, want in zip(docs["cuda"], docs["cpu"]):
+        assert got["value"] == pytest.approx(want["value"], abs=1e-3)
+        assert {k: v for k, v in got.items() if k != "value"} == {
+            k: v for k, v in want.items() if k != "value"}
+
+
+def test_trajectory_on_card_equals_calculate_sasa_internal(cuda, tmp_path):
+    from rustsasa_tpu_torch import SASAOptions, Level, calculate_sasa_internal
+    from rustsasa_tpu_torch.io.read import read_structure
+    from rustsasa_tpu_torch.levels import _residue_sums
+    from rustsasa_tpu_torch.trajectory import compute_trajectory_sasa, write_dcd
+
+    top = str(DATA / "pdbs" / "example.cif")
+    structure = read_structure(top)
+    rng = np.random.default_rng(0)
+    frames = structure.atoms.coords[None].astype(np.float32) + rng.normal(
+        0.0, 0.3, (5, structure.n_atoms(), 3)).astype(np.float32)
+    dcd = tmp_path / "t.dcd"
+    write_dcd(str(dcd), frames)
+    opts = SASAOptions(level=Level.RESIDUE)
+    _kernels.reset_launch_counts()
+    result = compute_trajectory_sasa(top, str(dcd), opts, block=2)
+    assert _kernels.launch_counts["fused_count"] == 3
+    sel = opts.build_selection(structure)
+    for f in range(5):
+        atom_sasa = calculate_sasa_internal(
+            frames[f][sel.atom_indices], sel.radii, group_ids=sel.group_ids,
+            device=cuda)
+        assert result.totals[f] == np.float32(float(atom_sasa.sum()))
+        np.testing.assert_array_equal(result.residue_values[f],
+                                      _residue_sums(sel, atom_sasa))
+
+
+def test_golden_and_sanity_on_card(cuda):
+    """tests/test_golden.py's per-atom case and tests/test_sanity.py's
+    overlapping spheres (50,000 points: the list path) on "cuda"."""
+    import math
+
+    from rustsasa_tpu_torch import (
+        calculate_sasa_internal, get_vdw_radius, read_structure,
+    )
+
+    s = read_structure(str(DATA / "pdbs" / "example.cif"))
+    t = s.atoms
+    order = list(s.iter_hierarchy_atom_indices())
+    radii = np.array([get_vdw_radius(t.element[i]) for i in order],
+                     np.float32)
+    sasa = calculate_sasa_internal(
+        t.coords[order], radii, group_ids=t.serial[order], probe_radius=1.4,
+        n_points=100, device=cuda)
+    golden = np.load(DATA / "golden_example_atom_sasa.npy")
+    np.testing.assert_allclose(sasa, golden, atol=25.0)
+    assert float(np.abs(sasa - golden).mean()) < 1.5
+
+    r, dist = 2.0 + 1.4, 4.0
+    out = calculate_sasa_internal(
+        np.array([[0, 0, 0], [dist, 0, 0]], np.float32),
+        np.array([2.0, 2.0], np.float32), probe_radius=1.4,
+        n_points=50_000, device=cuda)
+    expected = 4.0 * math.pi * r * r - 2.0 * math.pi * r * (r - dist / 2.0)
+    assert out == pytest.approx([expected, expected], rel=0.005)

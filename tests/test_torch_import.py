@@ -34,30 +34,66 @@ def test_batch_imports_with_jax_blocked():
     assert proc.stdout.strip() == "ok"
 
 
-def test_port_sources_never_import_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax)", re.MULTILINE)
+def _port_sources():
     files = [
         os.path.join(root, f)
         for root, _dirs, names in os.walk(PORT_DIR)
         for f in names if f.endswith(".py")
     ]
+    return files + [str(REPO_ROOT / "chip_smoke.py")]
+
+
+def test_port_sources_never_import_jax():
+    pattern = re.compile(r"^\s*(import jax|from jax)", re.MULTILINE)
+    files = _port_sources()
     assert len(files) >= 7
-    for path in files + [str(REPO_ROOT / "chip_smoke.py")]:
+    for path in files:
         with open(path, encoding="utf-8") as f:
             assert not pattern.search(f.read()), path
 
 
-# Imports the port's entry points and every script module, runs one small
-# CPU directory batch through the native host route, and lists what was
-# loaded from the JAX package's directory: modules and mapped files.
+def test_port_sources_never_import_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+rustsasa_tpu\b(?!_torch)",
+                         re.MULTILINE)
+    files = _port_sources()
+    assert len(files) >= 20
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            assert not pattern.search(f.read()), path
+
+
+def test_package_surface_is_the_references():
+    """The reference's names less its JAX compile cache, plus
+    process_directory, and the same version."""
+    import rustsasa_tpu
+    import rustsasa_tpu_torch
+
+    assert set(rustsasa_tpu_torch.__all__) == (
+        set(rustsasa_tpu.__all__) - {"enable_persistent_cache"}
+    ) | {"process_directory"}
+    assert len(rustsasa_tpu_torch.__all__) == len(
+        set(rustsasa_tpu_torch.__all__)) == 29
+    for name in rustsasa_tpu_torch.__all__:
+        assert getattr(rustsasa_tpu_torch, name) is not None, name
+    assert rustsasa_tpu_torch.__version__ == rustsasa_tpu.__version__
+
+
+# Imports the port's entry points and every script and bench module, runs
+# one small CPU directory batch through the native host route and the CLI
+# on one file, and lists what was loaded from the JAX package's directory:
+# modules and mapped files.
 ISOLATION = """
 import os, pkgutil, sys, tempfile
 sys.modules['jax'] = None
 import rustsasa_tpu_torch, rustsasa_tpu_torch.api, rustsasa_tpu_torch.batch
 import rustsasa_tpu_torch.ops.engine, rustsasa_tpu_torch.scripts as scripts
+import rustsasa_tpu_torch.cli, rustsasa_tpu_torch.trajectory
+import rustsasa_tpu_torch.bench, rustsasa_tpu_torch.benches as benches
 import importlib
 for info in pkgutil.iter_modules(scripts.__path__):
     importlib.import_module('rustsasa_tpu_torch.scripts.' + info.name)
+for info in pkgutil.iter_modules(benches.__path__):
+    importlib.import_module('rustsasa_tpu_torch.benches.' + info.name)
 from rustsasa_tpu_torch import (BatchedSasaEngine, Level, SASAOptions,
                                 SasaParams, process_directory)
 from rustsasa_tpu_torch.native import pipe_library
@@ -67,6 +103,11 @@ rep = process_directory(src, out, SASAOptions(level=Level.RESIDUE), 'json',
                         progress=False, workers=1,
                         engine=BatchedSasaEngine(SasaParams(), device='cpu'))
 assert rep.n_ok == rep.n_files == 1 and not rep.errors, rep.errors
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()):
+    assert rustsasa_tpu_torch.cli.main(
+        [os.path.join(src, '2drt.pdb.gz'), os.path.join(out, 'cli.json'),
+         '--device', 'cpu']) == 0
 ref = os.path.join(sys.argv[2], 'rustsasa_tpu') + os.sep
 mods = sorted(name for name, m in list(sys.modules.items())
               if (getattr(m, '__file__', None) or '').startswith(ref))
@@ -75,6 +116,7 @@ with open('/proc/self/maps') as f:
 print('modules', mods)
 print('maps', maps)
 print('scripts', len(list(pkgutil.iter_modules(scripts.__path__))))
+print('benches', sorted(i.name for i in pkgutil.iter_modules(benches.__path__)))
 """
 
 
@@ -93,7 +135,9 @@ def test_port_loads_nothing_from_the_jax_package(tmp_path):
     lines = proc.stdout.strip().splitlines()
     assert lines[0] == "modules []", lines[0]
     assert lines[1] == "maps []", lines[1]
-    assert int(lines[2].split()[1]) >= 7
+    assert int(lines[2].split()[1]) >= 9
+    assert lines[3] == ("benches ['md_trajectory', 'single_protein', "
+                        "'single_worker_proteome']"), lines[3]
 
 
 @pytest.mark.parametrize("pattern", ["_host.", 'find_spec("rustsasa_tpu")'])
@@ -117,7 +161,7 @@ UNCHANGED_COPIES = [
     "data/protor.py", "io/__init__.py", "io/structure.py", "io/pdb.py",
     "io/cif.py", "io/hybrid36.py", "io/read.py", "io/serialize.py",
     "io/writeback.py", "native/fastparse.cpp", "ops/sphere.py",
-    "utils/__init__.py", "utils/stagestats.py",
+    "utils/__init__.py", "utils/stagestats.py", "trajectory/dcd.py",
 ]
 
 

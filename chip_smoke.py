@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rustsasa_tpu_torch/ops/csrc/` and
-runs thirteen phases, each of which must pass:
+runs fourteen phases, each of which must pass:
 
   1. build: nvcc for sm_90a, one process per kernel source, all started
      together, with the compiler's register/spill report;
@@ -77,7 +77,19 @@ runs thirteen phases, each of which must pass:
      within 1e-3 of the CPU's plain path;
  13. quality gate: `scripts/quality_gate.run_gate` on the card, all four
      depths and the occupancy row, 88/88 files and a pass in every row;
-     the count and list kernels must launch.
+     the count and list kernels must launch;
+ 14. scale-out, on the one card: phase 4's corpus through an engine on
+     two streams of it (`devices=[cuda:0, cuda:0]`; a warm and a timed
+     pass), byte-equal to phase 4's last pass, every entry dispatching
+     and the entries' chunks equal to the count kernel's launches; two
+     `parallel.worker` ranks on Gloo over the same corpus, identical
+     reports, every file once and byte-equal; the sharded list step
+     (`parallel.mesh`) over two streams on the largest even batch of
+     FreeSASA structures sharing an N bucket, re-run while its max count
+     exceeds K, byte-equal to `_sasa_batched` on the whole batch with its
+     total equal to that batch's sum and one list kernel a shard; and
+     `graft_entry.dryrun_multichip` over the two entries.  The kernel
+     records carry these paths' launches (`scale_out_launches`).
 
 Phases 5, 9 and 10 log the kernels redesigned for this card
 (list_occlusion; maxplus_count; ke_mxu's mxu_dots_def, ke_maxplus's six
@@ -455,7 +467,7 @@ def phase_main_path(device):
     with open(os.path.join(WORK, "out", outputs[0]), encoding="utf-8") as f:
         if not json.load(f):
             raise AssertionError(f"empty output {outputs[0]}")
-    return launches[-1]
+    return launches[-1], record["median"]
 
 
 def phase_list_kernel(device, build_logs):
@@ -1299,6 +1311,158 @@ def phase_quality_gate(device, smi):
         raise AssertionError(f"gate launches {launches}")
 
 
+def phase_scale_out(device, corpus_dir, main_median, smi):
+    """Phase 14: the scale-out layer on one card.  The corpus through an
+    engine on two streams of the card, byte-equal to phase 4's last pass;
+    two Gloo ranks on the card over the same corpus; the sharded list
+    step on FreeSASA structures against the unsharded one; the
+    multi-device dry run.  Returns {kernel: {path: launches}}."""
+    import numpy as np
+    import torch
+
+    from rustsasa_tpu_torch import (
+        BatchedSasaEngine, Level, SASAOptions, SasaParams, graft_entry,
+        process_directory,
+    )
+    from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
+    from rustsasa_tpu_torch.parallel import mesh
+    from rustsasa_tpu_torch.parallel.worker import run_workers
+    from rustsasa_tpu_torch.scripts._study import select
+    from rustsasa_tpu_torch.scripts.scaling_curve import read_outputs
+
+    t_phase = time.perf_counter()
+    work = os.path.join(WORK, "scale_out")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    one = read_outputs(os.path.join(WORK, "out"))  # phase 4's last pass
+    n_files = len(os.listdir(corpus_dir))
+    if len(one) != n_files:
+        raise AssertionError(f"phase 4 left {len(one)} outputs")
+    launches = {"fused_count": {}, "list_occlusion": {}}
+
+    # 1. Device list: chunks dealt to two streams of the card.
+    options = SASAOptions(level=Level.RESIDUE)
+    walls = []
+    for _ in range(2):
+        out_dir = os.path.join(work, "two_streams")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        eng = BatchedSasaEngine(SasaParams(), devices=[device, device])
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = process_directory(corpus_dir, out_dir, options, "json",
+                                progress=False, engine=eng)
+        walls.append(time.perf_counter() - t0)
+        n_launch = _kernels.launch_counts["fused_count"]
+    entries = eng.routes.entries
+    log(f"[scale-out] two streams on {device}: {rep.n_ok}/{rep.n_files} "
+        f"files in {walls[0]:.3f}s, then {walls[1]:.3f}s (phase 4's "
+        f"one-stream median {main_median:.3f}s); chunks per entry "
+        f"{entries}, {n_launch} fused_count launches; {smi}")
+    if rep.n_ok != n_files or rep.errors:
+        raise AssertionError(f"two streams: {rep.n_ok}/{n_files} ok")
+    if min(entries) < 1 or sum(entries) != n_launch or (
+            n_launch != eng.chunks_dispatched):
+        raise AssertionError(f"entries {entries}, {n_launch} launches")
+    if read_outputs(out_dir) != one:
+        raise AssertionError("two streams: outputs differ from one stream")
+    launches["fused_count"]["two_streams"] = n_launch
+    log(f"[scale-out] two-stream outputs byte-equal to phase 4's "
+        f"one-stream pass ({n_files} files)")
+
+    # 2. Two Gloo ranks on the card.  They are processes of their own:
+    # first hand back what this process's allocator keeps cached from the
+    # earlier phases (it held 79 of the card's 80 GB here).
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(work, "two_ranks")
+    reports, wall = run_workers(2, corpus_dir, out_dir,
+                                os.path.join(work, "reports"),
+                                device=device.type, timeout=600)
+    shared = [(r["n_files"], r["n_ok"], r["n_errors"], r["total_area"])
+              for r in reports]
+    rank_launches = [r["launches"]["fused_count"] for r in reports]
+    log(f"[scale-out] two ranks ({', '.join(r['device'] for r in reports)})"
+        f": {wall:.3f}s wall from the first start to the last exit, "
+        f"{[round(r['elapsed_s'], 3) for r in reports]} s to the final "
+        f"all-reduce, own shard times "
+        f"{[round(r['shard_s'], 3) for r in reports]} s; reports "
+        f"{shared}; fused_count launches per rank {rank_launches}; "
+        f"os.cpu_count() {os.cpu_count()}; {smi}")
+    if shared[0] != shared[1] or shared[0][:3] != (n_files, n_files, 0):
+        raise AssertionError(f"two ranks: reports {shared}")
+    if min(rank_launches) < 1:
+        raise AssertionError(f"two ranks: launches {rank_launches}")
+    if read_outputs(out_dir) != one:
+        raise AssertionError("two ranks: outputs differ from one process")
+    launches["fused_count"]["two_ranks"] = sum(rank_launches)
+    log(f"[scale-out] every input written once by the two ranks, "
+        f"byte-equal to one process")
+
+    # 3. The sharded list step on real proteins of one N bucket.
+    buckets = {}
+    for name in sorted(os.listdir(SOURCE_DIR)):
+        triple = select(os.path.join(SOURCE_DIR, name))
+        n_pad = neighbors._round_bucket(triple[0].shape[0],
+                                        neighbors._N_BUCKETS)
+        buckets.setdefault(n_pad, []).append(triple)
+    n_pad, members = max(buckets.items(), key=lambda kv: len(kv[1]))
+    b = min(len(members), engine._batch_cap(n_pad)) // 2 * 2
+    if b < 2:
+        raise AssertionError(f"no two structures share an N bucket")
+    packed, gid = engine._pack(n_pad, members[:b])
+    sphere = engine._sphere_packed(100)
+    devices = [device, device]
+    k = neighbors._initial_k(n_pad)
+    runs = 0
+    while True:
+        step = mesh.make_sharded_sasa(devices, k=k, n_points=100, probe=PROBE)
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        sasa, total, max_count = step(packed, gid, sphere)
+        mc = int(max_count[0])  # a readback: waits for the step
+        step_s = time.perf_counter() - t0
+        n_launch = _kernels.launch_counts["list_occlusion"]
+        runs += 1
+        if n_launch != len(devices):
+            raise AssertionError(f"sharded step: {n_launch} list launches")
+        if mc <= k:
+            break
+        k = min(neighbors._round_bucket(mc, neighbors._K_BUCKETS), n_pad)
+    whole, whole_mc = neighbors._sasa_batched(
+        *(torch.from_numpy(a).to(device) for a in (packed, gid, sphere)),
+        k=k, n_points=100, probe=PROBE)
+    equal = bool(torch.equal(sasa, whole))
+    want_total = float(whole.double().sum())
+    log(f"[scale-out] sharded list step: {b} FreeSASA structures padded to "
+        f"N={n_pad}, K={k} after {runs} run(s) (max candidates {mc}), "
+        f"{len(devices)} shards on {device}: {step_s * 1e3:.1f} ms (host "
+        f"clock), total {float(total[0]):.3f} A^2; byte-equal to "
+        f"_sasa_batched on the whole batch: {equal}; total equals its sum: "
+        f"{float(total[0]) == want_total}; list_occlusion launches "
+        f"{n_launch}")
+    if not equal or float(total[0]) != want_total or mc != int(whole_mc):
+        raise AssertionError("sharded list step differs from unsharded")
+    if not bool(torch.isfinite(sasa).all()) or not want_total > 0.0:
+        raise AssertionError("sharded list step: no surface")
+    launches["list_occlusion"]["sharded"] = n_launch
+
+    # 4. The multi-device dry run over the same two entries.
+    _kernels.reset_launch_counts()
+    graft_entry.dryrun_multichip(devices)
+    dry = dict(_kernels.launch_counts)
+    log(f"[scale-out] dryrun_multichip({devices}) passed; launches "
+        f"fused_count {dry['fused_count']}, list_occlusion "
+        f"{dry['list_occlusion']}")
+    if dry["fused_count"] != len(devices) or dry["list_occlusion"] != (
+            len(devices)):
+        raise AssertionError(f"dryrun launches {dry}")
+    launches["fused_count"]["dryrun"] = dry["fused_count"]
+    launches["list_occlusion"]["dryrun"] = dry["list_occlusion"]
+    log(f"[scale-out] phase 14 took {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1333,7 +1497,7 @@ def main() -> int:
 
     count = phase_kernel_vs_plain(corpus_dir, device)
     phase_golden(device, sample_dir, WORK)
-    count["launches"] = phase_main_path(device)
+    count["launches"], main_median = phase_main_path(device)
     listed = phase_list_kernel(device, build_logs)
     listed["launches"] = phase_list_path(device)
     phase_host_cull(device, WORK)
@@ -1343,7 +1507,10 @@ def main() -> int:
     phase_cli(smi)
     phase_trajectory(device, smi)
     phase_quality_gate(device, smi)
-    log(f"[smoke] thirteen phases in {time.perf_counter() - t_start:.1f}s")
+    scale_out = phase_scale_out(device, corpus_dir, main_median, smi)
+    count["scale_out_launches"] = scale_out["fused_count"]
+    listed["scale_out_launches"] = scale_out["list_occlusion"]
+    log(f"[smoke] fourteen phases in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     print(json.dumps({"kernels": [count, listed, *studies, *studies_ii,
                                   *experiments]}))

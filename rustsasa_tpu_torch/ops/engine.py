@@ -23,11 +23,16 @@ this module through the names they import from it:
 `SasaParams`, `CHUNK_SLOT_BUDGET`.
 
 The device is explicit: "cuda" by default, the CPU only when asked for
-(the CPU runs the kernels' plain-torch versions).
+(the CPU runs the kernels' plain-torch versions).  An engine may hold a
+list of device entries (`devices=`): chunks are dealt to them
+round-robin, each CUDA entry with a stream of its own, as the reference
+deals its chunks over `jax.local_devices()`.  One card named twice is
+two streams on that card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 from dataclasses import dataclass
@@ -63,17 +68,21 @@ class RouteCounts:
 
     q13 / q16: banded wires; host_q16 / f32: host-cull wires (one count
     kernel launch each); list: neighbor-list batches, re-runs included.
+    `entries[i]`: the count-kernel chunks dealt to device entry i.
     """
 
     NAMES = ("q13", "q16", "host_q16", "f32", "list")
 
-    def __init__(self):
+    def __init__(self, n_entries: int = 1):
         self._lock = threading.Lock()
         self.counts = dict.fromkeys(self.NAMES, 0)
+        self.entries = [0] * n_entries
 
-    def add(self, route: str) -> None:
+    def add(self, route: str, entry: int | None = None) -> None:
         with self._lock:
             self.counts[route] += 1
+            if entry is not None:
+                self.entries[entry] += 1
 
 
 def _round_up(n: int, m: int) -> int:
@@ -109,8 +118,12 @@ def _sphere_packed(n_points: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def _sphere_device(n_points: int, device: torch.device) -> torch.Tensor:
-    """Per-(n_points, device) sphere, copied to the device once."""
-    return torch.from_numpy(_sphere_packed(n_points)).to(device)
+    """Per-(n_points, device) sphere, copied to the device once and
+    waited for, so that any stream may read it."""
+    sphere = torch.from_numpy(_sphere_packed(n_points)).to(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return sphere
 
 
 def _dense_gids(gids: np.ndarray | None, n: int) -> np.ndarray:
@@ -140,7 +153,71 @@ def _device(device) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is not None and not (
+            0 <= dev.index < torch.cuda.device_count()):
+        raise ValueError(f"{dev}: {torch.cuda.device_count()} CUDA "
+                         "device(s) visible")
     return dev
+
+
+def resolve_devices(devices) -> list[torch.device]:
+    """Device entries from a device or a list of them.
+
+    A bare "cuda" is every visible card in index order (the reference's
+    default `jax.local_devices()`), "cuda:N" one card, "cpu" the plain
+    versions; a list names its entries and may name one card twice.
+    """
+    if isinstance(devices, (str, torch.device)):
+        dev = _device(devices)
+        if dev.type == "cuda" and dev.index is None:
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [dev]
+    out = [_device(d) for d in devices]
+    if not out:
+        raise ValueError("empty device list")
+    return out
+
+
+class DeviceRing:
+    """Device entries dealt chunks round-robin, each CUDA entry of a list
+    of several with a stream of its own.
+
+    A chunk's copies, dequant, cull, kernel and readback all run on its
+    entry's stream; a ring of one entry runs on the caller's current
+    stream.  The counter lives as long as the ring and is taken under a
+    lock, so the chunks of successive (and concurrent) enqueue calls
+    alternate entries; the reference restarts at entry 0 on every call.
+    """
+
+    def __init__(self, devices):
+        self.devices = resolve_devices(devices)
+        several = len(self.devices) > 1
+        self.streams = [
+            torch.cuda.Stream(device=d) if several and d.type == "cuda"
+            else None
+            for d in self.devices
+        ]
+        self._lock = threading.Lock()
+        self._next = 0
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def take(self) -> int:
+        """The entry for the next chunk."""
+        with self._lock:
+            entry = self._next
+            self._next = (entry + 1) % len(self.devices)
+        return entry
+
+    def stream(self, entry: int):
+        """Context that makes `entry`'s stream current (none on the CPU
+        or in a ring of one)."""
+        stream = self.streams[entry]
+        if stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(stream)
 
 
 class _Readback:
@@ -171,7 +248,7 @@ class _Readback:
 
 
 def _compute_fused(structures, *, probe: float, n_points: int,
-                   device: torch.device, routes: RouteCounts
+                   ring: DeviceRing, routes: RouteCounts
                    ) -> "_FusedPending":
     """Dispatch every chunk of `structures` without synchronizing.
 
@@ -180,8 +257,10 @@ def _compute_fused(structures, *, probe: float, n_points: int,
     the module docstring).  The reference pads each chunk to one of a few
     slot buckets because each shape is a separate TPU compile; the CUDA
     kernel takes any multiple of 128 slots, so chunks are not padded.
+
+    Chunks are independent, so they go round-robin over `ring`'s entries
+    with no collective.
     """
-    sphere = _sphere_device(n_points, device)
     order = sorted(
         range(len(structures)), key=lambda i: -structures[i][0].shape[0]
     )
@@ -189,11 +268,20 @@ def _compute_fused(structures, *, probe: float, n_points: int,
     fallback: list[int] = []
 
     def dispatch(route, chunk, offsets, kind, fn, wire, **kw):
-        with stagestats.stage("dispatch"):
+        entry = ring.take()
+        device = ring.devices[entry]
+        with stagestats.stage("dispatch"), ring.stream(entry):
+            # Made on whichever stream came first and waited for; the
+            # record keeps its memory from reuse while a side stream
+            # reads it.
+            sphere = _sphere_device(n_points, device)
+            if ring.streams[entry] is not None:
+                sphere.record_stream(ring.streams[entry])
+            # Pinned copies and the readback go on this entry's stream.
             out = fn(*fused_kernel.to_device(wire, device), sphere,
                      n_points=n_points, **kw)
             pending.append((chunk, offsets, _Readback(out), kind))
-        routes.add(route)
+        routes.add(route, entry)
 
     def flush(chunk):
         if not chunk:
@@ -286,7 +374,7 @@ def _compute_fused(structures, *, probe: float, n_points: int,
         budget += n_slots
     flush(chunk)
     return _FusedPending(structures, pending, fallback, probe, n_points,
-                         device, routes)
+                         ring, routes)
 
 
 class CountsView:
@@ -328,13 +416,13 @@ class _FusedPending:
     """
 
     def __init__(self, structures, pending, fallback, probe, n_points,
-                 device, routes):
+                 ring, routes):
         self.structures = structures
         self.pending = pending
         self.fallback = fallback
         self.probe = probe
         self.n_points = n_points
-        self.device = device
+        self.ring = ring
         self.routes = routes
         self.views: list = [None] * len(structures)
 
@@ -369,10 +457,12 @@ class _FusedPending:
                     views[i] = thunk
         self.pending = []
         if self.fallback:
+            # On the first entry's card, as the reference runs it on its
+            # default device.
             outs = _compute_list(
                 [self.structures[i] for i in self.fallback],
                 probe=self.probe, n_points=self.n_points,
-                device=self.device, routes=self.routes,
+                device=self.ring.devices[0], routes=self.routes,
             )
             for i, out in zip(self.fallback, outs):
                 views[i] = out
@@ -515,7 +605,7 @@ def calculate_sasa_internal(
     if backend == "fused":
         return _compute_fused(
             [(coords, radii, gid)], probe=probe, n_points=n_points,
-            device=dev, routes=RouteCounts(),
+            ring=DeviceRing([dev]), routes=RouteCounts(),
         ).collect()[0]
 
     n_pad = neighbors._round_bucket(n, neighbors._N_BUCKETS)
@@ -543,15 +633,26 @@ class BatchedSasaEngine:
     `enqueue` packs and dispatches every chunk without synchronizing and
     returns a handle whose `collect_views()`/`collect()` are the readback;
     the list backend computes eagerly.  `routes` counts the dispatches of
-    each route.
+    each route, and of each device entry.
+
+    `device` (default "cuda", the current card) is one entry; `devices`
+    (see `resolve_devices`) deals the fused chunks round-robin over
+    several, each CUDA entry with its own stream.  The list path runs on
+    the first entry's card, `self.device`.
     """
 
     def __init__(self, params: SasaParams | None = None,
-                 backend: str = "auto", *, device="cuda"):
+                 backend: str = "auto", *, device=None, devices=None):
+        if device is not None and devices is not None:
+            raise ValueError("pass device= or devices=, not both")
         self.params = params or SasaParams()
         self.backend = resolve_backend(backend, self.params.n_points)
-        self.device = _device(device)
-        self.routes = RouteCounts()
+        self.ring = DeviceRing(
+            ["cuda" if device is None else device]
+            if devices is None else devices
+        )
+        self.device = self.ring.devices[0]
+        self.routes = RouteCounts(len(self.ring))
 
     @property
     def chunks_dispatched(self) -> int:
@@ -584,6 +685,6 @@ class BatchedSasaEngine:
         ]
         inner = _compute_fused(
             [structures[i] for i in nonempty], probe=probe,
-            n_points=n_points, device=self.device, routes=self.routes,
+            n_points=n_points, ring=self.ring, routes=self.routes,
         )
         return _MappedPending(inner, nonempty, len(structures))

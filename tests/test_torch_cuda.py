@@ -624,3 +624,46 @@ def test_golden_and_sanity_on_card(cuda):
         n_points=50_000, device=cuda)
     expected = 4.0 * math.pi * r * r - 2.0 * math.pi * r * (r - dist / 2.0)
     assert out == pytest.approx([expected, expected], rel=0.005)
+
+
+def test_two_streams_equal_one(cuda, monkeypatch):
+    """Chunks dealt round-robin to two streams on one card give the bytes
+    one stream gives; every entry dispatches, and the entries' chunks
+    are the count kernel's launches."""
+    monkeypatch.setattr(engine, "CHUNK_SLOT_BUDGET", 1024)
+    structures = _structures([900, 300, 700, 1000, 500, 260, 800], seed=11)
+    one = engine.BatchedSasaEngine(device=cuda).compute(structures)
+    eng = engine.BatchedSasaEngine(devices=[cuda, cuda])
+    assert eng.ring.streams[0] != eng.ring.streams[1]
+    # One entry runs on the caller's stream.
+    assert engine.BatchedSasaEngine(device=cuda).ring.streams == [None]
+    _kernels.reset_launch_counts()
+    handles = [eng.enqueue(structures[i::2]) for i in range(2)]
+    got = [h.collect() for h in handles]
+    assert min(eng.routes.entries) >= 1
+    assert (sum(eng.routes.entries) == eng.chunks_dispatched
+            == _kernels.launch_counts["fused_count"])
+    for i in range(2):
+        for g, w in zip(got[i], one[i::2]):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_sharded_list_step_equals_unsharded(cuda):
+    """The sharded list step over two streams of one card is byte-equal
+    to `_sasa_batched` on the whole batch, one list kernel a shard."""
+    from rustsasa_tpu_torch import graft_entry
+    from rustsasa_tpu_torch.parallel import mesh
+
+    packed, gid, sphere = graft_entry._example_batch(b=8, n=256)
+    step = mesh.make_sharded_sasa([cuda, cuda], k=64, n_points=100)
+    _kernels.reset_launch_counts()
+    sasa, total, max_count = step(packed, gid, sphere)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["list_occlusion"] == 2
+    whole, whole_mc = neighbors._sasa_batched(
+        *(torch.from_numpy(a).to(cuda) for a in (packed, gid, sphere)),
+        k=64, n_points=100, probe=1.4)
+    assert torch.equal(sasa, whole)
+    assert float(total[0]) == float(whole.double().sum())
+    assert int(max_count[0]) == int(whole_mc)
+    graft_entry.dryrun_multichip([cuda, cuda])

@@ -78,10 +78,11 @@ def test_package_surface_is_the_references():
     assert rustsasa_tpu_torch.__version__ == rustsasa_tpu.__version__
 
 
-# Imports the port's entry points and every script and bench module, runs
-# one small CPU directory batch through the native host route and the CLI
-# on one file, and lists what was loaded from the JAX package's directory:
-# modules and mapped files.
+# Imports the port's entry points, the scale-out modules and every script
+# and bench module, runs one small CPU directory batch through the native
+# host route, the CLI on one file and the multi-device dry run, and lists
+# what was loaded from the JAX package's directory: modules and mapped
+# files.
 ISOLATION = """
 import os, pkgutil, sys, tempfile
 sys.modules['jax'] = None
@@ -89,6 +90,9 @@ import rustsasa_tpu_torch, rustsasa_tpu_torch.api, rustsasa_tpu_torch.batch
 import rustsasa_tpu_torch.ops.engine, rustsasa_tpu_torch.scripts as scripts
 import rustsasa_tpu_torch.cli, rustsasa_tpu_torch.trajectory
 import rustsasa_tpu_torch.bench, rustsasa_tpu_torch.benches as benches
+import rustsasa_tpu_torch.parallel, rustsasa_tpu_torch.parallel.mesh
+import rustsasa_tpu_torch.parallel.distributed
+import rustsasa_tpu_torch.parallel.worker, rustsasa_tpu_torch.graft_entry
 import importlib
 for info in pkgutil.iter_modules(scripts.__path__):
     importlib.import_module('rustsasa_tpu_torch.scripts.' + info.name)
@@ -108,6 +112,7 @@ with contextlib.redirect_stdout(io.StringIO()):
     assert rustsasa_tpu_torch.cli.main(
         [os.path.join(src, '2drt.pdb.gz'), os.path.join(out, 'cli.json'),
          '--device', 'cpu']) == 0
+    rustsasa_tpu_torch.graft_entry.dryrun_multichip(['cpu', 'cpu'])
 ref = os.path.join(sys.argv[2], 'rustsasa_tpu') + os.sep
 mods = sorted(name for name, m in list(sys.modules.items())
               if (getattr(m, '__file__', None) or '').startswith(ref))

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rustsasa_tpu_torch/ops/csrc/` and
-runs fourteen phases, each of which must pass:
+runs fifteen phases, each of which must pass:
 
   1. build: nvcc for sm_90a, one process per kernel source, all started
      together, with the compiler's register/spill report;
@@ -89,7 +89,20 @@ runs fourteen phases, each of which must pass:
      exceeds K, byte-equal to `_sasa_batched` on the whole batch with its
      total equal to that batch's sum and one list kernel a shard; and
      `graft_entry.dryrun_multichip` over the two entries.  The kernel
-     records carry these paths' launches (`scale_out_launches`).
+     records carry these paths' launches (`scale_out_launches`);
+ 15. profilers and studies: the reference's last scripts through their
+     ports' run() at the scripts' sizes on "cuda" -
+     profile_native_pipeline and profile_pipeline (the corpus pass's host
+     and device stages, each alone, on 1,024 files), profile_fused
+     (kernel 1 alone on 512 files, with its FP32 instruction rate),
+     micro_bench, r4_atombox (900 files at 2,097,152 slots: the two
+     rows' j-lists and counts byte-equal), r5_qwire (the q12 wire's r_eff
+     bit-equal to radii + probe, its count deltas to q16) and the NumPy
+     cull studies r4_cull_granularity and r5_spherecull; each figure
+     beside the card's name and power limit; then on a chunk of up to
+     524,288 slots kernel 1 byte-equal to its plain version on q12 planes
+     and on atombox j-lists.  Kernel 1's record carries these paths'
+     launches (`profilers_launches`).
 
 Phases 5, 9 and 10 log the kernels redesigned for this card
 (list_occlusion; maxplus_count; ke_mxu's mxu_dots_def, ke_maxplus's six
@@ -459,6 +472,15 @@ def phase_main_path(device):
     if launches != record["chunks"] or 0 in launches:
         raise AssertionError(
             f"{launches} launches for {record['chunks']} chunks")
+    # The bench's default engine ("cuda") deals over every visible card.
+    import torch
+
+    cards = torch.cuda.device_count()
+    log(f"[main] chunks per device entry in each pass {record['entries']} "
+        f"({cards} visible card(s))")
+    if any(len(e) != cards or sum(e) != c
+           for e, c in zip(record["entries"], record["chunks"])):
+        raise AssertionError(f"entries {record['entries']} for {cards} cards")
     if not record["quality_pass"]:
         raise AssertionError("the bench's quality gate failed")
     outputs = sorted(os.listdir(os.path.join(WORK, "out")))
@@ -1463,6 +1485,127 @@ def phase_scale_out(device, corpus_dir, main_median, smi):
     return launches
 
 
+def phase_profilers(device, corpus_dir, smi):
+    """Phase 15: the profilers and studies ported last, each through its
+    run() at the reference script's size on "cuda", with kernel 1's
+    launches counted from 0 around each; then kernel 1 against its plain
+    version on q12 planes and atombox j-lists, inputs no earlier phase
+    feeds it.  Returns {path: fused_count launches}."""
+    import numpy as np
+    import torch
+
+    from rustsasa_tpu_torch.benches import micro_bench
+    from rustsasa_tpu_torch.ops import _kernels, engine, fused_kernel as fk
+    from rustsasa_tpu_torch.scripts import (
+        _study, profile_fused, profile_native_pipeline, profile_pipeline,
+        r4_atombox, r4_cull_granularity, r5_qwire, r5_spherecull,
+    )
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def counted(path, fn):
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        launches[path] = _kernels.launch_counts["fused_count"]
+        log(f"[profilers] {path}: {time.perf_counter() - t0:.1f}s, "
+            f"{launches[path]} fused_count launches")
+        return result
+
+    def show(path, lines):
+        for line in lines:
+            log(f"[profilers] {path}: {line}")
+        log(f"[profilers] {path}: {smi}")
+
+    def finite(path, result, keys):
+        bad = [k for k in keys if not (np.isfinite(result[k])
+                                       and result[k] > 0)]
+        if bad:
+            raise AssertionError(f"{path}: stage figures {bad} not positive")
+
+    r = counted("profile_native_pipeline", lambda: profile_native_pipeline.run(
+        corpus_dir, device="cuda",
+        out_dir=os.path.join(WORK, "profile_native_out")))
+    show("profile_native_pipeline", profile_native_pipeline.lines(r))
+    finite("profile_native_pipeline", r,
+           ("load_s", "pack_s", "device_s", "device2_s", "emit_s", "atoms"))
+    if r["files"] != profile_native_pipeline.LIMIT:
+        raise AssertionError(f"profile_native_pipeline: {r['files']} files")
+
+    r = counted("profile_pipeline", lambda: profile_pipeline.run(
+        corpus_dir, device="cuda",
+        out_dir=os.path.join(WORK, "profile_python_out")))
+    show("profile_pipeline", profile_pipeline.lines(r))
+    finite("profile_pipeline", r, ("parse_s", "select_s", "pack_s",
+                                   "device_s", "device2_s", "emit_s"))
+
+    r = counted("profile_fused", lambda: profile_fused.run(
+        corpus_dir, device="cuda"))
+    show("profile_fused", profile_fused.lines(r))
+    finite("profile_fused", r, ("ms", "fp32_instr_per_s", "matoms_s"))
+    if r["failed"] or not (np.isfinite(r["sasa"]).all()
+                           and r["sasa"].sum() > 0):
+        raise AssertionError("profile_fused: no valid areas")
+
+    r = counted("micro_bench", lambda: micro_bench.run(EXAMPLE,
+                                                       device="cuda"))
+    show("micro_bench", [f"{k:32s} {v:10.3f} ms"
+                         for k, v in r["units_ms"].items()])
+
+    r = counted("r4_atombox", lambda: r4_atombox.run(corpus_dir,
+                                                     device="cuda"))
+    show("r4_atombox", r4_atombox.lines(r))
+    if not (r["jlists_equal"] and r["counts_equal"]):
+        raise AssertionError("r4_atombox: the two rows differ")
+
+    r = counted("r5_qwire", lambda: r5_qwire.run(corpus_dir, device="cuda"))
+    show("r5_qwire", r5_qwire.lines(r))
+    if not r["r_eff_exact"]:
+        raise AssertionError("r5_qwire: q12 r_eff not bit-equal")
+
+    for study in (r4_cull_granularity, r5_spherecull):
+        name = study.__name__.rsplit(".", 1)[1]
+        r = counted(name, lambda: study.run(corpus_dir))
+        show(name, r["lines"])
+        if launches.pop(name):
+            raise AssertionError(f"{name} launched a kernel")
+
+    # Kernel 1 on the studies' inputs, against its plain version.
+    triples = _study.load_corpus(corpus_dir, slots=CHECK_CHUNK_SLOTS,
+                                 max_tiles=r4_atombox.W)
+    sphere = engine._sphere_device(100, device)
+    *q12, offsets = r5_qwire.pack_q12(triples, PROBE)
+    planes, qvalid = r5_qwire.dequant_q12(*fk.to_device(q12[:4], device))
+    tmeta = fk.to_device(q12[4:], device)[0]
+    checks = [("q12 planes", planes,
+               fk.build_jlist_banded(planes, qvalid, tmeta, w=32), offsets)]
+    planes4, tparams, tmeta, offsets = fk.pack_structures_q16(triples, PROBE)
+    jlist, planes = r4_atombox.build_only(
+        *fk.to_device((planes4, tparams, tmeta), device), w=32,
+        fine="atombox")
+    checks.append(("atombox j-lists", planes, jlist, offsets))
+    for name, planes, jlist, offsets in checks:
+        kernel_ms, got = cuda_ms(lambda: fk.fused_counts(planes, jlist,
+                                                         sphere), 3)
+        plain_ms, want = cuda_ms(
+            lambda: fk.fused_counts_reference(planes, jlist, sphere), 1,
+            warm=False)
+        real = _study.real_slots(offsets, planes.shape[1], device)
+        diff = int((got.to(torch.int64) - want.to(torch.int64)).abs()[real]
+                   .max())
+        log(f"[profilers] fused_count on {name}: {len(triples)} structures, "
+            f"{planes.shape[1]} slots; {kernel_ms:.3f} ms, plain torch "
+            f"{plain_ms:.3f} ms; max |diff| at real slots {diff}; {smi}")
+        if diff:
+            raise AssertionError(f"fused_count differs from plain on {name}")
+    idle = [path for path, n in launches.items() if not n]
+    if idle:
+        raise AssertionError(f"fused_count did not launch in {idle}")
+    log(f"[profilers] phase 15 took {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1510,7 +1653,8 @@ def main() -> int:
     scale_out = phase_scale_out(device, corpus_dir, main_median, smi)
     count["scale_out_launches"] = scale_out["fused_count"]
     listed["scale_out_launches"] = scale_out["list_occlusion"]
-    log(f"[smoke] fourteen phases in {time.perf_counter() - t_start:.1f}s")
+    count["profilers_launches"] = phase_profilers(device, corpus_dir, smi)
+    log(f"[smoke] fifteen phases in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     print(json.dumps({"kernels": [count, listed, *studies, *studies_ii,
                                   *experiments]}))

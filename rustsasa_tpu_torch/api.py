@@ -3,10 +3,11 @@
 The counterpart of SASAOptions<T> (reference: src/options.rs:59-76,
 496-619).  Same defaults, same with_* builder surface, one `process` entry
 point; the level is a parameter rather than a zero-sized type.  `process`
-computes on the port's engine on `device`: "cuda" by default, which
-raises on a host without CUDA (no silent fallback), or "cpu" when asked
-for with `SASAOptions(device="cpu")` or `.with_device("cpu")`, where the
-plain-torch kernels run.
+computes on the port's engine on `device`: "cuda" by default (one
+structure is one chunk, on the first card; a directory's chunks are dealt
+over every visible card), which raises on a host without CUDA (no silent
+fallback), or "cpu" when asked for with `SASAOptions(device="cpu")` or
+`.with_device("cpu")`, where the plain-torch kernels run.
 
 Example:
     from rustsasa_tpu_torch import SASAOptions, Level, read_structure

@@ -2,7 +2,7 @@
 
 Pass `engine=BatchedSasaEngine(params, device=...)` to choose the device;
 without one `process_directory` builds its engine on `options.device`
-(CUDA by default).
+("cuda" by default: chunks dealt over every visible card).
 
 Redesign of the reference's batch mode (reference:
 src/main.rs:341-480, rayon par_iter over files with inner threads=1):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Corpus bench of the port: E. coli-proteome-equivalent residue-level SASA
-on one card.
+on every visible card (`--device cuda`; `cuda:N` for one).
 
     python -m rustsasa_tpu_torch.bench [--device cuda|cpu]
 
@@ -17,7 +17,8 @@ Prints exactly one JSON line: bench.py's keys (`value` the median pass
 in seconds, `vs_baseline` against RustSASA's 5.237 s on an 8-core M3),
 plus the package, backend, device, the card's `nvidia-smi` name and
 power limit, the five pass times in order, their median and spread
-((max - min) / median), and the count kernel's launches in each pass.
+((max - min) / median), the count kernel's launches in each pass and
+the chunks each device entry took in each pass (`entries`).
 `RUSTSASA_TPU_PROFILE=1` logs each pass's host stage split to stderr.
 """
 
@@ -112,7 +113,7 @@ def run(device="cuda", work_dir=WORK_DIR, say=log) -> dict:
         f"distinct) at {corpus}")
 
     options = SASAOptions(level=Level.RESIDUE, device=device)
-    times, launches, chunks, n_ok = [], [], [], []
+    times, launches, chunks, entries, n_ok = [], [], [], [], []
     n_errors = 0
     backend = None
     warm_s = None
@@ -143,6 +144,7 @@ def run(device="cuda", work_dir=WORK_DIR, say=log) -> dict:
         times.append(elapsed)
         launches.append(n_launch)
         chunks.append(engine.chunks_dispatched)
+        entries.append(list(engine.routes.entries))
         n_ok.append(report.n_ok)
         n_errors += len(report.errors)
     median = statistics.median(times)
@@ -184,6 +186,7 @@ def run(device="cuda", work_dir=WORK_DIR, say=log) -> dict:
         "spread": (max(times) - min(times)) / median,
         "fused_count_launches": launches,
         "chunks": chunks,
+        "entries": entries,
     }
 
 

@@ -91,7 +91,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "-t", "--threads", type=int, default=-1,
         help="Host worker threads for batch parsing (-1: automatic). "
-             "The device runs one stream of chunks.",
+             "Chunks are dealt over every card --device names.",
     )
     p.add_argument(
         "-R", "--read-radii-from-occupancy", action="store_true",
@@ -105,8 +105,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--device", default="cuda",
-        help="Torch device to compute on (default: cuda; cpu runs the "
-             "plain-torch kernels).",
+        help="Torch device to compute on (default: cuda, every visible "
+             "card; cuda:N one card; cpu runs the plain-torch kernels).",
     )
     return p
 

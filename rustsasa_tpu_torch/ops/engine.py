@@ -170,8 +170,11 @@ def resolve_devices(devices) -> list[torch.device]:
     if isinstance(devices, (str, torch.device)):
         dev = _device(devices)
         if dev.type == "cuda" and dev.index is None:
-            return [torch.device("cuda", i)
-                    for i in range(torch.cuda.device_count())]
+            out = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+            if not out:
+                raise RuntimeError("device='cuda': no CUDA device visible")
+            return out
         return [dev]
     out = [_device(d) for d in devices]
     if not out:
@@ -635,10 +638,12 @@ class BatchedSasaEngine:
     the list backend computes eagerly.  `routes` counts the dispatches of
     each route, and of each device entry.
 
-    `device` (default "cuda", the current card) is one entry; `devices`
-    (see `resolve_devices`) deals the fused chunks round-robin over
-    several, each CUDA entry with its own stream.  The list path runs on
-    the first entry's card, `self.device`.
+    `device` (default "cuda": every visible card, in index order) or
+    `devices` (a list of entries) goes through `resolve_devices`; the fused
+    chunks are dealt round-robin over the entries, each CUDA entry of a
+    ring of several with its own stream.  "cuda:N" is one card, "cpu" the
+    plain versions.  The list path runs on the first entry's card,
+    `self.device`.
     """
 
     def __init__(self, params: SasaParams | None = None,
@@ -648,7 +653,7 @@ class BatchedSasaEngine:
         self.params = params or SasaParams()
         self.backend = resolve_backend(backend, self.params.n_points)
         self.ring = DeviceRing(
-            ["cuda" if device is None else device]
+            ("cuda" if device is None else device)
             if devices is None else devices
         )
         self.device = self.ring.devices[0]

@@ -524,8 +524,8 @@ def _sum3(x):
     return (x[..., 0] + x[..., 1]) + x[..., 2]
 
 
-def band_cull(planes, qvalid, tmeta, *, w: int, halves: int = 1):
-    """The banded cull shared by the device-side j-list builders.
+def band_boxes(planes, qvalid, tmeta, *, w: int):
+    """The banded cull's tile-pair stage and the fine stage's inputs.
 
     For the nd = 2w-1 offsets d in (-w, w) of every i-tile's own tile
     band, returns
@@ -533,10 +533,11 @@ def band_cull(planes, qvalid, tmeta, *, w: int, halves: int = 1):
       act [nd, T] bool: the tile pair is in the structure and its AABBs
         are in reach,
       sep2 [nd, T] f32: the tile pair's squared AABB separation,
-      bits [nd, T, GROUPS_PER_TILE, halves] bool: some i-atom (point plus
-        its own r_eff) of the i-tile's half h reaches the box of j-tile
-        group g (halves=1: of the whole tile, halves=2: of lanes 0-63
-        and 64-127).
+      c_t [T, 128, 3], r_t [T, 128]: each i-atom's point (far away for
+        padding) and r_eff (0 for padding),
+      group boxes (gmin, gmax [T + 2(w-1), 16, 3], gmaxr [T + 2(w-1), 16]):
+        every tile's 8-atom-group boxes and largest r_eff, zero-padded by
+        w-1 tiles on both sides, so offset d's j-tiles are rows d:d+T.
     """
     m = planes.shape[1]
     t = m // ATOM_TILE
@@ -558,7 +559,6 @@ def band_cull(planes, qvalid, tmeta, *, w: int, halves: int = 1):
 
     start = tmeta[:, 0]
     end = start + tmeta[:, 1]
-    slack = DEVICE_CULL_SLACK
     nd = 2 * w - 1
 
     def padded(x):
@@ -581,25 +581,39 @@ def band_cull(planes, qvalid, tmeta, *, w: int, halves: int = 1):
         0.0,
     )
     sep2 = _sum3(gap * gap)  # [nd, T]
-    reach = tmaxr[None] + shifted(tmaxr) + slack
+    reach = tmaxr[None] + shifted(tmaxr) + DEVICE_CULL_SLACK
     act = valid & (sep2 <= reach * reach)
-
-    # Fine granularity: every i-atom (point + its own r_eff) against the
-    # j-tile's 16 8-atom-group boxes, one offset d at a time.
     c_t = torch.where(qv, c, big).reshape(t, ATOM_TILE, 3)
     r_t = rmasked.reshape(t, ATOM_TILE)
-    gmin_p = padded(gmin.reshape(t, GROUPS_PER_TILE, 3))
-    gmax_p = padded(gmax.reshape(t, GROUPS_PER_TILE, 3))
-    gmaxr_p = padded(gmaxr.reshape(t, GROUPS_PER_TILE))
+    boxes = (padded(gmin.reshape(t, GROUPS_PER_TILE, 3)),
+             padded(gmax.reshape(t, GROUPS_PER_TILE, 3)),
+             padded(gmaxr.reshape(t, GROUPS_PER_TILE)))
+    return j, act, sep2, c_t, r_t, boxes
+
+
+def band_cull(planes, qvalid, tmeta, *, w: int, halves: int = 1):
+    """The banded cull shared by the device-side j-list builders.
+
+    Returns band_boxes' j, act and sep2 [nd, T] and
+      bits [nd, T, GROUPS_PER_TILE, halves] bool: some i-atom (point plus
+        its own r_eff) of the i-tile's half h reaches the box of j-tile
+        group g (halves=1: of the whole tile, halves=2: of lanes 0-63
+        and 64-127).
+    """
+    j, act, sep2, c_t, r_t, (gmin_p, gmax_p, gmaxr_p) = band_boxes(
+        planes, qvalid, tmeta, w=w)
+    nd, t = act.shape
+    # Fine granularity: every i-atom (point + its own r_eff) against the
+    # j-tile's 16 8-atom-group boxes, one offset d at a time.
     bits = torch.empty((nd, t, GROUPS_PER_TILE, halves), dtype=torch.bool,
-                       device=dev)
+                       device=planes.device)
     for d in range(nd):
         mn = gmin_p[d:d + t, :, None, :]  # [T, 16, 1, 3]
         mx = gmax_p[d:d + t, :, None, :]
         ci = c_t[:, None, :, :]  # [T, 1, A, 3]
         g = torch.clamp_min(torch.maximum(mn - ci, ci - mx), 0.0)
         pb2 = _sum3(g * g)  # [T, 16, A]
-        rr = r_t[:, None, :] + gmaxr_p[d:d + t, :, None] + slack
+        rr = r_t[:, None, :] + gmaxr_p[d:d + t, :, None] + DEVICE_CULL_SLACK
         bits[d] = (rr * rr - pb2).reshape(
             t, GROUPS_PER_TILE, halves, ATOM_TILE // halves
         ).amax(dim=-1) >= 0.0

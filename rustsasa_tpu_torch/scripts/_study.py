@@ -32,6 +32,25 @@ STRUCTURE_SUFFIXES = (".pdb", ".cif", ".pdb.gz", ".cif.gz")
 INSTR_PER_MARGIN = 7
 
 
+def bench_corpus(corpus_dir=None) -> str:
+    """`corpus_dir`, or the port's bench corpus (`bench.build_corpus`
+    under `bench.WORK_DIR`), built there if absent."""
+    if corpus_dir is not None:
+        return corpus_dir
+    from .. import bench
+
+    corpus = os.path.join(bench.WORK_DIR, "corpus")
+    if not (os.path.isdir(corpus) and os.listdir(corpus)):
+        bench.build_corpus(corpus)
+    return corpus
+
+
+def corpus_files(corpus_dir=None) -> list[str]:
+    """The paths of `bench_corpus(corpus_dir)`'s files in name order."""
+    src = bench_corpus(corpus_dir)
+    return [os.path.join(src, f) for f in sorted(os.listdir(src))]
+
+
 def select(path):
     """(coords, radii, gids) of one file at residue level, as
     process_directory selects it."""
@@ -200,6 +219,29 @@ def real_slots(offsets, m, device):
         if off is not None:
             real[off[0]:off[0] + off[1]] = True
     return real
+
+
+def synchronize(devices) -> None:
+    """Wait for every CUDA device among `devices`."""
+    for d in devices:
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def where(device) -> dict:
+    """What a timing ran on: the host's `os.cpu_count()`, and for a CUDA
+    `device` the card's `nvidia-smi` name and power limit."""
+    from ..utils.card import nvidia_smi
+
+    card = nvidia_smi() if torch.device(device).type == "cuda" else None
+    return {"cpu_count": os.cpu_count(), "gpu_name": card and card[0],
+            "power_limit": card and card[1]}
+
+
+def where_line(info: dict) -> str:
+    card = (f"{info['gpu_name']}, {info['power_limit']}"
+            if info["gpu_name"] else "no card")
+    return f"os.cpu_count() {info['cpu_count']}; {card}"
 
 
 def device_name(device) -> str:

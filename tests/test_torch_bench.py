@@ -87,6 +87,7 @@ def test_bench_record(tiny_corpus, tmp_path, monkeypatch):
     # The count kernel launches only on CUDA; the chunks are counted.
     assert record["fused_count_launches"] == [0] * 5
     assert record["chunks"] == [1] * 5
+    assert record["entries"] == [[1]] * 5  # one device entry: the CPU
     assert (record["package"], record["backend"], record["device"]) == (
         "rustsasa_tpu_torch", "fused", "cpu")
     assert record["gpu_name"] is None and record["power_limit"] is None

@@ -15,8 +15,8 @@ import torch
 from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
 from rustsasa_tpu_torch.ops import fused_kernel as fk
 from rustsasa_tpu_torch.scripts import (
-    _study, kernel_experiments, r3_kernel_variants, r3_maxplus,
-    r4_microkernel, r4_saturation, r5_pair64,
+    _study, kernel_experiments, r3_kernel_variants, r3_maxplus, r4_atombox,
+    r4_microkernel, r4_saturation, r5_pair64, r5_qwire,
 )
 
 pytestmark = pytest.mark.gpu
@@ -143,6 +143,35 @@ def test_list_occlusion_byte_equal_plain(cuda, n_points):
 # 4 (occlusion_sasa pads the K-major copies to 304 atoms), at one and at
 # several blocks of points.  The records past each tile's bound hold real
 # limits, which would occlude if they were read.
+@pytest.mark.parametrize("wire", ["q12", "atombox"])
+def test_kernel_on_q12_planes_and_atombox_jlists_byte_equal_plain(cuda, wire):
+    """Kernel 1 on inputs of the round-4/5 studies: planes dequantized
+    from the q12 wire (banded j-lists), and atombox j-lists on q16
+    planes."""
+    structures = _structures([100, 700, 2600, 3700], seed=31)
+    if wire == "q12":
+        *q12, offsets = r5_qwire.pack_q12(structures, 1.4)
+        wa, wb, pal, tp, tm = fk.to_device(q12, cuda)
+        planes, qvalid = r5_qwire.dequant_q12(wa, wb, pal, tp)
+        jlist = fk.build_jlist_banded(planes, qvalid, tm, w=32)
+    else:
+        planes4, tp, tm, offsets = fk.pack_structures_q16(structures, 1.4)
+        p4, tp, tm = fk.to_device((planes4, tp, tm), cuda)
+        jlist, planes = r4_atombox.build_only(p4, tp, tm, w=32,
+                                              fine="atombox")
+        assert torch.equal(
+            jlist, r4_atombox.build_only(p4, tp, tm, w=32, fine="sub32")[0])
+    sphere = engine._sphere_device(100, cuda)
+    before = _kernels.launch_counts["fused_count"]
+    got = fk.fused_counts(planes, jlist, sphere)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["fused_count"] == before + 1
+    want = fk.fused_counts_reference(planes, jlist, sphere)
+    real = _study.real_slots(offsets, planes.shape[1], cuda)
+    assert torch.equal(got[real], want[real])
+    assert bool(((got[real] > 0) & (got[real] < 100)).any())
+
+
 @pytest.mark.parametrize("n_points", [100, 300])
 def test_list_occlusion_tile_bounds_byte_equal_plain(cuda, n_points):
     n, k = 301, 24

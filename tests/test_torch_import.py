@@ -140,9 +140,9 @@ def test_port_loads_nothing_from_the_jax_package(tmp_path):
     lines = proc.stdout.strip().splitlines()
     assert lines[0] == "modules []", lines[0]
     assert lines[1] == "maps []", lines[1]
-    assert int(lines[2].split()[1]) >= 9
-    assert lines[3] == ("benches ['md_trajectory', 'single_protein', "
-                        "'single_worker_proteome']"), lines[3]
+    assert int(lines[2].split()[1]) >= 21
+    assert lines[3] == ("benches ['md_trajectory', 'micro_bench', "
+                        "'single_protein', 'single_worker_proteome']"), lines[3]
 
 
 @pytest.mark.parametrize("pattern", ["_host.", 'find_spec("rustsasa_tpu")'])

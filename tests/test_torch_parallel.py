@@ -216,6 +216,90 @@ def test_resolve_devices():
                 engine.BatchedSasaEngine(devices=devices)
 
 
+class _FakeStream:
+    """Stands in for torch.cuda.Stream on a host without a card."""
+
+    def __init__(self, device=None):
+        self.device = device
+
+
+@pytest.fixture
+def three_visible_cards(monkeypatch):
+    """torch.cuda reports three cards; no kernel runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
+    return [torch.device("cuda", i) for i in range(3)]
+
+
+class _Built(Exception):
+    """Raised by a recording engine once it is built."""
+
+
+def _recording_engine(monkeypatch, module, raise_after=False):
+    """Patches `module`'s BatchedSasaEngine with a subclass that keeps
+    every instance it builds (and raises _Built after one when asked)."""
+    built = []
+
+    class Recording(engine.BatchedSasaEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            built.append(self)
+            if raise_after:
+                raise _Built
+
+    monkeypatch.setattr(module, "BatchedSasaEngine", Recording)
+    return built
+
+
+def test_default_engine_deals_over_every_visible_card(three_visible_cards):
+    for eng in (engine.BatchedSasaEngine(),
+                engine.BatchedSasaEngine(device="cuda"),
+                engine.BatchedSasaEngine(device=torch.device("cuda"))):
+        assert eng.ring.devices == three_visible_cards
+        assert eng.device == three_visible_cards[0]
+        assert eng.routes.entries == [0, 0, 0]
+        assert all(isinstance(s, _FakeStream) for s in eng.ring.streams)
+        assert [eng.ring.take() for _ in range(4)] == [0, 1, 2, 0]
+
+
+@pytest.mark.parametrize("device", ["cuda:1", torch.device("cuda", 1)])
+def test_indexed_cuda_is_one_card(three_visible_cards, device):
+    eng = engine.BatchedSasaEngine(device=device)
+    assert eng.ring.devices == [three_visible_cards[1]]
+    assert eng.ring.streams == [None]
+
+
+def test_entry_points_default_to_every_visible_card(three_visible_cards,
+                                                    monkeypatch, tmp_path):
+    from rustsasa_tpu_torch import SASAOptions, batch, trajectory
+
+    built = _recording_engine(monkeypatch, batch)
+    (tmp_path / "in").mkdir()
+    report = batch.process_directory(str(tmp_path / "in"),
+                                     str(tmp_path / "out"), SASAOptions(),
+                                     "json", progress=False)
+    assert report.n_files == 0 and len(built) == 1
+    assert built[0].ring.devices == three_visible_cards
+
+    built = _recording_engine(monkeypatch, trajectory, raise_after=True)
+    example = os.path.join("tests", "data", "pdbs", "example.cif")
+    with pytest.raises(_Built):
+        trajectory.compute_trajectory_sasa(example, str(tmp_path / "t.dcd"))
+    assert built[0].ring.devices == three_visible_cards
+
+
+def test_default_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kwargs in ({}, {"device": "cuda"}, {"devices": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            engine.BatchedSasaEngine(**kwargs)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.BatchedSasaEngine()
+
+
 def test_process_directory_distributed_single_process(reference_data_dir,
                                                       tmp_path):
     from rustsasa_tpu_torch import (BatchedSasaEngine, Level, SASAOptions,

@@ -8,10 +8,20 @@ runs fifteen phases, each of which must pass:
 
   1. build: nvcc for sm_90a, one process per kernel source, all started
      together, with the compiler's register/spill report;
-  2. count kernel vs plain: one real q13 chunk of up to 524,288 slots from
-     the corpus below, counted by the CUDA kernel and by its plain-torch
-     version on the same device tensors; counts must be byte-equal at every
-     real atom slot; both timed with CUDA events after a warm launch;
+  2. the banded chunk's kernels vs plain: one real q13 chunk of up to
+     524,288 slots from the corpus below through dequant_boxes (planes,
+     qvalid and boxes bit-equal to the plain dequant and boxes),
+     band_jlist (j-lists byte-equal in all 128 columns to the plain
+     builder) and the count kernel (counts byte-equal at every real atom
+     slot), each kernel and plain version on the same device tensors,
+     timed with CUDA events after a warm launch (the two band kernels
+     also inside a CUDA graph, their device time without the host's
+     enqueue), with their bounds; then dequant_boxes and band_jlist at
+     every band width (16, 24, 32, 64, 127) on the q13 and q16 wires, on
+     seeded synthetic structures (3, 100, 700 and up to 16,000 atoms,
+     the largest picking the width) with two padding tiles appended,
+     bit-equal and byte-equal again, with entries past the chunk's ends
+     in the rows' tails;
   3. golden: example.cif per-atom SASA within 25 A^2 of the stored golden
      array (tests/test_golden.py) and the protein total within 1500 of
      20268; a 3-file directory batch gives byte-identical JSON on CUDA
@@ -22,7 +32,9 @@ runs fifteen phases, each of which must pass:
      cycled to >= 4,400 files and >= 10.7M atoms), one warm and five timed
      passes (median and spread), then the quality gate; every file must
      succeed, the gate pass, and the count kernel's launch count in each
-     pass equal the chunks the engine dispatched;
+     pass equal the chunks the engine dispatched, dequant_boxes' the
+     q13, q16 and host-cull q16 chunks, band_jlist's the q13 and q16
+     chunks;
   5. list kernel vs plain: the neighbor phase's records for 1jz8 (the
      largest test structure) at 100 points, through the list-occlusion
      kernel and its plain-torch version; byte-equal, both timed, with the
@@ -101,15 +113,16 @@ runs fifteen phases, each of which must pass:
      cull studies r4_cull_granularity and r5_spherecull; each figure
      beside the card's name and power limit; then on a chunk of up to
      524,288 slots kernel 1 byte-equal to its plain version on q12 planes
-     and on atombox j-lists.  Kernel 1's record carries these paths'
-     launches (`profilers_launches`).
+     and on atombox j-lists.  The main path's three kernels' records
+     carry these paths' launches (`profilers_launches`).
 
 Phases 5, 9 and 10 log the kernels redesigned for this card
 (list_occlusion; maxplus_count; ke_mxu's mxu_dots_def, ke_maxplus's six
 variants, ke_bf16's two and ke_stream's nobig and noscalar) with their
 bound, share of it, FP32 instruction rate, ptxas registers and spills
 and shared memory.  Prints the card's name and
-power limit, one JSON line with the twelve kernel sources' numbers and a
+power limit, one JSON line with the thirteen kernel sources' numbers
+(band_cull.cu as its two kernels, dequant_boxes bound by bytes) and a
 record of its own for mxu_dots_def (each with its bound: the larger of its FP32
 instructions at this run's work over the 33.5T/s issue peak, for the
 DEFAULT variants also its mma work over the 989 TFLOP/s bf16
@@ -165,8 +178,26 @@ KERNELS = {
     # ke_mxu.cu's DEFAULT variant (wgmma), recorded beside mxu_dots_hi.
     "ke_mxu_def": ("rustsasa_tpu_torch/ops/csrc/ke_mxu.cu",
                    "scripts/kernel_experiments.py:502"),
+    # The XLA stages of the JAX package's banded jit (no Pallas kernel):
+    # the wire dequant and the cull's box reductions, and the rest of
+    # build_jlist_banded.
+    "dequant_boxes": ("rustsasa_tpu_torch/ops/csrc/band_cull.cu",
+                      "rustsasa_tpu/ops/fused_kernel.py:442-470,730-744,"
+                      "599-610"),
+    "band_jlist": ("rustsasa_tpu_torch/ops/csrc/band_cull.cu",
+                   "rustsasa_tpu/ops/fused_kernel.py:612-711"),
 }
 LARGEST = ("1hbn.pdb.gz", "1n62.pdb.gz", "1jz8.pdb.gz")
+# csrc/band_cull.cu: FP32 instructions of one band_jlist point-box test
+# (6 FSUB and 6 FMNMX for the clamped gaps, 3 FMUL and 2 FADD for pb2, 2
+# FADD for rr, FMUL and FSUB for the margin, one FSETP), and of one
+# dequant_boxes slot (3 FMUL and 3 FADD, 7 values through 5 shuffle
+# min/max steps); the boxes' bytes a tile (16 groups x 7 floats, 7 for
+# the tile).
+BAND_INSTR_PER_TEST = 22
+DEQUANT_INSTR_PER_SLOT = 41
+BOX_BYTES_PER_TILE = 4 * (16 * 7 + 7)
+BAND_KERNELS = ("dequant_boxes", "band_jlist")
 PROBE = 1.4
 # H100 SXM: FP32 instruction issue peak (132 SMs x 128 lanes x 1.98 GHz;
 # none of the kernels' margin instructions is a fused multiply-add) and
@@ -246,6 +277,30 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(stop) / reps, out
 
 
+def graph_ms(fn, reps):
+    """Mean device milliseconds of `fn()` over `reps` calls captured in one
+    CUDA graph and replayed between two CUDA events, after a warm call:
+    the host's enqueue of each call (allocations, checks, the launch),
+    which cuda_ms counts where it outlasts a short kernel, stays out."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def ptxas_entries(log):
     """{mangled kernel name: (registers, spill store bytes)} from the
     ptxas -v report of one build."""
@@ -321,7 +376,7 @@ def phase_build():
         for line in info.log.splitlines():
             if "serialized" in line or "warning" in line.lower():
                 log(f"[build]   {name}: {line.strip()}")
-        log(f"[build] {KERNELS[name][0]} -> "
+        log(f"[build] rustsasa_tpu_torch/ops/csrc/{name}.cu -> "
             f"{os.path.relpath(info.path, ROOT)} in {info.seconds:.1f}s "
             f"(nvcc {' '.join(_kernels.NVCC_FLAGS)})")
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", info.log)]
@@ -339,13 +394,65 @@ def phase_build():
     return logs
 
 
+def band_bounds(wire, m, w):
+    """(dequant_boxes, band_jlist) bound() of one chunk of m slots on
+    `wire` at band width w: dequant_boxes reads the wire and writes the
+    planes, qvalid and boxes (bytes); band_jlist runs T x nd x 16 x 128
+    point-box tests (operations)."""
+    t = m // 128
+    nd = 2 * w - 1
+    wire_in = 6 * m + 4 * 256 if wire == "q13" else 8 * m
+    deq = bound(DEQUANT_INSTR_PER_SLOT * m,
+                wire_in + 16 * t + (4 * 8 + 1) * m + BOX_BYTES_PER_TILE * t)
+    band = bound(BAND_INSTR_PER_TEST * t * nd * 16 * 128,
+                 (4 * 4 + 1) * m + 8 * t + BOX_BYTES_PER_TILE * t + 512 * t)
+    return deq, band
+
+
+def band_vs_plain(wire, arrays, tmeta, w):
+    """dequant_boxes and band_jlist on one chunk against their plain
+    versions on the same device tensors -> (planes, qvalid, jlist, errors,
+    equal): planes, qvalid and boxes bit-equal (those of dequant_boxes
+    writing no boxes too), j-lists byte-equal in all 128 columns."""
+    import torch
+
+    from rustsasa_tpu_torch.ops import _kernels, fused_kernel as fk
+
+    planes, qvalid, boxes = getattr(_kernels, f"dequant_{wire}")(*arrays)
+    bare_planes, bare_qvalid = getattr(fk, f"dequant_{wire}")(*arrays)
+    jlist = _kernels.band_jlist(planes, qvalid, tmeta, boxes, w)
+    want_planes, want_qvalid = getattr(fk, f"dequant_{wire}_reference")(
+        *arrays)
+    want_boxes = fk.tile_boxes_reference(want_planes, want_qvalid)
+    want_jlist = fk.build_jlist_banded_reference(want_planes, want_qvalid,
+                                                 tmeta, w=w)
+    deq_equal = (torch.equal(planes.view(torch.int32),
+                             want_planes.view(torch.int32))
+                 and torch.equal(bare_planes.view(torch.int32),
+                                 want_planes.view(torch.int32))
+                 and torch.equal(qvalid, want_qvalid)
+                 and torch.equal(bare_qvalid, want_qvalid)
+                 and all(torch.equal(g.view(torch.int32),
+                                     x.view(torch.int32))
+                         for g, x in zip(boxes, want_boxes)))
+    errors = (max(float((g.double() - x.double()).abs().max())
+                  for g, x in zip((planes, *boxes), (want_planes, *want_boxes))),
+              int((jlist.to(torch.int64) - want_jlist.to(torch.int64))
+                  .abs().max()))
+    return planes, qvalid, boxes, jlist, errors, (
+        deq_equal, bool(torch.equal(jlist, want_jlist)))
+
+
 def phase_kernel_vs_plain(corpus_dir, device):
-    """Kernel and plain version on one real chunk; returns the kernel's
-    JSON record (launches filled in later)."""
+    """The banded chunk's three kernels and their plain versions on one
+    real q13 chunk, then dequant_boxes and band_jlist over every band
+    width on both wires; returns the kernels' JSON records (launches
+    filled in later)."""
     import numpy as np
     import torch
 
-    from rustsasa_tpu_torch.ops import engine, fused_kernel as fk
+    from rustsasa_tpu_torch.ops import _kernels, engine, fused_kernel as fk
+    from rustsasa_tpu_torch.scripts import _study
     from rustsasa_tpu_torch.scripts._study import load_corpus
 
     triples = load_corpus(corpus_dir, slots=CHECK_CHUNK_SLOTS)
@@ -358,10 +465,22 @@ def phase_kernel_vs_plain(corpus_dir, device):
     h2d_ms, _ = cuda_ms(
         lambda: fk.to_device((wa, wb, pal, tp, tm), device), 3
     )
-    deq_ms, (planes, qvalid) = cuda_ms(lambda: fk.dequant_q13(*wire[:4]), 3)
-    cull_ms, jlist = cuda_ms(
-        lambda: fk.build_jlist_banded(planes, qvalid, wire[4], w=w), 3
-    )
+    planes, qvalid, boxes, jlist, (deq_err, band_err), (deq_eq, band_eq) = (
+        band_vs_plain("q13", wire[:4], wire[4], w))
+    # Device time (a CUDA graph of the calls) and the time of calls back
+    # to back, which holds the host's enqueue where it is the longer.
+    deq_ms = graph_ms(lambda: _kernels.dequant_q13(*wire[:4]), 20)
+    deq_call_ms, _ = cuda_ms(lambda: _kernels.dequant_q13(*wire[:4]), 10)
+    deq_plain_ms, _ = cuda_ms(
+        lambda: fk._with_boxes(fk.dequant_q13_reference)(*wire[:4]), 3)
+    band_ms = graph_ms(
+        lambda: _kernels.band_jlist(planes, qvalid, wire[4], boxes, w), 20)
+    band_call_ms, _ = cuda_ms(
+        lambda: _kernels.band_jlist(planes, qvalid, wire[4], boxes, w), 10)
+    plain_boxes = fk.tile_boxes_reference(planes, qvalid)
+    band_plain_ms, _ = cuda_ms(
+        lambda: fk.build_jlist_banded_reference(planes, qvalid, wire[4], w=w,
+                                                boxes=plain_boxes), 3)
     kernel_ms, got = cuda_ms(lambda: fk.fused_counts(planes, jlist, sphere), 10)
     plain_ms, want = cuda_ms(
         lambda: fk.fused_counts_reference(planes, jlist, sphere), 1
@@ -382,6 +501,7 @@ def phase_kernel_vs_plain(corpus_dir, device):
     groups = int(((masks[..., None] >> torch.arange(16, device=device)) & 1).sum())
     margins = groups * 8 * 128 * sphere.shape[0]
     rate = 7 * margins / (kernel_ms * 1e-3)
+    deq_bound, band_bound = band_bounds("q13", m, w)
     log(f"[kernel] chunk: {len(triples)} structures, {n_atoms} atoms, "
         f"{m} slots ({m // 128} tiles), w={w}, full chunk on both sides, "
         f"{j_per_tile:.2f} j-tiles/tile, {groups * 8 / (m // 128):.1f} "
@@ -391,14 +511,65 @@ def phase_kernel_vs_plain(corpus_dir, device):
         f"all slots equal: {all_equal}")
     log(f"[kernel] {margins / 1e9:.3f}G margins x 7 FP32 instructions = "
         f"{rate / 1e12:.2f}T instructions/s")
-    log(f"[kernel] same chunk, other stages: h2d (pinned) {h2d_ms:.3f} ms, "
-        f"dequant {deq_ms:.3f} ms, banded cull {cull_ms:.3f} ms")
+    log(f"[kernel] dequant_boxes {deq_ms:.4f} ms in a CUDA graph, "
+        f"{deq_call_ms:.4f} ms a call back to back (bound {deq_bound[0]:.4f} "
+        f"ms, {deq_bound[1]}; {deq_bound[0] / deq_ms:.3f} of it), plain torch "
+        f"{deq_plain_ms:.3f} ms; planes, qvalid and boxes bit-equal: "
+        f"{deq_eq}")
+    log(f"[kernel] band_jlist {band_ms:.4f} ms in a CUDA graph, "
+        f"{band_call_ms:.4f} ms a call (bound {band_bound[0]:.4f} ms, "
+        f"{band_bound[1]}; {band_bound[0] / band_ms:.3f} of it), plain torch "
+        f"{band_plain_ms:.3f} ms; j-lists byte-equal in all 128 columns: "
+        f"{band_eq}")
+    log(f"[kernel] same chunk, h2d (pinned) {h2d_ms:.3f} ms; the banded "
+        f"chunk's device stages {deq_ms + band_ms + kernel_ms:.3f} ms")
     if max_err != 0:
         raise AssertionError(f"kernel disagrees with plain at real slots: {max_err}")
     if not np.isfinite(kernel_ms) or int(got[real].min()) < 0:
         raise AssertionError("kernel produced no valid counts")
-    return record("fused_count", None, max_err, kernel_ms, plain_ms, kernel_ms,
-                  count_bound(margins, 7, m, sphere.shape[0]))
+    if not (deq_eq and band_eq):
+        raise AssertionError("the dequant or cull kernel disagrees with its "
+                             "plain version on the check chunk")
+
+    # Every band width on both wires, on seeded synthetic structures
+    # (a 3-atom one, two tiles of padding, bands past both chunk ends).
+    for bw in fk.W_BUCKETS:
+        structures = _study.band_structures(bw, seed=bw)
+        nt = max(-(-st[0].shape[0] // 128) for st in structures)
+        if next(b for b in fk.W_BUCKETS if b >= nt) != bw:
+            raise AssertionError(f"w={bw}: the structures take another band")
+        for wire_name in ("q13", "q16"):
+            arrays, tmeta, _ = _study.band_chunk_wire(structures, wire_name)
+            arrays = fk.to_device(arrays, device)
+            tmeta = fk.to_device((tmeta,), device)[0]
+            _, _, _, jl, _, (d_eq, b_eq) = band_vs_plain(wire_name, arrays,
+                                                         tmeta, bw)
+            dequant = getattr(fk, f"dequant_boxes_{wire_name}")
+
+            def deq_cull():
+                p, q, bx = dequant(*arrays)
+                return fk.build_jlist_banded(p, q, tmeta, w=bw, boxes=bx)
+
+            sweep_ms, _ = cuda_ms(deq_cull, 3)
+            t = tmeta.shape[0]
+            j = ((jl[:, 1:].to(torch.int64) & 0xFFFF) ^ 0x8000) - 0x8000
+            outside = int(((j < 0) | (j >= t)).sum())
+            log(f"[kernel] sweep w={bw:3d} {wire_name}: {len(structures)} "
+                f"structures ({', '.join(str(st[0].shape[0]) for st in structures)} "
+                f"atoms), {t} tiles; dequant bit-equal {d_eq}, j-lists "
+                f"byte-equal {b_eq}; {outside} entries past the chunk's "
+                f"ends; dequant + cull {sweep_ms:.4f} ms")
+            if not (d_eq and b_eq) or not outside:
+                raise AssertionError(f"w={bw} {wire_name}: kernels disagree "
+                                     "with their plain versions")
+    return [
+        record("fused_count", None, max_err, kernel_ms, plain_ms, kernel_ms,
+               count_bound(margins, 7, m, sphere.shape[0])),
+        dict(record("dequant_boxes", None, deq_err, deq_ms, deq_plain_ms,
+                    kernel_ms, deq_bound), call_ms=deq_call_ms),
+        dict(record("band_jlist", None, band_err, band_ms, band_plain_ms,
+                    kernel_ms, band_bound), call_ms=band_call_ms),
+    ]
 
 
 def phase_golden(device, sample_dir, work):
@@ -452,8 +623,9 @@ def phase_golden(device, sample_dir, work):
 def phase_main_path(device):
     """The main path through the port's bench (`rustsasa_tpu_torch.bench`,
     called as a function): one warm and five timed passes over the
-    proteome-equivalent corpus, then the quality gate; returns the count
-    kernel's launches in the last timed pass."""
+    proteome-equivalent corpus, then the quality gate; returns the three
+    main-path kernels' launches in the last timed pass ({name: n}) and
+    the median pass."""
     from rustsasa_tpu_torch import bench
     from rustsasa_tpu_torch.native import pipe_library
 
@@ -472,6 +644,17 @@ def phase_main_path(device):
     if launches != record["chunks"] or 0 in launches:
         raise AssertionError(
             f"{launches} launches for {record['chunks']} chunks")
+    # One dequant_boxes a chunk on the banded and host-cull q16 wires, one
+    # band_jlist a banded chunk.
+    for band, routes in zip(record["band_launches"], record["routes"]):
+        banded = routes["q13"] + routes["q16"]
+        if not banded or band != {
+                "dequant_boxes": banded + routes["host_q16"],
+                "band_jlist": banded}:
+            raise AssertionError(f"band launches {band} for routes {routes}")
+    log(f"[main] routes of the last pass {record['routes'][-1]}; "
+        f"dequant_boxes and band_jlist launches in each pass "
+        f"{[list(b.values()) for b in record['band_launches']]}")
     # The bench's default engine ("cuda") deals over every visible card.
     import torch
 
@@ -489,7 +672,8 @@ def phase_main_path(device):
     with open(os.path.join(WORK, "out", outputs[0]), encoding="utf-8") as f:
         if not json.load(f):
             raise AssertionError(f"empty output {outputs[0]}")
-    return launches[-1], record["median"]
+    return {"fused_count": launches[-1],
+            **record["band_launches"][-1]}, record["median"]
 
 
 def phase_list_kernel(device, build_logs):
@@ -760,6 +944,8 @@ def phase_count_studies(corpus_dir, device):
     plain version and fused_count on a corpus chunk, then both studies'
     run() at full size, kernels only, with the launches of those runs.
     Returns the three kernels' records."""
+    import torch
+
     from rustsasa_tpu_torch.ops import _kernels, engine, fused_kernel as fk
     from rustsasa_tpu_torch.scripts import _study
     from rustsasa_tpu_torch.scripts import r4_saturation as r4
@@ -775,7 +961,13 @@ def phase_count_studies(corpus_dir, device):
         triples, device, CHECK_CHUNK_SLOTS)
     build_ms = {}
     build_ms["banded"], jlist = cuda_ms(
+        lambda: fk.build_jlist_banded_reference(planes, qvalid, tm, w=r5.W),
+        3)
+    build_ms["banded_kernel"], jlist_kernel = cuda_ms(
         lambda: fk.build_jlist_banded(planes, qvalid, tm, w=r5.W), 3)
+    if not torch.equal(jlist_kernel, jlist):
+        raise AssertionError("band_jlist differs from the plain builder on "
+                             "the studies' chunk")
     build_ms["banded_2h"], (jlist_a, jmask_b) = cuda_ms(
         lambda: r5.build_jlist_banded_2h(planes, qvalid, tm, w=r5.W), 3)
     build_ms["nibble"], (jl, w1, w2) = cuda_ms(
@@ -873,6 +1065,9 @@ def phase_count_studies(corpus_dir, device):
         for name, v in result["variants"].items():
             if v["max_dcount"] != 0:
                 raise AssertionError(f"full size: {name} differs from prod")
+    if not pair["kernel_equal"]:
+        raise AssertionError("full size: band_jlist differs from the plain "
+                             "builder")
     for name in records:
         records[name]["launches"] = launches[name]
         if launches[name] == 0:
@@ -1360,7 +1555,8 @@ def phase_scale_out(device, corpus_dir, main_median, smi):
     n_files = len(os.listdir(corpus_dir))
     if len(one) != n_files:
         raise AssertionError(f"phase 4 left {len(one)} outputs")
-    launches = {"fused_count": {}, "list_occlusion": {}}
+    launches = {"fused_count": {}, "list_occlusion": {},
+                **{k: {} for k in BAND_KERNELS}}
 
     # 1. Device list: chunks dealt to two streams of the card.
     options = SASAOptions(level=Level.RESIDUE)
@@ -1375,7 +1571,9 @@ def phase_scale_out(device, corpus_dir, main_median, smi):
                                 progress=False, engine=eng)
         walls.append(time.perf_counter() - t0)
         n_launch = _kernels.launch_counts["fused_count"]
+        band = {k: _kernels.launch_counts[k] for k in BAND_KERNELS}
     entries = eng.routes.entries
+    routes = eng.routes.counts
     log(f"[scale-out] two streams on {device}: {rep.n_ok}/{rep.n_files} "
         f"files in {walls[0]:.3f}s, then {walls[1]:.3f}s (phase 4's "
         f"one-stream median {main_median:.3f}s); chunks per entry "
@@ -1387,7 +1585,13 @@ def phase_scale_out(device, corpus_dir, main_median, smi):
         raise AssertionError(f"entries {entries}, {n_launch} launches")
     if read_outputs(out_dir) != one:
         raise AssertionError("two streams: outputs differ from one stream")
+    banded = routes["q13"] + routes["q16"]
+    if band != {"dequant_boxes": banded + routes["host_q16"],
+                "band_jlist": banded}:
+        raise AssertionError(f"two streams: {band} for routes {routes}")
     launches["fused_count"]["two_streams"] = n_launch
+    for k in BAND_KERNELS:
+        launches[k]["two_streams"] = band[k]
     log(f"[scale-out] two-stream outputs byte-equal to phase 4's "
         f"one-stream pass ({n_files} files)")
 
@@ -1418,6 +1622,8 @@ def phase_scale_out(device, corpus_dir, main_median, smi):
     if read_outputs(out_dir) != one:
         raise AssertionError("two ranks: outputs differ from one process")
     launches["fused_count"]["two_ranks"] = sum(rank_launches)
+    for k in BAND_KERNELS:
+        launches[k]["two_ranks"] = sum(r["launches"][k] for r in reports)
     log(f"[scale-out] every input written once by the two ranks, "
         f"byte-equal to one process")
 
@@ -1480,6 +1686,8 @@ def phase_scale_out(device, corpus_dir, main_median, smi):
             len(devices)):
         raise AssertionError(f"dryrun launches {dry}")
     launches["fused_count"]["dryrun"] = dry["fused_count"]
+    for k in BAND_KERNELS:
+        launches[k]["dryrun"] = dry[k]
     launches["list_occlusion"]["dryrun"] = dry["list_occlusion"]
     log(f"[scale-out] phase 14 took {time.perf_counter() - t_phase:.1f}s")
     return launches
@@ -1490,7 +1698,8 @@ def phase_profilers(device, corpus_dir, smi):
     run() at the reference script's size on "cuda", with kernel 1's
     launches counted from 0 around each; then kernel 1 against its plain
     version on q12 planes and atombox j-lists, inputs no earlier phase
-    feeds it.  Returns {path: fused_count launches}."""
+    feeds it.  Returns {kernel: {path: launches}} for the main path's
+    three kernels."""
     import numpy as np
     import torch
 
@@ -1503,14 +1712,18 @@ def phase_profilers(device, corpus_dir, smi):
 
     t_phase = time.perf_counter()
     launches = {}
+    band = {k: {} for k in BAND_KERNELS}
 
     def counted(path, fn):
         _kernels.reset_launch_counts()
         t0 = time.perf_counter()
         result = fn()
         launches[path] = _kernels.launch_counts["fused_count"]
+        for k in BAND_KERNELS:
+            band[k][path] = _kernels.launch_counts[k]
         log(f"[profilers] {path}: {time.perf_counter() - t0:.1f}s, "
-            f"{launches[path]} fused_count launches")
+            f"{launches[path]} fused_count launches, "
+            + ", ".join(f"{band[k][path]} {k}" for k in BAND_KERNELS))
         return result
 
     def show(path, lines):
@@ -1568,7 +1781,7 @@ def phase_profilers(device, corpus_dir, smi):
         name = study.__name__.rsplit(".", 1)[1]
         r = counted(name, lambda: study.run(corpus_dir))
         show(name, r["lines"])
-        if launches.pop(name):
+        if launches.pop(name) or any(band[k].pop(name) for k in band):
             raise AssertionError(f"{name} launched a kernel")
 
     # Kernel 1 on the studies' inputs, against its plain version.
@@ -1603,7 +1816,7 @@ def phase_profilers(device, corpus_dir, smi):
     if idle:
         raise AssertionError(f"fused_count did not launch in {idle}")
     log(f"[profilers] phase 15 took {time.perf_counter() - t_phase:.1f}s")
-    return launches
+    return {"fused_count": launches, **band}
 
 
 def main() -> int:
@@ -1638,9 +1851,11 @@ def main() -> int:
         os.symlink(os.path.realpath(os.path.join(corpus_dir, name)),
                    os.path.join(sample_dir, name))
 
-    count = phase_kernel_vs_plain(corpus_dir, device)
+    main_records = phase_kernel_vs_plain(corpus_dir, device)
     phase_golden(device, sample_dir, WORK)
-    count["launches"], main_median = phase_main_path(device)
+    main_launches, main_median = phase_main_path(device)
+    for rec in main_records:
+        rec["launches"] = main_launches[rec["name"]]
     listed = phase_list_kernel(device, build_logs)
     listed["launches"] = phase_list_path(device)
     phase_host_cull(device, WORK)
@@ -1651,13 +1866,15 @@ def main() -> int:
     phase_trajectory(device, smi)
     phase_quality_gate(device, smi)
     scale_out = phase_scale_out(device, corpus_dir, main_median, smi)
-    count["scale_out_launches"] = scale_out["fused_count"]
     listed["scale_out_launches"] = scale_out["list_occlusion"]
-    count["profilers_launches"] = phase_profilers(device, corpus_dir, smi)
+    profilers = phase_profilers(device, corpus_dir, smi)
+    for rec in main_records:
+        rec["scale_out_launches"] = scale_out[rec["name"]]
+        rec["profilers_launches"] = profilers[rec["name"]]
     log(f"[smoke] fifteen phases in {time.perf_counter() - t_start:.1f}s")
     log(smi)
-    print(json.dumps({"kernels": [count, listed, *studies, *studies_ii,
-                                  *experiments]}))
+    print(json.dumps({"kernels": [*main_records, listed, *studies,
+                                  *studies_ii, *experiments]}))
     print(json.dumps({
         "ok": True,
         "device": {

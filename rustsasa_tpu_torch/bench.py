@@ -17,8 +17,10 @@ Prints exactly one JSON line: bench.py's keys (`value` the median pass
 in seconds, `vs_baseline` against RustSASA's 5.237 s on an 8-core M3),
 plus the package, backend, device, the card's `nvidia-smi` name and
 power limit, the five pass times in order, their median and spread
-((max - min) / median), the count kernel's launches in each pass and
-the chunks each device entry took in each pass (`entries`).
+((max - min) / median), the count kernel's launches in each pass, the
+banded chunk's dequant and cull kernels' launches in each pass
+(`band_launches`: `dequant_boxes`, `band_jlist`), the chunks each route
+took in each pass (`routes`) and each device entry (`entries`).
 `RUSTSASA_TPU_PROFILE=1` logs each pass's host stage split to stderr.
 """
 
@@ -114,6 +116,7 @@ def run(device="cuda", work_dir=WORK_DIR, say=log) -> dict:
 
     options = SASAOptions(level=Level.RESIDUE, device=device)
     times, launches, chunks, entries, n_ok = [], [], [], [], []
+    band_launches, routes = [], []
     n_errors = 0
     backend = None
     warm_s = None
@@ -145,6 +148,9 @@ def run(device="cuda", work_dir=WORK_DIR, say=log) -> dict:
         launches.append(n_launch)
         chunks.append(engine.chunks_dispatched)
         entries.append(list(engine.routes.entries))
+        band_launches.append({k: _kernels.launch_counts[k]
+                              for k in ("dequant_boxes", "band_jlist")})
+        routes.append(dict(engine.routes.counts))
         n_ok.append(report.n_ok)
         n_errors += len(report.errors)
     median = statistics.median(times)
@@ -186,6 +192,8 @@ def run(device="cuda", work_dir=WORK_DIR, say=log) -> dict:
         "spread": (max(times) - min(times)) / median,
         "fused_count_launches": launches,
         "chunks": chunks,
+        "band_launches": band_launches,
+        "routes": routes,
         "entries": entries,
     }
 

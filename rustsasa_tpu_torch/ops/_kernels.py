@@ -15,12 +15,14 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import threading
 import time
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -72,7 +74,7 @@ launch_counts = {
     "fused_count": 0, "list_occlusion": 0, "pair64_count": 0,
     "nibble_count": 0, "saturation_count": 0, "micro_count": 0,
     "reach_count": 0, "maxplus_count": 0, "ke_stream": 0, "ke_maxplus": 0,
-    "ke_bf16": 0, "ke_mxu": 0,
+    "ke_bf16": 0, "ke_mxu": 0, "dequant_boxes": 0, "band_jlist": 0,
 }
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
@@ -80,7 +82,7 @@ _launchers: dict = {}
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
-# C signature of each kernel's launch function, by source name.
+# C signature of each kernel's launch function <name>_launch, by name.
 _SIGNATURES = {
     "fused_count": [_VOIDP] * 4 + [_INT] * 2 + [_VOIDP],
     "list_occlusion": [_VOIDP] * 9 + [_INT] * 6 + [_VOIDP],
@@ -91,7 +93,32 @@ _SIGNATURES = {
     "reach_count": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
     "maxplus_count": [_VOIDP] * 4 + [_INT] * 2 + [_VOIDP],
     **{name: [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP] for name in KE_VARIANTS},
+    "dequant_boxes": [_INT] + [_VOIDP] * 12 + [_INT, _VOIDP],
+    "band_jlist": [_VOIDP] * 10 + [_INT] * 2 + [_VOIDP],
 }
+# The source (csrc/<source>.cu) of each launch function not named after
+# its own; every source builds to one library.
+_SOURCE_OF = {"dequant_boxes": "band_cull", "band_jlist": "band_cull"}
+SOURCES = tuple(dict.fromkeys(_SOURCE_OF.get(n, n) for n in _SIGNATURES))
+# dequant_boxes' wire codes (csrc/band_cull.cu Wire).
+WIRES = ("q13", "q16", "planes")
+# Largest band width band_jlist takes (fused_kernel.JLIST_CAP), and the
+# most slots: the gid plane holds slot + 1 as an exact f32.
+MAX_BAND_W = 127
+MAX_BAND_SLOTS = 1 << 24
+
+
+class Boxes(NamedTuple):
+    """The banded cull's boxes of a chunk of T tiles: each tile's 8-atom
+    groups' min and max corners [T, 16, 3] and largest r_eff [T, 16],
+    and the tile's [T, 3] and [T] (padding slots count as +3e4 / -3e4
+    and r_eff 0)."""
+    gmin: torch.Tensor
+    gmax: torch.Tensor
+    gmaxr: torch.Tensor
+    tmin: torch.Tensor
+    tmax: torch.Tensor
+    tmaxr: torch.Tensor
 
 
 @dataclass(frozen=True)
@@ -163,7 +190,7 @@ def build() -> dict[str, BuildInfo]:
     out = {}
     procs = {}
     t0 = time.perf_counter()
-    for name in _SIGNATURES:
+    for name in SOURCES:
         target = _target(name)
         if os.path.exists(target):
             with open(target + ".log", encoding="utf-8") as f:
@@ -237,14 +264,15 @@ def build_sources(stem: str, sources: dict[str, str], fn_name: str,
 def _library(name: str):
     with _build_lock:
         if name not in _launchers:
-            for lib_name, info in build().items():
-                if lib_name in _launchers:
+            built = build()
+            for fn_name, argtypes in _SIGNATURES.items():
+                if fn_name in _launchers:
                     continue
-                lib = ctypes.CDLL(info.path)
-                fn = getattr(lib, f"{lib_name}_launch")
-                fn.argtypes = _SIGNATURES[lib_name]
+                lib = ctypes.CDLL(built[_SOURCE_OF.get(fn_name, fn_name)].path)
+                fn = getattr(lib, f"{fn_name}_launch")
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-                _launchers[lib_name] = fn
+                _launchers[fn_name] = fn
         return _launchers[name]
 
 
@@ -506,3 +534,156 @@ def list_occlusion(vx, vy, vz, limit, area, sphere, tile_kmax):
             None if counts is None else counts.data_ptr(), out.data_ptr(),
             n, k, p, blocks, pb, hp)
     return out
+
+
+def _band_slots(m: int) -> None:
+    if m == 0 or m % 128 or m >= MAX_BAND_SLOTS:
+        raise ValueError(f"{m} slots: need a positive multiple of 128 "
+                         f"under {MAX_BAND_SLOTS}")
+
+
+def _check_shape(name, t, shape):
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+
+
+def _on_cuda(name, device):
+    """The last check before a launch: shapes and types are checked on
+    any device, so the CPU tests reach them."""
+    if device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {device}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _box_shapes(t):
+    return ((t, 16, 3), (t, 16, 3), (t, 16), (t, 3), (t, 3), (t,))
+
+
+def _dequant_outputs(wire, m, device, boxes=True):
+    """dequant_boxes' outputs for `wire` (one of WIRES) over m slots, as
+    views of one buffer -> (planes [8, m] f32, qvalid [m] bool, Boxes):
+    planes and qvalid None for "planes" (which reads them), the boxes
+    None unless `boxes`.  Each f32 view starts on a 64-byte boundary."""
+    shapes = [] if wire == "planes" else [(8, m)]
+    if boxes:
+        shapes += _box_shapes(m // 128)
+    sizes = [math.prod(shape) for shape in shapes]
+    spans = [-(-n // 16) * 16 for n in sizes]
+    floats = 4 * sum(spans)
+    buf = torch.empty(floats + (0 if wire == "planes" else m),
+                      dtype=torch.uint8, device=device)
+    views = [span[:n].view(shape) for span, n, shape in zip(
+        buf[:floats].view(torch.float32).split(spans), sizes, shapes)]
+    planes = qvalid = None
+    if wire != "planes":
+        planes = views.pop(0)
+        qvalid = buf[floats:].view(torch.bool)
+    return planes, qvalid, Boxes(*views) if boxes else None
+
+
+def _dequant_boxes(wire, in0, in1, palette=None, tparams=None, *,
+                   boxes=True):
+    """Allocate the outputs of `wire` and launch dequant_boxes ->
+    _dequant_outputs' (planes, qvalid, Boxes)."""
+    device = in0.device
+    m = in0.shape[-1]
+    planes, qvalid, out = _dequant_outputs(wire, m, device, boxes)
+    ptrs = (None,) * 6 if out is None else (b.data_ptr() for b in out)
+    _launch("dequant_boxes", device, WIRES.index(wire), _ptr(in0), _ptr(in1),
+            _ptr(palette), _ptr(tparams), _ptr(planes), _ptr(qvalid), *ptrs,
+            m)
+    return planes, qvalid, out
+
+
+def dequant_q13(wire_a, wire_b, palette, tparams, *, boxes=True):
+    """Launch dequant_boxes on the q13 wire -> (planes [8, M] f32, qvalid
+    [M] bool, Boxes, or None where `boxes` is false and none are
+    written).
+
+    wire_a [M] i32 (the u32 words), wire_b [M] i16 (the u16 words),
+    palette [256] f32, tparams [M/128, 4] f32 (origin x, y, z, scale),
+    contiguous on one CUDA device; 0 < M < 2^24, M % 128 == 0.
+    """
+    device = wire_a.device
+    _check("wire_a", wire_a, torch.int32, 1, device)
+    _check("wire_b", wire_b, torch.int16, 1, device)
+    _check("palette", palette, torch.float32, 1, device)
+    _check("tparams", tparams, torch.float32, 2, device)
+    m = wire_a.shape[0]
+    _band_slots(m)
+    _check_shape("wire_b", wire_b, (m,))
+    _check_shape("palette", palette, (256,))
+    _check_shape("tparams", tparams, (m // 128, 4))
+    _on_cuda("dequant_boxes", device)
+    return _dequant_boxes("q13", wire_a, wire_b, palette, tparams,
+                          boxes=boxes)
+
+
+def dequant_q16(planes4, tparams, *, boxes=True):
+    """Launch dequant_boxes on the q16 wire -> (planes [8, M] f32, qvalid
+    [M] bool, Boxes or None), as dequant_q13.
+
+    planes4 [4, M] i16 (the u16 qx, qy, qz, qr), tparams [M/128, 4] f32,
+    contiguous on one CUDA device; 0 < M < 2^24, M % 128 == 0.
+    """
+    device = planes4.device
+    _check("planes4", planes4, torch.int16, 2, device)
+    _check("tparams", tparams, torch.float32, 2, device)
+    m = planes4.shape[1]
+    _band_slots(m)
+    _check_shape("planes4", planes4, (4, m))
+    _check_shape("tparams", tparams, (m // 128, 4))
+    _on_cuda("dequant_boxes", device)
+    return _dequant_boxes("q16", planes4, None, None, tparams, boxes=boxes)
+
+
+def _planes_qvalid(planes, qvalid):
+    device = planes.device
+    _check("planes", planes, torch.float32, 2, device)
+    _check("qvalid", qvalid, torch.bool, 1, device)
+    m = planes.shape[1]
+    _band_slots(m)
+    if planes.shape[0] < 4:
+        raise ValueError(f"planes shape {tuple(planes.shape)} unsupported")
+    _check_shape("qvalid", qvalid, (m,))
+    return device, m
+
+
+def tile_boxes(planes, qvalid):
+    """Launch dequant_boxes on dequantized planes -> Boxes.
+
+    planes [>= 4, M] f32 (rows x, y, z, r_eff read), qvalid [M] bool,
+    contiguous on one CUDA device; 0 < M < 2^24, M % 128 == 0.
+    """
+    device, _m = _planes_qvalid(planes, qvalid)
+    _on_cuda("dequant_boxes", device)
+    return _dequant_boxes("planes", planes, qvalid)[2]
+
+
+def band_jlist(planes, qvalid, tmeta, boxes, w: int):
+    """Launch band_jlist -> [M/128, 128] i32 j-lists, byte-equal to
+    fused_kernel.build_jlist_banded_reference.
+
+    planes [>= 4, M] f32, qvalid [M] bool, tmeta [M/128, 2] i32 (first
+    tile of each tile's structure, its tiles), boxes the Boxes of those
+    planes (dequant_boxes), all contiguous on one CUDA device; 0 < M <
+    2^24, M % 128 == 0, 1 <= w <= 127.
+    """
+    device, m = _planes_qvalid(planes, qvalid)
+    t = m // 128
+    _check("tmeta", tmeta, torch.int32, 2, device)
+    _check_shape("tmeta", tmeta, (t, 2))
+    for name, b, shape in zip(Boxes._fields, boxes, _box_shapes(t)):
+        _check(name, b, torch.float32, len(shape), device)
+        _check_shape(name, b, shape)
+    if not 1 <= w <= MAX_BAND_W:
+        raise ValueError(f"band width {w} outside [1, {MAX_BAND_W}]")
+    _on_cuda("band_jlist", device)
+    jlist = torch.empty((t, 128), dtype=torch.int32, device=device)
+    _launch("band_jlist", device, planes.data_ptr(), qvalid.data_ptr(),
+            tmeta.data_ptr(), *(b.data_ptr() for b in boxes),
+            jlist.data_ptr(), m, w)
+    return jlist

@@ -5,11 +5,16 @@ Port of `rustsasa_tpu/ops/fused_kernel.py`: the banded q13 and q16 wires
 cannot take (q16 with host j-lists, and the f32 planes with real group
 ids).  The host halves (packers) are the reference's numpy spec copied
 verbatim, because the reference module imports JAX at its top; a test
-pins the copies to the originals.  The device half is plain torch except
-the occlusion count, which is a hand-written CUDA kernel
-(`csrc/fused_count.cu`, bound in `_kernels.py`) replacing the Pallas
-`_fused_count_kernel`.  `fused_counts_reference` is its plain-torch
-version: the CPU path and the kernel's reference on the card.
+pins the copies to the originals.  On the card a banded chunk runs three
+hand-written CUDA kernels (bound in `_kernels.py`), where the reference
+runs one jit: `dequant_boxes` (`csrc/band_cull.cu`: the wire dequant and
+the cull's boxes), `band_jlist` (the same source: the banded cull and its
+nearest-first compaction) and the occlusion count (`csrc/fused_count.cu`,
+replacing the Pallas `_fused_count_kernel`).  Each has its plain-torch
+version here (`dequant_q13_reference`, `dequant_q16_reference`,
+`tile_boxes_reference`, `build_jlist_banded_reference`,
+`fused_counts_reference`): the CPU path, and the kernels' reference on
+the card.
 
 Counts are held byte-exact against the reference at every real atom
 slot, so every float expression below keeps the reference's operation
@@ -494,8 +499,8 @@ def _planes(q3, r_eff, qvalid, tparams):
     return planes
 
 
-def dequant_q13(wire_a, wire_b, palette, tparams):
-    """q13 wire -> (planes [N_PLANES, M] f32, qvalid [M] bool).
+def dequant_q13_reference(wire_a, wire_b, palette, tparams):
+    """q13 wire -> (planes [N_PLANES, M] f32, qvalid [M] bool), plain torch.
 
     Port of the dequant in the reference's fused_sasa_q13_banded.  The
     palette lookup is a gather, exact like the reference's select-sum.
@@ -512,11 +517,37 @@ def dequant_q13(wire_a, wire_b, palette, tparams):
     return _planes(q3, palette[ridx], qvalid, tparams), qvalid
 
 
-def dequant_q16(planes4, tparams):
-    """q16 wire -> (planes [N_PLANES, M] f32, qvalid [M] bool)."""
+def dequant_q16_reference(planes4, tparams):
+    """q16 wire -> (planes [N_PLANES, M] f32, qvalid [M] bool), plain
+    torch."""
     q = (planes4.to(torch.int64) & 0xFFFF).to(torch.float32)
     qvalid = q[3] > 0.0
     return _planes(q[0:3], q[3] * (1.0 / R_QUANT), qvalid, tparams), qvalid
+
+
+Boxes = _kernels.Boxes
+
+
+def tile_boxes_reference(planes, qvalid):
+    """The banded cull's boxes of planes [>= 4, M] f32 -> Boxes: each
+    tile's 8-atom groups' min / max corners and largest r_eff, and the
+    tile's, padding slots at +3e4 / -3e4 and r_eff 0 (the reductions at
+    the head of the reference's build_jlist_banded)."""
+    m = planes.shape[1]
+    t = m // ATOM_TILE
+    ng = t * GROUPS_PER_TILE
+    big = 3e4
+    c = planes[0:3].T  # [M, 3]
+    qv = qvalid[:, None]
+    gmin = torch.where(qv, c, big).reshape(ng, J_GROUP, 3).amin(dim=1)
+    gmax = torch.where(qv, c, -big).reshape(ng, J_GROUP, 3).amax(dim=1)
+    gmaxr = torch.where(qvalid, planes[3], 0.0).reshape(ng, J_GROUP).amax(
+        dim=1)
+    gmin = gmin.reshape(t, GROUPS_PER_TILE, 3)
+    gmax = gmax.reshape(t, GROUPS_PER_TILE, 3)
+    gmaxr = gmaxr.reshape(t, GROUPS_PER_TILE)
+    return Boxes(gmin, gmax, gmaxr, gmin.amin(dim=1), gmax.amax(dim=1),
+                 gmaxr.amax(dim=1))
 
 
 def _sum3(x):
@@ -524,7 +555,7 @@ def _sum3(x):
     return (x[..., 0] + x[..., 1]) + x[..., 2]
 
 
-def band_boxes(planes, qvalid, tmeta, *, w: int):
+def band_boxes(planes, qvalid, tmeta, *, w: int, boxes=None):
     """The banded cull's tile-pair stage and the fine stage's inputs.
 
     For the nd = 2w-1 offsets d in (-w, w) of every i-tile's own tile
@@ -538,24 +569,16 @@ def band_boxes(planes, qvalid, tmeta, *, w: int):
       group boxes (gmin, gmax [T + 2(w-1), 16, 3], gmaxr [T + 2(w-1), 16]):
         every tile's 8-atom-group boxes and largest r_eff, zero-padded by
         w-1 tiles on both sides, so offset d's j-tiles are rows d:d+T.
+    `boxes` (Boxes) are the planes' own, reduced here when None.
     """
     m = planes.shape[1]
     t = m // ATOM_TILE
-    ng = t * GROUPS_PER_TILE
     dev = planes.device
     big = 3e4
     c = planes[0:3].T  # [M, 3]
-    r = planes[3]
     qv = qvalid[:, None]
-    cmin_src = torch.where(qv, c, big)
-    cmax_src = torch.where(qv, c, -big)
-    rmasked = torch.where(qvalid, r, 0.0)
-    gmin = cmin_src.reshape(ng, J_GROUP, 3).amin(dim=1)
-    gmax = cmax_src.reshape(ng, J_GROUP, 3).amax(dim=1)
-    gmaxr = rmasked.reshape(ng, J_GROUP).amax(dim=1)
-    tmin = gmin.reshape(t, GROUPS_PER_TILE, 3).amin(dim=1)
-    tmax = gmax.reshape(t, GROUPS_PER_TILE, 3).amax(dim=1)
-    tmaxr = gmaxr.reshape(t, GROUPS_PER_TILE).amax(dim=1)
+    gmin, gmax, gmaxr, tmin, tmax, tmaxr = (
+        tile_boxes_reference(planes, qvalid) if boxes is None else boxes)
 
     start = tmeta[:, 0]
     end = start + tmeta[:, 1]
@@ -584,14 +607,13 @@ def band_boxes(planes, qvalid, tmeta, *, w: int):
     reach = tmaxr[None] + shifted(tmaxr) + DEVICE_CULL_SLACK
     act = valid & (sep2 <= reach * reach)
     c_t = torch.where(qv, c, big).reshape(t, ATOM_TILE, 3)
-    r_t = rmasked.reshape(t, ATOM_TILE)
-    boxes = (padded(gmin.reshape(t, GROUPS_PER_TILE, 3)),
-             padded(gmax.reshape(t, GROUPS_PER_TILE, 3)),
-             padded(gmaxr.reshape(t, GROUPS_PER_TILE)))
-    return j, act, sep2, c_t, r_t, boxes
+    r_t = torch.where(qvalid, planes[3], 0.0).reshape(t, ATOM_TILE)
+    return j, act, sep2, c_t, r_t, (padded(gmin), padded(gmax),
+                                    padded(gmaxr))
 
 
-def band_cull(planes, qvalid, tmeta, *, w: int, halves: int = 1):
+def band_cull(planes, qvalid, tmeta, *, w: int, halves: int = 1,
+              boxes=None):
     """The banded cull shared by the device-side j-list builders.
 
     Returns band_boxes' j, act and sep2 [nd, T] and
@@ -601,7 +623,7 @@ def band_cull(planes, qvalid, tmeta, *, w: int, halves: int = 1):
         and 64-127).
     """
     j, act, sep2, c_t, r_t, (gmin_p, gmax_p, gmaxr_p) = band_boxes(
-        planes, qvalid, tmeta, w=w)
+        planes, qvalid, tmeta, w=w, boxes=boxes)
     nd, t = act.shape
     # Fine granularity: every i-atom (point + its own r_eff) against the
     # j-tile's 16 8-atom-group boxes, one offset d at a time.
@@ -649,17 +671,19 @@ def compact_rows(act, sep2, *payloads):
     return rows
 
 
-def build_jlist_banded(planes, qvalid, tmeta, *, w: int):
-    """Tile-pair culling on the device -> [T, JLIST_ROWS] i32 j-lists.
+def build_jlist_banded_reference(planes, qvalid, tmeta, *, w: int,
+                                 boxes=None):
+    """Tile-pair culling on the device -> [T, JLIST_ROWS] i32 j-lists,
+    plain torch.
 
     Port of the reference's build_jlist_banded, byte-equal to it: banded
     tile-pair AABB test over offsets d in (-w, w) within each structure's
     own tile band, per-i-atom point-to-box 8-atom-group masks, and a
     stable nearest-first sort.  Entries are built in int64 and narrowed,
     so a mask with bit 15 set wraps negative exactly as the reference's
-    int32 shift does.
+    int32 shift does.  `boxes` as in band_boxes.
     """
-    j, act, sep2, bits = band_cull(planes, qvalid, tmeta, w=w)
+    j, act, sep2, bits = band_cull(planes, qvalid, tmeta, w=w, boxes=boxes)
     mask = group_mask(bits[..., 0])  # [nd, T]
     act = act & (mask > 0)
     return compact_rows(act, sep2, (mask << 16) | j)[0]
@@ -760,6 +784,73 @@ def on_device(plain, kernel, planes, *args, **kwargs):
     return kernel(planes, *args, **kwargs)
 
 
+def _with_boxes(dequant):
+    """A plain dequant that also returns tile_boxes_reference's boxes."""
+    def plain(*wire):
+        planes, qvalid = dequant(*wire)
+        return planes, qvalid, tile_boxes_reference(planes, qvalid)
+    return plain
+
+
+def _planes_only(launcher):
+    """A dequant_boxes launcher that writes no boxes -> (planes, qvalid)."""
+    def kernel(*wire):
+        return launcher(*wire, boxes=False)[:2]
+    kernel.__name__ = launcher.__name__
+    return kernel
+
+
+def dequant_boxes_q13(wire_a, wire_b, palette, tparams):
+    """q13 wire -> (planes [N_PLANES, M] f32, qvalid [M] bool, Boxes).
+
+    CUDA tensors launch `dequant_boxes` (or raise); CPU tensors take
+    dequant_q13_reference and tile_boxes_reference.
+    """
+    return on_device(_with_boxes(dequant_q13_reference), _kernels.dequant_q13,
+                     wire_a, wire_b, palette, tparams)
+
+
+def dequant_boxes_q16(planes4, tparams):
+    """q16 wire -> (planes [N_PLANES, M] f32, qvalid [M] bool, Boxes), as
+    dequant_boxes_q13."""
+    return on_device(_with_boxes(dequant_q16_reference), _kernels.dequant_q16,
+                     planes4, tparams)
+
+
+def dequant_q13(wire_a, wire_b, palette, tparams):
+    """q13 wire -> (planes [N_PLANES, M] f32, qvalid [M] bool): the
+    `dequant_boxes` kernel on CUDA, writing no boxes, the plain version
+    on the CPU."""
+    return on_device(dequant_q13_reference, _planes_only(_kernels.dequant_q13),
+                     wire_a, wire_b, palette, tparams)
+
+
+def dequant_q16(planes4, tparams):
+    """q16 wire -> (planes [N_PLANES, M] f32, qvalid [M] bool), as
+    dequant_q13."""
+    return on_device(dequant_q16_reference, _planes_only(_kernels.dequant_q16),
+                     planes4, tparams)
+
+
+def _band_jlist(planes, qvalid, tmeta, *, w: int, boxes=None):
+    if boxes is None:
+        boxes = _kernels.tile_boxes(planes, qvalid)
+    return _kernels.band_jlist(planes, qvalid, tmeta, boxes, w)
+
+
+def build_jlist_banded(planes, qvalid, tmeta, *, w: int, boxes=None):
+    """Banded cull -> [T, JLIST_ROWS] i32 j-lists, byte-equal to
+    build_jlist_banded_reference.
+
+    planes [>= 4, M] f32, qvalid [M] bool, tmeta [T, 2] i32 and, where
+    the dequant made them, the planes' Boxes.  CUDA tensors launch
+    `band_jlist` (after `dequant_boxes` when boxes is None) or raise; CPU
+    tensors take the plain version.
+    """
+    return on_device(build_jlist_banded_reference, _band_jlist, planes,
+                     qvalid, tmeta, w=w, boxes=boxes)
+
+
 def fused_counts(planes, jlist, sphere):
     """Occlusion counts [M] i32 from planes [>= 5, M] f32 (rows x, y, z,
     r_eff, gid+1; later rows are not read), j-lists [T, JLIST_ROWS] i32
@@ -780,17 +871,21 @@ def _counts_out(counts, n_points: int):
 
 def fused_sasa_q13_banded(wire_a, wire_b, palette, tparams, tmeta, sphere,
                           *, n_points: int, w: int):
-    """6 B/slot wire + device-side culling -> per-slot occlusion counts."""
-    planes, qvalid = dequant_q13(wire_a, wire_b, palette, tparams)
-    jlist = build_jlist_banded(planes, qvalid, tmeta, w=w)
+    """6 B/slot wire + device-side culling -> per-slot occlusion counts:
+    on CUDA the dequant_boxes, band_jlist and fused_count kernels, one
+    launch each."""
+    planes, qvalid, boxes = dequant_boxes_q13(wire_a, wire_b, palette,
+                                              tparams)
+    jlist = build_jlist_banded(planes, qvalid, tmeta, w=w, boxes=boxes)
     return _counts_out(fused_counts(planes, jlist, sphere), n_points)
 
 
 def fused_sasa_q16_banded(planes4, tparams, tmeta, sphere,
                           *, n_points: int, w: int):
-    """8 B/slot wire + device-side culling -> per-slot occlusion counts."""
-    planes, qvalid = dequant_q16(planes4, tparams)
-    jlist = build_jlist_banded(planes, qvalid, tmeta, w=w)
+    """8 B/slot wire + device-side culling -> per-slot occlusion counts,
+    as fused_sasa_q13_banded."""
+    planes, qvalid, boxes = dequant_boxes_q16(planes4, tparams)
+    jlist = build_jlist_banded(planes, qvalid, tmeta, w=w, boxes=boxes)
     return _counts_out(fused_counts(planes, jlist, sphere), n_points)
 
 

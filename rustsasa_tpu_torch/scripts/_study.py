@@ -30,6 +30,13 @@ TEST_STRUCTURES = os.path.join(
 STRUCTURE_SUFFIXES = (".pdb", ".cif", ".pdb.gz", ".cif.gz")
 # FP32 instructions per margin: 3 mul, 2 add, 1 sub, 1 max.
 INSTR_PER_MARGIN = 7
+# band_structures: atoms per cubic angstrom (about a folded protein's
+# heavy atoms), the largest structure, and the tiles of padding (no real
+# atom, tmeta (0, 0)) band_chunk_wire appends.
+BAND_DENSITY = 0.1
+BAND_MAX_ATOMS = 16_000
+BAND_PAD_TILES = 2
+BAND_RADII = np.array([1.4, 1.55, 1.6, 1.7, 1.8, 1.9, 2.0], np.float32)
 
 
 def bench_corpus(corpus_dir=None) -> str:
@@ -134,6 +141,49 @@ def banded_chunk(triples, device, slots: int = M_PAD):
     atoms = sum(t[0].shape[0] for t in triples)
     return (planes, qvalid, tmeta, real_slots(offsets, slots, device), atoms,
             m // ATOM_TILE)
+
+
+def band_structures(w: int, seed: int) -> list:
+    """Seeded synthetic (coords, radii, gids) triples for band width w
+    (one of fk.W_BUCKETS): 3, 100 and 700 atoms and a largest of
+    min(128 w - 100, BAND_MAX_ATOMS), whose tiles make the engine pick
+    w; each uniform in a cube at BAND_DENSITY atoms/A^3 (at most 55 A
+    wide, so the q13 wire takes them too)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in (3, 100, 700, min(ATOM_TILE * w - 100, BAND_MAX_ATOMS)):
+        side = (n / BAND_DENSITY) ** (1.0 / 3.0)
+        coords = (rng.uniform(0.0, side, (n, 3)) + 40.0).astype(np.float32)
+        out.append((coords, rng.choice(BAND_RADII, n),
+                    np.arange(n, dtype=np.int32)))
+    return out
+
+
+def band_chunk_wire(structures, wire: str, pad_tiles: int = BAND_PAD_TILES):
+    """`structures` packed on the banded `wire` ("q13" or "q16") with
+    `pad_tiles` tiles of padding appended -> (numpy wire arrays, tmeta,
+    offsets): (wire_a, wire_b, palette, tparams) or (planes4, tparams)."""
+    pad = pad_tiles * ATOM_TILE
+
+    def slots(a):
+        return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pad)])
+
+    def tiles(a):
+        return np.pad(a, ((0, pad_tiles), (0, 0)))
+
+    if wire == "q13":
+        packed = fk.pack_structures_q13(structures, PROBE)
+        if packed is None:
+            raise ValueError("the q13 wire refuses these structures")
+        wire_a, wire_b, palette, tparams, tmeta, offsets = packed
+        arrays = (slots(wire_a), slots(wire_b), palette, tiles(tparams))
+    elif wire == "q16":
+        planes4, tparams, tmeta, offsets = fk.pack_structures_q16(structures,
+                                                                  PROBE)
+        arrays = (slots(planes4), tiles(tparams))
+    else:
+        raise ValueError(f"unknown banded wire {wire!r}")
+    return arrays, tiles(tmeta), offsets
 
 
 def _popcount16(x):

@@ -22,13 +22,18 @@ lanes stream (mean over all tiles, padding included) and the largest
 count difference to the first row.  Timings are the best of four calls
 between two CUDA events after one warm call.
 
-The row the script labels "sub32" calls the production
-`build_jlist_banded`.  Since round 4 that builder holds the same
-per-i-atom stage, reduced as a float max (`max(rr*rr - pb2) >= 0`), which
-admits exactly the same groups; so both rows give byte-equal j-lists and
-counts, and the study now measures the two reductions' cost.  As in the
-script, a structure of more than w tiles keeps only its tile pairs
-within w - 1 of each other, in both rows alike (none in the bench
+The row the script labels "sub32" calls the production builder, here its
+plain version `build_jlist_banded_reference`.  Since round 4 that builder
+holds the same per-i-atom stage, reduced as a float max (`max(rr*rr -
+pb2) >= 0`), which admits exactly the same groups; so both rows give
+byte-equal j-lists and counts, and the study measures the two
+reductions' cost in plain torch.  A third row, "kernel", times the
+production builder as the main path runs it on the card (the
+`band_jlist` kernel, plain torch on the CPU); it gives the same j-lists
+again.  Every row dequantizes with `dequant_boxes_q16` (the
+`dequant_boxes` kernel on the card); only "kernel" reads its boxes.  As
+in the script, a structure of more than w tiles keeps only its tile
+pairs within w - 1 of each other, in every row alike (none in the bench
 corpus's first 900 files has more than 29 tiles).
 
 `ATOMBOX_BLK` (environment, or `blk=`) keeps its meaning: the shifts
@@ -59,7 +64,7 @@ M_PAD = 2_097_152
 W = 32
 FILES = 900
 N_POINTS = 100
-ROWS = ("sub32", "atombox")
+ROWS = ("sub32", "atombox", "kernel")
 
 
 def build_jlist_atombox(planes, qvalid, tmeta, *, w: int, blk=None):
@@ -98,11 +103,15 @@ def build_jlist_atombox(planes, qvalid, tmeta, *, w: int, blk=None):
 
 
 def build_only(planes4, tparams, tmeta, *, w: int, fine: str, blk=None):
-    """q16 dequant, then the `fine` row's builder -> (jlist, planes)."""
-    planes, qvalid = fk.dequant_q16(planes4, tparams)
+    """q16 dequant, then the `fine` row's builder (one of ROWS) ->
+    (jlist, planes)."""
+    planes, qvalid, boxes = fk.dequant_boxes_q16(planes4, tparams)
     if fine == "atombox":
         return build_jlist_atombox(planes, qvalid, tmeta, w=w, blk=blk), planes
-    return fk.build_jlist_banded(planes, qvalid, tmeta, w=w), planes
+    if fine == "kernel":
+        return fk.build_jlist_banded(planes, qvalid, tmeta, w=w,
+                                     boxes=boxes), planes
+    return fk.build_jlist_banded_reference(planes, qvalid, tmeta, w=w), planes
 
 
 def full(planes4, tparams, tmeta, sphere, *, n_points: int, w: int,
@@ -151,8 +160,8 @@ def run(corpus_dir=None, device="cuda", *, files: int = FILES,
     "w", "rows": {row: {"build_ms", "full_ms", "matoms_s", "streamed",
     "max_dcount"}}, "jlists_equal", "counts_equal"} and where it ran
     (cpu_count, gpu_name, power_limit).  jlists_equal / counts_equal:
-    the rows' j-lists are byte-equal, and their counts at every real
-    slot."""
+    every row's j-lists are byte-equal to the first's, and its counts at
+    every real slot."""
     from ..ops import engine
 
     dev = engine.resolve_devices(device)[0]
@@ -176,12 +185,13 @@ def run(corpus_dir=None, device="cuda", *, files: int = FILES,
             "streamed": streamed_per_tile_atom(jlists[fine]),
             "max_dcount": int(d.max()) if d.numel() else 0,
         }
-    a, b = ROWS
+    a = ROWS[0]
     return {
         "structures": n, "atoms": atoms, "slots": slots, "w": w,
         "rows": rows,
-        "jlists_equal": bool(torch.equal(jlists[a], jlists[b])),
-        "counts_equal": bool(torch.equal(counts[a][real], counts[b][real])),
+        "jlists_equal": all(torch.equal(jlists[a], jlists[b]) for b in ROWS),
+        "counts_equal": all(torch.equal(counts[a][real], counts[b][real])
+                            for b in ROWS),
         **_study.where(dev),
     }
 

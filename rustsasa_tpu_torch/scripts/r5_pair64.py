@@ -16,6 +16,11 @@ count kernels on it, each of which must give kernel 1's counts exactly:
           i-tile, counted by csrc/pair64_count.cu, where atoms 0-63 stream
           mask A's groups and atoms 64-127 mask B's (TPU: `_pair64_kernel`).
 
+The builders are timed alike: the production builder's plain version
+(`build_jlist_banded_reference`, "banded"), beside the plain torch of the
+two study builders, and the production builder as the main path runs it
+("banded_kernel": the `band_jlist` kernel on the card), which must give
+"banded"'s j-lists byte for byte.
 Per variant it reports first-call and warm milliseconds, Matoms/s, the
 largest count difference to prod at real slots and the lane-weighted
 j-atoms streamed per atom (the TPU study sized per-half admission at
@@ -138,8 +143,9 @@ def run(triples, device, *, w: int = W, slots: int = _study.M_PAD,
         reps: int = 4):
     """The study on one banded q16 chunk of `slots` slots on `device`.
 
-    Returns {"structures", "atoms", "slots", "tiles", "builders": {name:
-    {"first_ms", "ms"}}, "variants": {name: {"first_ms", "ms",
+    Returns {"structures", "atoms", "slots", "tiles", "kernel_equal",
+    "builders": {name: {"first_ms", "ms"}}, "variants": {name: {"first_ms",
+    "ms",
     "matoms_s", "max_dcount", "j_atoms_per_atom", "margins"}}} with
     variants prod, nibble and pair64.  "j_atoms_per_atom" is the
     lane-weighted count of streamed j-atoms per atom over the tiles with
@@ -155,7 +161,10 @@ def run(triples, device, *, w: int = W, slots: int = _study.M_PAD,
     builders = {}
     lists = {}
     for name, build in (
-        ("banded", lambda: fk.build_jlist_banded(planes, qvalid, tmeta_d, w=w)),
+        ("banded", lambda: fk.build_jlist_banded_reference(
+            planes, qvalid, tmeta_d, w=w)),
+        ("banded_kernel", lambda: fk.build_jlist_banded(planes, qvalid,
+                                                        tmeta_d, w=w)),
         ("banded_2h", lambda: build_jlist_banded_2h(planes, qvalid, tmeta_d,
                                                     w=w)),
         ("nibble", lambda: build_jlist_nibble(planes, qvalid, tmeta_d, w=w)),
@@ -186,6 +195,7 @@ def run(triples, device, *, w: int = W, slots: int = _study.M_PAD,
     return {
         "structures": len(triples), "atoms": n_atoms, "slots": slots,
         "tiles": tiles, "builders": builders, "variants": variants,
+        "kernel_equal": bool(torch.equal(lists["banded_kernel"], jlist)),
     }
 
 
@@ -194,8 +204,10 @@ def report(result, device, head: str) -> None:
           f"atoms, {result['tiles']} tiles in M={result['slots']} slots on "
           f"{_study.device_name(device)}", flush=True)
     for name, b in result["builders"].items():
-        print(f"build {name:10s} first {b['first_ms']:9.1f} ms  warm "
+        print(f"build {name:13s} first {b['first_ms']:9.1f} ms  warm "
               f"{b['ms']:9.3f} ms", flush=True)
+    print(f"banded_kernel j-lists byte-equal to banded: "
+          f"{result['kernel_equal']}", flush=True)
     for name, v in result["variants"].items():
         rate = _study.INSTR_PER_MARGIN * v["margins"] / (v["ms"] * 1e-3)
         print(f"{name:8s} first {v['first_ms']:9.1f} ms  warm {v['ms']:9.3f} "
@@ -214,8 +226,8 @@ def main(argv=None) -> int:
     triples = _study.load_corpus(argv[0] if argv else None, max_tiles=W)
     result = run(triples, device)
     report(result, device, "r5_pair64")
-    return 0 if all(v["max_dcount"] == 0
-                    for v in result["variants"].values()) else 1
+    return 0 if result["kernel_equal"] and all(
+        v["max_dcount"] == 0 for v in result["variants"].values()) else 1
 
 
 if __name__ == "__main__":

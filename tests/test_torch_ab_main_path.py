@@ -1,0 +1,30 @@
+"""The parent/change turn script of the main path's figures (CPU).
+
+`scripts/ab_main_path.py` runs only on the card; here its turn script is
+compiled and its summary checked on made-up turns.
+"""
+
+from rustsasa_tpu_torch.scripts import ab_main_path
+
+
+def _turn(scale):
+    groups = {group for group, _key in ab_main_path.FIGURES}
+    rec = {group: {} for group in groups}
+    for i, (group, key) in enumerate(ab_main_path.FIGURES):
+        rec[group][key] = scale * (i + 1)
+    rec.update(gpu_name="card", power_limit="700.00 W", cpu_count=8)
+    return rec
+
+
+def test_turn_script_compiles():
+    compile(ab_main_path.TURN_SCRIPT, "turn_script", "exec")
+
+
+def test_summary_gives_each_tree_in_turn_order():
+    turns = [("A", _turn(2.0)), ("B", _turn(1.0)), ("B", _turn(1.0)),
+             ("A", _turn(4.0))]
+    lines = ab_main_path.summary(turns)
+    assert len(lines) == len(ab_main_path.FIGURES) + 1
+    assert lines[0] == ("stages_05m.dequant_ms: A [2.0, 4.0] B [1.0, 1.0]; "
+                        "medians 3 -> 1")
+    assert lines[-1] == "on card, 700.00 W, 8 host cores"

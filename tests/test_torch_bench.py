@@ -87,6 +87,9 @@ def test_bench_record(tiny_corpus, tmp_path, monkeypatch):
     # The count kernel launches only on CUDA; the chunks are counted.
     assert record["fused_count_launches"] == [0] * 5
     assert record["chunks"] == [1] * 5
+    assert record["band_launches"] == [
+        {"dequant_boxes": 0, "band_jlist": 0}] * 5
+    assert [r["q13"] for r in record["routes"]] == [1] * 5
     assert record["entries"] == [[1]] * 5  # one device entry: the CPU
     assert (record["package"], record["backend"], record["device"]) == (
         "rustsasa_tpu_torch", "fused", "cpu")

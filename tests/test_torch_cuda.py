@@ -696,3 +696,117 @@ def test_sharded_list_step_equals_unsharded(cuda):
     assert float(total[0]) == float(whole.double().sum())
     assert int(max_count[0]) == int(whole_mc)
     graft_entry.dryrun_multichip([cuda, cuda])
+
+
+def _bits(t):
+    """A float tensor's words, for bit-equal comparisons."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("wire", ["q13", "q16"])
+@pytest.mark.parametrize("w", fk.W_BUCKETS)
+def test_band_cull_kernels_equal_plain(cuda, wire, w):
+    """dequant_boxes bit-equal to the plain dequant and boxes, band_jlist
+    byte-equal (all 128 columns) to the plain builder, at every band
+    width on both wires: a 3-atom structure, tiles with no real atom and
+    bands past both ends of the chunk."""
+    structures = _study.band_structures(w, seed=w)
+    max_nt = max(-(-s[0].shape[0] // 128) for s in structures)
+    assert next(b for b in fk.W_BUCKETS if b >= max_nt) == w
+    arrays, tm, _ = _study.band_chunk_wire(structures, wire)
+    arrays = fk.to_device(arrays, cuda)
+    tmeta = fk.to_device((tm,), cuda)[0]
+    _kernels.reset_launch_counts()
+    planes, qvalid, boxes = getattr(_kernels, f"dequant_{wire}")(*arrays)
+    jlist = _kernels.band_jlist(planes, qvalid, tmeta, boxes, w)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["dequant_boxes"] == 1
+    assert _kernels.launch_counts["band_jlist"] == 1
+    want_planes, want_qvalid = getattr(fk, f"dequant_{wire}_reference")(
+        *arrays)
+    assert torch.equal(_bits(planes), _bits(want_planes))
+    assert torch.equal(qvalid, want_qvalid)
+    want_boxes = fk.tile_boxes_reference(want_planes, want_qvalid)
+    for got, want in zip(boxes, want_boxes):
+        assert torch.equal(_bits(got), _bits(want))
+    for got, want in zip(_kernels.tile_boxes(planes, qvalid), want_boxes):
+        assert torch.equal(_bits(got), _bits(want))
+    # The dequant that writes no boxes (the host-cull route's).
+    bare_planes, bare_qvalid = _launched(
+        "dequant_boxes", lambda: getattr(fk, f"dequant_{wire}")(*arrays))
+    assert torch.equal(_bits(bare_planes), _bits(want_planes))
+    assert torch.equal(bare_qvalid, want_qvalid)
+    want = fk.build_jlist_banded_reference(want_planes, want_qvalid, tmeta,
+                                           w=w)
+    assert torch.equal(jlist, want)
+    assert torch.equal(fk.build_jlist_banded(planes, qvalid, tmeta, w=w),
+                       want)
+    # Tail entries past the chunk's ends, and the padding tiles' rows.
+    t = tmeta.shape[0]
+    j = ((jlist[:, 1:].to(torch.int64) & 0xFFFF) ^ 0x8000) - 0x8000
+    assert bool(((j < 0) | (j >= t)).any())
+    assert not bool(jlist[-_study.BAND_PAD_TILES:, 0].any())
+
+
+@pytest.mark.parametrize("wire", ["q13", "q16"])
+def test_banded_wrappers_launch_three_kernels(cuda, wire):
+    """One banded wrapper call: one launch each of dequant_boxes,
+    band_jlist and fused_count, and counts equal to the plain chain's at
+    every real slot; the host-cull q16 wrapper launches dequant_boxes and
+    fused_count."""
+    structures = _study.band_structures(32, seed=3)
+    arrays, tm, offsets = _study.band_chunk_wire(structures, wire)
+    wire_d = fk.to_device((*arrays, tm), cuda)
+    sphere = engine._sphere_device(100, cuda)
+    banded = getattr(fk, f"fused_sasa_{wire}_banded")
+    _kernels.reset_launch_counts()
+    got = banded(*wire_d, sphere, n_points=100, w=32)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _kernels.launch_counts.items() if v} == {
+        "dequant_boxes": 1, "band_jlist": 1, "fused_count": 1}
+    planes, qvalid = getattr(fk, f"dequant_{wire}_reference")(*wire_d[:-1])
+    jlist = fk.build_jlist_banded_reference(planes, qvalid, wire_d[-1], w=32)
+    want = fk._counts_out(fk.fused_counts_reference(planes, jlist, sphere),
+                          100)
+    real = _study.real_slots(offsets, planes.shape[1], cuda)
+    assert got.dtype == want.dtype == torch.uint8
+    assert torch.equal(got[real], want[real])
+    assert bool(((got[real] > 0) & (got[real] < 100)).any())
+    if wire == "q16":
+        _kernels.reset_launch_counts()
+        host = fk.fused_sasa_q16(wire_d[0], wire_d[1], jlist, sphere,
+                                 n_points=100)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in _kernels.launch_counts.items() if v} == {
+            "dequant_boxes": 1, "fused_count": 1}
+        assert torch.equal(host[real], want[real])
+
+
+def test_engine_banded_chunks_launch_each_kernel_once(cuda):
+    """Every banded chunk the engine dispatches runs one dequant_boxes and
+    one band_jlist; host-cull q16 chunks run dequant_boxes alone."""
+    structures = _structures([90, 400, 1300], seed=5)
+    structures.append(_structures([260], seed=6, spread=120.0)[0])  # q16
+    eng = engine.BatchedSasaEngine(device=cuda)
+    _kernels.reset_launch_counts()
+    eng.compute(structures)
+    c = eng.routes.counts
+    assert c["q13"] >= 1 and c["q16"] >= 1
+    assert _kernels.launch_counts["band_jlist"] == c["q13"] + c["q16"]
+    assert _kernels.launch_counts["dequant_boxes"] == (
+        c["q13"] + c["q16"] + c["host_q16"])
+
+
+def test_band_launchers_refuse_bad_launches(cuda):
+    planes = torch.zeros((8, 256), device=cuda)
+    qvalid = torch.zeros(256, dtype=torch.bool, device=cuda)
+    boxes = _kernels.tile_boxes(planes, qvalid)
+    tmeta = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="band width 128"):
+        _kernels.band_jlist(planes, qvalid, tmeta, boxes, 128)
+    with pytest.raises(ValueError, match="qvalid is on cpu"):
+        _kernels.band_jlist(planes, qvalid.cpu(), tmeta, boxes, 16)
+    jlist = _kernels.band_jlist(planes, qvalid, tmeta, boxes, 16)
+    assert torch.equal(jlist, fk.build_jlist_banded_reference(
+        planes, qvalid, tmeta, w=16))
+    assert (boxes.tmin == 3e4).all() and (boxes.tmaxr == 0).all()

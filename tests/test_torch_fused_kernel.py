@@ -145,10 +145,13 @@ def test_dequant_q16_bit_equal_numpy():
     np.testing.assert_array_equal(qvalid.numpy(), q[3] > 0)
 
 
-@pytest.mark.parametrize("w", [16, 32, 64])
+@pytest.mark.parametrize("w", [16, 24, 32, 64, 127])
 def test_jlist_byte_equal_reference(w):
-    # 5,200 atoms = 41 tiles: with w=64 one band covers a whole structure.
-    sizes = [64, 700, 1000] if w < 64 else [300, 5200]
+    # Every band width the engine picks.  5,200 atoms = 41 tiles: with
+    # w=64 one band covers a whole structure; 9,000 atoms = 71 tiles take
+    # w=127, whose nd = 253 offsets overflow the row (JLIST_CAP = 127), so
+    # the sorted tail is cut.
+    sizes = {64: [300, 5200], 127: [300, 9000]}.get(w, [64, 700, 1000])
     planes4, tp, tm, offsets = ref._pack_structures_q16_numpy(
         _structures(sizes, seed=w, spread=35.0), PROBE
     )
@@ -159,6 +162,17 @@ def test_jlist_byte_equal_reference(w):
     np.testing.assert_array_equal(got.numpy(), want)
     # Some entries carry mask bit 15, i.e. are negative as int32.
     assert (got.numpy()[:, 1:] < 0).any()
+    # The rows' tails hold the offsets past the chunk's ends, whose boxes
+    # are the zero padding (the tile field, as a signed 16-bit j, lies
+    # outside [0, T)), with the masks computed against those zeros.
+    t = tm.shape[0]
+    ent = got.numpy()[:, 1:].astype(np.int64) & 0xFFFFFFFF
+    j = ((ent & 0xFFFF) ^ 0x8000) - 0x8000
+    outside = (j < 0) | (j >= t)
+    assert outside.any() and (ent[outside] >> 16 != 0).any()
+    # Columns past the band's nd offsets stay 0.
+    nd = 2 * w - 1
+    assert not got.numpy()[:, 1 + min(nd, ref.JLIST_CAP):].any()
 
 
 def test_jlist_never_culls_true_neighbors():

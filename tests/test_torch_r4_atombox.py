@@ -8,9 +8,10 @@ J-lists are compared byte for byte; the script's `build_only` dequantizes
 inside its jit, where XLA-CPU may contract q*scale+origin into one fused
 multiply-add, so its planes are held to the port's within 1 ulp at the
 chunk's coordinates and the j-lists must still agree byte for byte.
-Both rows (the production builder, "sub32", and the atombox builder)
-give byte-equal j-lists and counts; ATOMBOX_BLK's block sizes give the
-same j-lists.  Kernel 1 on atombox j-lists is held to its plain version
+Every row (the production builder's plain version, "sub32", the atombox
+builder, and the production builder as the main path runs it, "kernel",
+plain torch on the CPU) gives byte-equal j-lists and counts;
+ATOMBOX_BLK's block sizes give the same j-lists.  Kernel 1 on atombox j-lists is held to its plain version
 on the card (tests/test_torch_cuda.py).
 """
 
@@ -89,7 +90,7 @@ def test_atombox_jlist_byte_equal_script(script, chunk):
     assert int(got[:, 0].sum()) > 0
 
 
-@pytest.mark.parametrize("fine", ["sub32", "atombox"])
+@pytest.mark.parametrize("fine", ["sub32", "atombox", "kernel"])
 def test_build_only_byte_equal_script(script, chunk, fine):
     np_wire, wire, _planes, _qvalid, _ = chunk
     jl, planes = r4_atombox.build_only(*wire, w=W, fine=fine)
@@ -114,9 +115,10 @@ def test_rows_byte_equal_and_counts_equal_script_full(script, chunk):
                                           fine=fine))
         assert counts[fine].dtype == want.dtype == np.uint8
         np.testing.assert_array_equal(counts[fine][real], want[real])
-    a, b = r4_atombox.ROWS
-    assert torch.equal(jlists[a], jlists[b])
-    np.testing.assert_array_equal(counts[a], counts[b])
+    a = r4_atombox.ROWS[0]
+    for b in r4_atombox.ROWS[1:]:
+        assert torch.equal(jlists[a], jlists[b])
+        np.testing.assert_array_equal(counts[a], counts[b])
     assert ((counts[a][real] > 0) & (counts[a][real] < 100)).any()
 
 
@@ -145,6 +147,6 @@ def test_run_on_cpu(tmp_path):
     for v in r["rows"].values():
         assert v["max_dcount"] == 0 and v["streamed"] > 0
         assert v["build_ms"] > 0 and v["full_ms"] > 0
-    assert len(r4_atombox.lines(r)) == 5
+    assert len(r4_atombox.lines(r)) == 3 + len(r4_atombox.ROWS)
     with pytest.raises(ValueError, match="more than"):
         r4_atombox.run(str(src), "cpu", slots=1024, w=W, reps=1)

@@ -168,7 +168,9 @@ def test_run_on_cpu_equals_prod():
     prod, pair64 = variants["prod"], variants["pair64"]
     assert variants["nibble"]["margins"] == prod["margins"]
     assert pair64["j_atoms_per_atom"] < prod["j_atoms_per_atom"]
-    assert set(result["builders"]) == {"banded", "banded_2h", "nibble"}
+    assert set(result["builders"]) == {"banded", "banded_kernel",
+                                       "banded_2h", "nibble"}
+    assert result["kernel_equal"]
 
 
 def test_count_wrappers_refuse_cpu_and_other_devices():

@@ -16,7 +16,19 @@ runs fifteen phases, each of which must pass:
      slot), each kernel and plain version on the same device tensors,
      timed with CUDA events after a warm launch (the two band kernels
      also inside a CUDA graph, their device time without the host's
-     enqueue), with their bounds; then dequant_boxes and band_jlist at
+     enqueue), with their bounds; the count kernel, redesigned, logged
+     with its bound on the work the chunk needs (in-reach pairs and
+     reach tests, fused_kernel.reach_work) beside the old one on every
+     admitted margin and the one at the reach test's SASS, its ptxas
+     registers, spills and shared memory, the j-atoms an atom has
+     admitted, in reach of some atom of its tile, of 32 atoms, of 4, of
+     itself, and streamed (the rows each warp streamed, counted by a
+     debug instantiation, equal to the plain model's); the same on
+     r4_atombox's 2M banded q16 chunk (counts byte-equal to plain), and
+     the count kernel byte-equal to plain on near-tangent pairs and on
+     pairs spread past tangency (some skipped by distance, small j-radii
+     about the skip's guard) at 100 and 1,000 points;
+     then dequant_boxes and band_jlist at
      every band width (16, 24, 32, 64, 127) on the q13 and q16 wires, on
      seeded synthetic structures (3, 100, 700 and up to 16,000 atoms,
      the largest picking the width) with two padding tiles appended,
@@ -106,19 +118,22 @@ runs fifteen phases, each of which must pass:
      ports' run() at the scripts' sizes on "cuda" -
      profile_native_pipeline and profile_pipeline (the corpus pass's host
      and device stages, each alone, on 1,024 files), profile_fused
-     (kernel 1 alone on 512 files, with its FP32 instruction rate),
+     (kernel 1 alone on 512 files, with its FP32 instruction rate at
+     the work the inputs need and its share of that bound),
      micro_bench, r4_atombox (900 files at 2,097,152 slots: the two
      rows' j-lists and counts byte-equal), r5_qwire (the q12 wire's r_eff
      bit-equal to radii + probe, its count deltas to q16) and the NumPy
      cull studies r4_cull_granularity and r5_spherecull; each figure
      beside the card's name and power limit; then on a chunk of up to
      524,288 slots kernel 1 byte-equal to its plain version on q12 planes
-     and on atombox j-lists.  The main path's three kernels' records
+     and on atombox j-lists, with its bound on each (recounted and the
+     old).  The main path's three kernels' records
      carry these paths' launches (`profilers_launches`).
 
-Phases 5, 9 and 10 log the kernels redesigned for this card
-(list_occlusion; maxplus_count; ke_mxu's mxu_dots_def, ke_maxplus's six
-variants, ke_bf16's two and ke_stream's nobig and noscalar) with their
+Phases 2, 5, 9 and 10 log the kernels redesigned for this card
+(fused_count; list_occlusion; maxplus_count; ke_mxu's mxu_dots_def,
+ke_maxplus's six variants, ke_bf16's two and ke_stream's nobig and
+noscalar) with their
 bound, share of it, FP32 instruction rate, ptxas registers and spills
 and shared memory.  Prints the card's name and
 power limit, one JSON line with the thirteen kernel sources' numbers
@@ -198,6 +213,10 @@ BAND_INSTR_PER_TEST = 22
 DEQUANT_INSTR_PER_SLOT = 41
 BOX_BYTES_PER_TILE = 4 * (16 * 7 + 7)
 BAND_KERNELS = ("dequant_boxes", "band_jlist")
+# csrc/fused_count.cu's shared memory before the sphere (kSphereOffset):
+# a 4-slot ring of 5 x 128 floats, 8 mbarriers, 32 atoms (20 bytes each)
+# and the j-list row.
+K1_SMEM = 4 * 4 * 5 * 128 + 8 * 8 + 20 * 32 + 4 * 132
 PROBE = 1.4
 # H100 SXM: FP32 instruction issue peak (132 SMs x 128 lanes x 1.98 GHz;
 # none of the kernels' margin instructions is a fused multiply-add) and
@@ -240,6 +259,53 @@ def count_bound(margins, instr_per_margin, m, p, jlist_planes=1,
     counts and `extra_out` more bytes written once."""
     return bound(instr_per_margin * margins,
                  4 * m * (5 + jlist_planes + 1) + 16 * p + extra_out)
+
+
+def kernel1_bound(work, m, sphere, per_pair=None):
+    """(bound() of kernel 1 on the work its inputs need, its FP32
+    instructions): fused_kernel.needed_instructions(work, the valid
+    points, per_pair) (a margin a point for each in-reach pair, a reach
+    test of per_pair instructions, by default the test's arithmetic, for
+    each admitted pair), its bytes as count_bound's."""
+    from rustsasa_tpu_torch.ops import fused_kernel as fk
+
+    instr = fk.needed_instructions(work, int((sphere[:, 3] > 0).sum()),
+                                   per_pair or fk.REACH_INSTR_PER_PAIR)
+    return bound(instr, 4 * m * 7 + 16 * sphere.shape[0]), instr
+
+
+def kernel1_reach(tag, planes, jlist, sphere, real):
+    """Kernel 1's work on one chunk: fused_kernel.reach_work, and the rows
+    each warp streamed (the kRows instantiation) equal to the plain
+    model's, its counts byte-equal at the real slots to the main
+    instantiation's; logs the j-atoms an atom (admitted, in reach of some
+    atom of the tile, of 32 atoms, of 4, of itself, and streamed).
+    Returns (reach_work, {column: j-atoms an atom})."""
+    import torch
+
+    from rustsasa_tpu_torch.ops import _kernels, fused_kernel as fk
+
+    want = fk.fused_counts(planes, jlist, sphere)
+    work = fk.reach_work(planes, jlist, sphere)
+    passes, _k = _kernels.lane_passes(sphere.shape[0])
+    got, rows = _kernels.fused_count(planes, jlist, sphere, rows=True)
+    if not torch.equal(rows.long(), work["warp_rows"] * passes):
+        raise AssertionError(f"{tag}: the rows streamed differ from the "
+                             "plain model's")
+    if not torch.equal(got[real], want[real]):
+        raise AssertionError(f"{tag}: the kRows instantiation's counts "
+                             "differ")
+    n = work["atoms"]
+    n_real = real.view(-1, rows.shape[1], fk.WARP_ATOMS).sum(dim=-1)
+    per_atom = {"admitted": work["admitted"] / n,
+                **{f"reach_{g}": work["reach"][g] / n
+                   for g in fk.REACH_GROUPS},
+                "streamed": int((rows.long() * n_real).sum()) / passes / n}
+    log(f"{tag} j-atoms an atom: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in per_atom.items())
+        + f" ({n} real atoms; {work['far']} pairs skipped by distance); "
+        "the rows each warp streamed equal the plain model's")
+    return work, per_atom
 
 
 def record(name, launches, max_err, ms, plain_ms, vs_fused_count_ms,
@@ -443,16 +509,17 @@ def band_vs_plain(wire, arrays, tmeta, w):
         deq_equal, bool(torch.equal(jlist, want_jlist)))
 
 
-def phase_kernel_vs_plain(corpus_dir, device):
+def phase_kernel_vs_plain(corpus_dir, device, build_logs):
     """The banded chunk's three kernels and their plain versions on one
-    real q13 chunk, then dequant_boxes and band_jlist over every band
-    width on both wires; returns the kernels' JSON records (launches
-    filled in later)."""
+    real q13 chunk, kernel 1's work there and on r4_atombox's 2M q16
+    chunk and on near-tangent pairs, then dequant_boxes and band_jlist
+    over every band width on both wires; returns the kernels' JSON
+    records (launches filled in later)."""
     import numpy as np
     import torch
 
     from rustsasa_tpu_torch.ops import _kernels, engine, fused_kernel as fk
-    from rustsasa_tpu_torch.scripts import _study
+    from rustsasa_tpu_torch.scripts import _study, r4_atombox
     from rustsasa_tpu_torch.scripts._study import load_corpus
 
     triples = load_corpus(corpus_dir, slots=CHECK_CHUNK_SLOTS)
@@ -509,8 +576,8 @@ def phase_kernel_vs_plain(corpus_dir, device):
     log(f"[kernel] fused_count {kernel_ms:.3f} ms, plain torch "
         f"{plain_ms:.3f} ms; max |diff| at real slots {max_err}, "
         f"all slots equal: {all_equal}")
-    log(f"[kernel] {margins / 1e9:.3f}G margins x 7 FP32 instructions = "
-        f"{rate / 1e12:.2f}T instructions/s")
+    log(f"[kernel] {margins / 1e9:.3f}G admitted margins x 7 FP32 "
+        f"instructions = {rate / 1e12:.2f}T instructions/s")
     log(f"[kernel] dequant_boxes {deq_ms:.4f} ms in a CUDA graph, "
         f"{deq_call_ms:.4f} ms a call back to back (bound {deq_bound[0]:.4f} "
         f"ms, {deq_bound[1]}; {deq_bound[0] / deq_ms:.3f} of it), plain torch "
@@ -530,6 +597,72 @@ def phase_kernel_vs_plain(corpus_dir, device):
     if not (deq_eq and band_eq):
         raise AssertionError("the dequant or cull kernel disagrees with its "
                              "plain version on the check chunk")
+
+    # Kernel 1 redesigned: its work, lane counts and bound on this chunk
+    # and on the 2M banded q16 chunk, and near-tangent pairs.
+    k1_work, per_atom = kernel1_reach("[kernel] 0.5M", planes, jlist,
+                                      sphere, real)
+    k1_bound, k1_instr = kernel1_bound(k1_work, m, sphere)
+    sass_bound = kernel1_bound(k1_work, m, sphere, fk.REACH_INSTR_SASS)[0]
+    old_bound = count_bound(margins, 7, m, sphere.shape[0])
+    passes, k = _kernels.lane_passes(sphere.shape[0])
+    redesigned_log(
+        "[kernel]", build_logs["fused_count"],
+        f"fused_count (L={_kernels.COUNT_LANES}, K={k}, {passes} pass)",
+        kernel_ms, k1_bound, k1_instr, f"ILi{k}ELb0E",
+        K1_SMEM + 16 * passes * _kernels.COUNT_LANES * k)
+    log(f"[kernel] fused_count's bound was {old_bound[0]:.3f} ms counted on "
+        f"every admitted margin ({old_bound[0] / kernel_ms:.3f} of it); on "
+        f"the work these inputs need {k1_bound[0]:.4f} ms at "
+        f"{fk.REACH_INSTR_PER_PAIR} FP32 instructions a reach test, "
+        f"{sass_bound[0]:.4f} ms ({sass_bound[0] / kernel_ms:.3f} of it) at "
+        f"the {fk.REACH_INSTR_SASS} of the kernel's SASS")
+    planes4, tparams, tmeta2, real2, _atoms, n2 = r4_atombox.load_chunk(
+        corpus_dir, device)
+    planes2, qvalid2 = fk.dequant_q16(planes4, tparams)
+    jlist2 = fk.build_jlist_banded(planes2, qvalid2, tmeta2,
+                                   w=r4_atombox.W)
+    ms_2m, got2 = cuda_ms(lambda: fk.fused_counts(planes2, jlist2, sphere),
+                          5)
+    plain_2m, want2 = cuda_ms(
+        lambda: fk.fused_counts_reference(planes2, jlist2, sphere), 1,
+        warm=False)
+    if not torch.equal(got2[real2], want2[real2]):
+        raise AssertionError("fused_count differs from plain on the 2M "
+                             "q16 chunk")
+    work2, per_atom2 = kernel1_reach("[kernel] 2M", planes2, jlist2, sphere,
+                                     real2)
+    bound_2m = kernel1_bound(work2, planes2.shape[1], sphere)[0]
+    log(f"[kernel] 2M banded q16 chunk ({n2} structures, w="
+        f"{r4_atombox.W}): fused_count {ms_2m:.3f} ms, plain torch "
+        f"{plain_2m:.1f} ms, byte-equal at real slots; bound {bound_2m[0]:.4f}"
+        f" ms ({bound_2m[0] / ms_2m:.3f} of it)")
+    del planes4, tparams, planes2, qvalid2, jlist2, got2, want2
+    # Near-tangent pairs, and pairs spread past tangency to where the
+    # distance skip starts, with small j-radii about its guard.
+    for n_points, far in ((100, False), (1000, False), (100, True),
+                          (1000, True)):
+        arrays = _study.tangent_chunk(n_points, 400, seed=n_points, far=far)
+        t_planes, t_jlist, t_real = (torch.from_numpy(a).to(device)
+                                     for a in arrays)
+        t_sphere = engine._sphere_device(n_points, device)
+        t_want = fk.fused_counts_reference(t_planes, t_jlist, t_sphere)
+        t_work = fk.reach_work(t_planes, t_jlist, t_sphere)
+        t_got, t_rows = _kernels.fused_count(t_planes, t_jlist, t_sphere,
+                                             rows=True)
+        t_passes = _kernels.lane_passes(n_points)[0]
+        t_equal = (torch.equal(t_got[t_real], t_want[t_real])
+                   and torch.equal(fk.fused_counts(
+                       t_planes, t_jlist, t_sphere)[t_real], t_want[t_real])
+                   and torch.equal(t_rows.long(),
+                                   t_work["warp_rows"] * t_passes))
+        kind = "spread past tangency" if far else "near-tangent"
+        log(f"[kernel] {kind} pairs at P={n_points}: {t_work['far']} pairs "
+            f"skipped by distance; fused_count byte-equal to plain and its "
+            f"rows to the plain model's: {t_equal}")
+        if not t_equal or (far and not t_work["far"]):
+            raise AssertionError(f"fused_count differs from plain on "
+                                 f"{kind} pairs, or nothing was skipped")
 
     # Every band width on both wires, on seeded synthetic structures
     # (a 3-atom one, two tiles of padding, bands past both chunk ends).
@@ -563,8 +696,11 @@ def phase_kernel_vs_plain(corpus_dir, device):
                 raise AssertionError(f"w={bw} {wire_name}: kernels disagree "
                                      "with their plain versions")
     return [
-        record("fused_count", None, max_err, kernel_ms, plain_ms, kernel_ms,
-               count_bound(margins, 7, m, sphere.shape[0])),
+        dict(record("fused_count", None, max_err, kernel_ms, plain_ms,
+                    kernel_ms, k1_bound),
+             old_bound_ms=old_bound[0], bound_ms_sass_test=sass_bound[0],
+             j_atoms_per_atom=per_atom, ms_2m=ms_2m, plain_ms_2m=plain_2m,
+             bound_ms_2m=bound_2m[0], j_atoms_per_atom_2m=per_atom2),
         dict(record("dequant_boxes", None, deq_err, deq_ms, deq_plain_ms,
                     kernel_ms, deq_bound), call_ms=deq_call_ms),
         dict(record("band_jlist", None, band_err, band_ms, band_plain_ms,
@@ -1157,7 +1293,9 @@ def phase_count_studies_ii(corpus_dir, device, build_logs):
         variant="mp_static")
     log(f"[studies-ii] maxplus_count at {margins_q * 2 / (ms * 1e-3) / 1e12:.2f}T "
         f"FP32 instr/s at its own work (2 per margin), fused_count at "
-        f"{margins_q * 7 / (prod_q_ms * 1e-3) / 1e12:.2f}T (7 per margin)")
+        f"{_study.k1_instructions(planes_q, jlist_q, sphere) / (prod_q_ms * 1e-3) / 1e12:.2f}T "
+        f"at the work these inputs need (it streams only the rows in "
+        f"reach; _study.k1_instructions)")
     mp_passes = -(-p // 128)
     mp_k = -(-p // (8 * mp_passes))
     # maxplus_count.cu's maxplus_smem: sphere, LIMT [16][2][128] float4,
@@ -1807,9 +1945,17 @@ def phase_profilers(device, corpus_dir, smi):
         real = _study.real_slots(offsets, planes.shape[1], device)
         diff = int((got.to(torch.int64) - want.to(torch.int64)).abs()[real]
                    .max())
+        m = planes.shape[1]
+        k1_bound = kernel1_bound(fk.reach_work(planes, jlist, sphere), m,
+                                 sphere)[0]
+        old_bound = count_bound(
+            int(_study.streamed_groups(jlist).sum()) // 2 * 8 * 128
+            * sphere.shape[0], 7, m, sphere.shape[0])
         log(f"[profilers] fused_count on {name}: {len(triples)} structures, "
-            f"{planes.shape[1]} slots; {kernel_ms:.3f} ms, plain torch "
-            f"{plain_ms:.3f} ms; max |diff| at real slots {diff}; {smi}")
+            f"{m} slots; {kernel_ms:.3f} ms, plain torch {plain_ms:.3f} ms; "
+            f"max |diff| at real slots {diff}; bound {k1_bound[0]:.4f} ms on "
+            f"the work these inputs need ({k1_bound[0] / kernel_ms:.3f} of "
+            f"it), {old_bound[0]:.3f} ms on every admitted margin; {smi}")
         if diff:
             raise AssertionError(f"fused_count differs from plain on {name}")
     idle = [path for path, n in launches.items() if not n]
@@ -1851,7 +1997,7 @@ def main() -> int:
         os.symlink(os.path.realpath(os.path.join(corpus_dir, name)),
                    os.path.join(sample_dir, name))
 
-    main_records = phase_kernel_vs_plain(corpus_dir, device)
+    main_records = phase_kernel_vs_plain(corpus_dir, device, build_logs)
     phase_golden(device, sample_dir, WORK)
     main_launches, main_median = phase_main_path(device)
     for rec in main_records:

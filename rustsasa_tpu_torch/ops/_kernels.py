@@ -39,9 +39,12 @@ NVCC_FLAGS = (
 )
 MAX_P_PAD = 2048
 # Sphere points per thread and slices per CTA of the count kernels
-# (csrc/count_tile.cuh kMaxK, kSlices).
+# (csrc/count_tile.cuh kMaxK, kSlices; fused_count.cu has no slices).
 MAX_K = 16
 SLICES = 4
+# Lanes an i-atom gets in csrc/fused_count.cu (kLanes); a lane holds up
+# to MAX_K sphere points in a pass.
+COUNT_LANES = 16
 # Variant codes of csrc/micro_count.cu and csrc/reach_count.cu, in order.
 MICRO_VARIANTS = ("prod", "split2", "g16", "g24", "nosmem")
 REACH_VARIANTS = ("base", "nogroupcond", "jskip", "group4", "nocond", "bf16",
@@ -71,7 +74,8 @@ KE_POINTS = 128
 KE_MAX_NJ = 2048
 
 launch_counts = {
-    "fused_count": 0, "list_occlusion": 0, "pair64_count": 0,
+    "fused_count": 0, "fused_count_rows": 0, "list_occlusion": 0,
+    "pair64_count": 0,
     "nibble_count": 0, "saturation_count": 0, "micro_count": 0,
     "reach_count": 0, "maxplus_count": 0, "ke_stream": 0, "ke_maxplus": 0,
     "ke_bf16": 0, "ke_mxu": 0, "dequant_boxes": 0, "band_jlist": 0,
@@ -85,6 +89,7 @@ _INT = ctypes.c_int
 # C signature of each kernel's launch function <name>_launch, by name.
 _SIGNATURES = {
     "fused_count": [_VOIDP] * 4 + [_INT] * 2 + [_VOIDP],
+    "fused_count_rows": [_VOIDP] * 5 + [_INT] * 2 + [_VOIDP],
     "list_occlusion": [_VOIDP] * 9 + [_INT] * 6 + [_VOIDP],
     "pair64_count": [_VOIDP] * 5 + [_INT] * 2 + [_VOIDP],
     "nibble_count": [_VOIDP] * 6 + [_INT] * 2 + [_VOIDP],
@@ -98,7 +103,8 @@ _SIGNATURES = {
 }
 # The source (csrc/<source>.cu) of each launch function not named after
 # its own; every source builds to one library.
-_SOURCE_OF = {"dequant_boxes": "band_cull", "band_jlist": "band_cull"}
+_SOURCE_OF = {"dequant_boxes": "band_cull", "band_jlist": "band_cull",
+              "fused_count_rows": "fused_count"}
 SOURCES = tuple(dict.fromkeys(_SOURCE_OF.get(n, n) for n in _SIGNATURES))
 # dequant_boxes' wire codes (csrc/band_cull.cu Wire).
 WIRES = ("q13", "q16", "planes")
@@ -158,6 +164,16 @@ def point_passes(p: int) -> tuple[int, int]:
     (pass+1)*SLICES*K)."""
     passes = -(-p // (SLICES * MAX_K))
     return passes, -(-p // (SLICES * passes))
+
+
+def lane_passes(p: int) -> tuple[int, int]:
+    """(passes, K) of csrc/fused_count.cu for a P-point sphere: the
+    fewest passes of COUNT_LANES x MAX_K points, then the smallest K
+    points a lane covering P.  Lane q of an atom holds points
+    [(pass*COUNT_LANES + q)*K, (pass*COUNT_LANES + q + 1)*K) in pass
+    `pass`."""
+    passes = -(-p // (COUNT_LANES * MAX_K))
+    return passes, -(-p // (COUNT_LANES * passes))
 
 
 def list_point_plan(p: int) -> tuple[int, int, int]:
@@ -324,20 +340,39 @@ def _launch(name, device, *args):
     _count(name)
 
 
-def fused_count(planes, jlist, sphere):
+def fused_count(planes, jlist, sphere, *, rows: bool = False):
     """Launch the occlusion-count kernel on the current stream -> [M] i32.
 
-    planes [8, M] f32, jlist [M/128, 128] i32, sphere [P, 4] f32, all
-    contiguous on one CUDA device; M a positive multiple of 128 and
-    0 < P <= 2048.
+    planes [8, M] f32 (16-byte aligned), jlist [M/128, 128] i32, sphere
+    [P, 4] f32, all contiguous on one CUDA device; M a positive multiple
+    of 128 and 0 < P <= 2048.  Counts at real slots equal
+    fused_kernel.fused_counts_reference's bit for bit.  A padding slot
+    (gid 0) skips every j-row, so its count is its valid points, not the
+    reference's; nothing reads those slots (`CountsView` and the studies
+    read real slots only, and fused_sasa's area is 0 there).
+
+    With rows, launches the instantiation that also counts the j-rows
+    each warp streamed over all passes (counted as "fused_count_rows")
+    and returns (counts, rows [M/128, 4 * COUNT_LANES] i32), warp w of a
+    tile holding its atoms [w*32/COUNT_LANES, (w+1)*32/COUNT_LANES): for
+    checking the skip; the main path does not ask for it.
     """
-    device, m, p = _count_inputs("fused_count", planes, sphere,
-                                 {"jlist": jlist})
-    # Rows 0..4 of planes are read with a row stride of M.
+    name = "fused_count_rows" if rows else "fused_count"
+    device, m, p = _count_inputs(name, planes, sphere, {"jlist": jlist})
+    # Rows 0..4 of planes are read with a row stride of M, each tile's
+    # 512-byte rows by bulk copies, which need 16-byte alignment.
+    if planes.data_ptr() % 16:
+        raise ValueError(f"{name}: planes must start on a 16-byte boundary")
     out = torch.empty(m, dtype=torch.int32, device=device)
-    _launch("fused_count", device, planes.data_ptr(), jlist.data_ptr(),
-            sphere.data_ptr(), out.data_ptr(), m, p)
-    return out
+    if not rows:
+        _launch(name, device, planes.data_ptr(), jlist.data_ptr(),
+                sphere.data_ptr(), out.data_ptr(), m, p)
+        return out
+    streamed = torch.empty((m // 128, 4 * COUNT_LANES), dtype=torch.int32,
+                           device=device)
+    _launch(name, device, planes.data_ptr(), jlist.data_ptr(),
+            sphere.data_ptr(), out.data_ptr(), streamed.data_ptr(), m, p)
+    return out, streamed
 
 
 def pair64_count(planes, jlist_a, jmask_b, sphere):

@@ -3,10 +3,13 @@
 // micro_count.cu, reach_count.cu, maxplus_count.cu), for NVIDIA Hopper
 // (sm_90a).
 //
-// The variants keep fused_count.cu's layout and arithmetic and change
-// only which j-groups a thread streams, or when a CTA stops
-// (maxplus_count.cu takes its own thread layout and shares only the
-// constants, IAtom, load_i_atom, stage_sphere and RUSTSASA_SWITCH_K):
+// The variants share the layout below and change only which j-groups a
+// thread streams, or when a CTA stops (maxplus_count.cu takes its own
+// thread layout and shares only the constants, IAtom, load_i_atom,
+// stage_sphere and RUSTSASA_SWITCH_K; fused_count.cu takes its own too
+// and shares the arithmetic, IAtom, load_i_atom, load_points,
+// count_accessible, row_v, row_margins and the reach-skip helpers at the
+// end):
 //   * one CTA per 128-atom i-tile; 512 threads = 128 i-atoms x 4 point
 //     slices, a warp being 32 consecutive i-atoms of one slice (thread
 //     tid owns atom tid % 128 of slice tid / 128; pair64_count.cu places
@@ -221,6 +224,62 @@ __device__ __forceinline__ void publish_reach(uint32_t* hit,
 __device__ __forceinline__ uint32_t reach_rows(const uint32_t* hit, int s) {
   return hit[s] | hit[kSlices + s] | hit[2 * kSlices + s] |
          hit[3 * kSlices + s];
+}
+
+// ---- fused_count.cu's reach skip (the variants do not use these) ----
+//
+// A j-row may be left out of an i-atom's max only where all its rounded
+// margins are <= 0, so that the count does not move.  keep_pair is that
+// test, conservative by construction; fused_count.cu's header derives
+// kReachSlack and the two guards.
+constexpr float kReachSlack = 1.0f + 0x1p-14f;  // (1 + delta), exact in f32
+// Largest |s|^2 (as computed below) of a valid sphere point for which the
+// skip holds; a sphere with a longer point streams every gid-kept row.
+constexpr float kUnitNorm2 = 1.0f + 0x1p-20f;
+// The skip by distance needs r_j >= r_i / kRadiusRatio and r_i >= 1e-6.
+constexpr float kRadiusRatio = 8.0f;
+
+// |s|^2 of one sphere point, rounded as v2 is.
+__device__ __forceinline__ float point_norm2(float4 s) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(s.x, s.x), __fmul_rn(s.y, s.y)),
+                   __fmul_rn(s.z, s.z));
+}
+
+// Whether i-atom a (x, y, z, r_eff; gid ag) keeps the j-row (jx, jy, jz,
+// jr, jg): false where the row's lim is -1e30 (gid_j == gid_i, gid_j == 0)
+// or the i-atom is padding (gid 0), and where far_ok and
+//     v2 > (r_i + r_j)^2 * kReachSlack,  r_i >= 1e-6,
+//     kRadiusRatio * r_j >= r_i,
+// with v2 rounded exactly as row_v rounds it, so the test sees the v the
+// margins would.
+__device__ __forceinline__ bool keep_pair(float4 a, float ag, float jx,
+                                          float jy, float jz, float jr,
+                                          float jg, bool far_ok) {
+  const float vx = __fsub_rn(a.x, jx);
+  const float vy = __fsub_rn(a.y, jy);
+  const float vz = __fsub_rn(a.z, jz);
+  const float v2 = __fadd_rn(__fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)),
+                             __fmul_rn(vz, vz));
+  const float reach = __fadd_rn(a.w, jr);
+  const bool far = v2 > __fmul_rn(__fmul_rn(reach, reach), kReachSlack);
+  const bool skip_far = far_ok && far && a.w >= 1e-6f &&
+                        __fmul_rn(kRadiusRatio, jr) >= a.w;
+  return !(ag == 0.0f || jg == 0.0f || jg == ag || skip_far);
+}
+
+// row_lim with the gid test replaced by `keep` (keep_pair of this atom and
+// row): lim = -1e30 where the atom does not keep j-row jj.  Where keep_pair
+// skipped a gid-kept row by distance, -1e30 - dot <= 0 stands in for a
+// margin that is <= 0 too, so the count is the same.
+__device__ __forceinline__ float row_lim_kept(const float* jrec, int jj,
+                                              const IAtom& at, bool keep,
+                                              float& vx, float& vy,
+                                              float& vz) {
+  const float v2 = row_v(jrec, jj, at, vx, vy, vz);
+  const float rk = jrec[3 * kAtomTile + jj];
+  const float lim = __fmul_rn(
+      __fsub_rn(__fsub_rn(__fmul_rn(rk, rk), v2), at.r2), at.inv2r);
+  return keep ? lim : kNegBig;
 }
 
 // Fewest passes of kSlices x kMaxK points, then the smallest K covering

@@ -1,7 +1,7 @@
 // Occlusion-count kernel for NVIDIA Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel `_fused_count_kernel`
-// (rustsasa_tpu/ops/fused_kernel.py, launched by `_counts_call`).  For
+// (rustsasa_tpu/ops/fused_kernel.py:131, launched by `_counts_call`).  For
 // every i-atom of a 128-atom tile and every sphere point it takes the max
 // over the admitted j-atoms of the occlusion margin
 //     lim - dot,  v = c_i - c_j,  v2 = (vx*vx + vy*vy) + vz*vz,
@@ -11,26 +11,78 @@
 // counts the valid points whose max is <= 0.  Admitted j-atoms are the
 // 8-atom groups whose bit is set in a j-list entry (mask << 16) | j_tile.
 //
-// Bound: FP32 ALU throughput.  Each (point, i, j) triple costs 7 FP32
-// instructions (3 mul, 2 add, 1 sub, 1 max) against no memory traffic:
-// a j-tile's 128 x 5 records (2.5 KB) are read once per admitted entry
-// and reused by all 128 x P (i, point) pairs of the tile.  The design
-// keeps the ALUs fed and everything else off that path:
-//   * one CTA per i-tile; 512 threads = 128 i-atoms x 4 point slices, a
-//     warp being 32 i-atoms of one slice, so every shared-memory read of
-//     a j-record or a sphere point is a broadcast;
-//   * each thread keeps K <= 16 sphere points and their running max
-//     margins in registers; the per-(i, j) setup (v, v2, lim, gid mask:
-//     ~15 instructions) is amortized over K points; a sphere of more than
-//     4 x 16 points is covered in passes, each re-streaming the j-list;
-//   * the j-tile is staged in shared memory and only mask-admitted groups
-//     are streamed (uniform across the CTA, so no divergence).
-// Counts must equal the reference bit for bit, so every operation is an
-// explicitly rounded __f*_rn intrinsic (no FMA contraction), in the
-// reference's order; the library is also built with --fmad=false.
-// Double-buffered TMA loads and wgmma are not used: the margin is not a
-// matrix product, and the loads are not on the critical path.  The
-// pieces it shares with its variants are in count_tile.cuh.
+// Counts equal the reference bit for bit: every margin is computed as the
+// reference computes it (row_v, row_lim_kept and row_margins of
+// count_tile.cuh: explicitly rounded __f*_rn intrinsics in the
+// reference's order, and the library is built with --fmad=false).  A max
+// does not depend on order, so streaming a subset of the admitted rows,
+// in any order, gives the same counts as long as every row left out has
+// all its rounded margins <= 0.  The design streams only such a subset.
+//
+// Bound: FP32 issue (33.5T instructions/s on the H100 SXM) on the work
+// the inputs need: 7 instructions (3 mul, 2 add, 1 sub, 1 max) per point
+// for each (i, j) pair in reach, v2 < (r_i + r_j)^2 with distinct, non-zero
+// gids, plus the reach test's arithmetic for each admitted pair (14: v2,
+// (r_i + r_j)^2, the slack, the compare and two gid compares;
+// fused_kernel.REACH_INSTR_PER_PAIR); chip_smoke.py counts both from the
+// chunk.  The margin's roundings (3 mul and 2 add, each
+// rounded) are the reference's and cannot come out of mma or wgmma, whose
+// products and sums round otherwise: no tensor cores.  On the H100 the
+// kernel reaches ~0.28 of that bound (PERF.md).  On the corpus's banded
+// chunks an atom has ~820-920 admitted j-atoms but ~43 in reach, so the
+// design spends its instructions on finding the 43:
+//   * an i-atom has L = kLanes = 16 lanes, each holding K = ceil(P / L)
+//     sphere points and their running maxima in registers (more points
+//     than L x kMaxK take passes, each re-streaming the j-list); a warp is
+//     32 / L = 2 consecutive atoms, a CTA 32 atoms (a quarter i-tile, L
+//     warps).  At P = 100, 16 lanes of 7 points ran 3-4 % faster than 8
+//     lanes of 13 on the H100 (PERF.md), so L is fixed at 16;
+//   * for each admitted 32-row chunk of a j-tile, lane l tests row l
+//     against the warp's atoms (keep_pair), a ballot gives the rows some
+//     atom keeps, and the warp streams only those, uniformly (no
+//     divergence): each row's v and lim for the lane's own atom (lim =
+//     -1e30 where the atom itself does not keep it) and its K margins;
+//   * the tile's live j-list entries are compacted once; their j-tiles
+//     (5 x 512 B) arrive through a ring of kRing slots in shared memory,
+//     each filled by five cp.async.bulk copies completing on the slot's
+//     "full" mbarrier, so the next entries are in flight while one is
+//     consumed; each warp arrives on the slot's "empty" mbarrier when done
+//     with it, and lane 0 of warp 0 refills a slot once every warp has
+//     (there is no CTA barrier in the loop, so warps run at their own
+//     pace, up to kRing entries apart);
+//   * an atom's count is the sum of its lanes' (shuffles), so nothing but
+//     the out-of-loop staging needs a barrier.
+//
+// The skip (keep_pair) is conservative by construction.  A row is left
+// out only where its lim is -1e30 anyway (gid_j == gid_i, gid_j == 0; or
+// the i-atom is padding, gid 0: the count at a padding slot is not the
+// reference's, and no caller reads it), or where
+//     v2 > (r_i + r_j)^2 * (1 + delta),  delta = 2^-14,
+// r_i >= 1e-6, r_j >= r_i / 8 and every valid sphere point has
+// |s|^2 <= 1 + 2^-20 as computed (so |s| <= sigma = 1 + 9.51u,
+// u = 2^-24).  Derivation: let V be the rounded v (the margins and the
+// test round it alike), D = |V|, R = r_i + r_j, D = R + g.  The rounded
+// v2 is within 3.01u D^2 of D^2 and the test's threshold at least
+// R^2 (1 + delta)(1 - u)^4, so a skip means g >= gamma R, gamma =
+// delta / 2 - 3.5u - delta^2 / 8 = 3.031e-5.  A rounded margin is > 0
+// only if lim' > dot' (the last subtraction keeps the sign), and
+//     lim' <= b / (2 r_i) + u (2 r_j^2 + 7.02 D^2 + 4.01 r_i^2) / (2 r_i),
+//     dot' >= s.V - 3.01u sigma D,   b = r_j^2 - r_i^2 - D^2,
+// (error of each rounded step), while b / (2 r_i) + sigma D =
+// -g (r_j / r_i + 1 - sigma) - g^2 / (2 r_i) + (sigma - 1) R: past
+// tangency the margin falls at slope r_j / r_i.  So the margin stays <= 0
+// if
+//     g (r_j + r_i (1 - sigma)) + g^2 / 2 > (sigma - 1) R r_i
+//         + u (2 r_j^2 + 7.02 D^2 + 4.01 r_i^2) / 2 + 3.01u sigma D r_i,
+// whose left side grows faster in g than the right.  At g = gamma R and
+// the worst ratio r_j = r_i / 8 the left side is 3.5x the right (at
+// r_j = r_i, 24x).  An exact test (delta = 0) is not enough: a rounded
+// margin can be +4.8e-7 at pairs it calls out of reach
+// (tests/test_torch_count_reach.py builds such pairs).
+//
+// fused_count_rows_launch, for chip_smoke.py only, also counts the rows
+// each warp streamed (the kRows instantiation); the main path runs
+// fused_count_launch.
 
 #include "count_tile.cuh"
 
@@ -38,83 +90,316 @@ namespace {
 
 using namespace rustsasa;
 
-template <int K>
-__global__ void __launch_bounds__(kThreads, 1)
+constexpr int kLanes = 16;                         // lanes an i-atom
+constexpr int kCtaAtoms = 32;                      // i-atoms a CTA
+constexpr int kQuarters = kAtomTile / kCtaAtoms;   // CTAs an i-tile
+constexpr int kRing = 4;                           // j-tile slots
+constexpr int kTileFloats = kRecords * kAtomTile;  // one slot
+constexpr uint32_t kPlaneBytes = 4 * kAtomTile;
+
+// Shared memory: the ring, its 2 x kRing mbarriers, the CTA's atoms
+// (x, y, z, r) and gids, the compacted j-list (and its length), then the
+// sphere.
+constexpr int kRingBytes = 4 * kRing * kTileFloats;
+constexpr int kAtomsOffset = kRingBytes + 16 * kRing;
+constexpr int kEntsOffset = kAtomsOffset + 20 * kCtaAtoms;
+constexpr int kSphereOffset = kEntsOffset + 4 * (kJlistRows + 4);
+static_assert(kAtomsOffset % 16 == 0 && kSphereOffset % 16 == 0,
+              "float4 arrays need 16-byte alignment");
+
+// CTAs a SM the register budget should leave room for: ~4K registers for
+// a thread's points and maxima, ~36 for the rest.
+constexpr int min_ctas(int k) {
+  return 65536 / (32 * kLanes * (4 * k + 36)) < 1
+             ? 1
+             : 65536 / (32 * kLanes * (4 * k + 36));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(smem_u32(bar))
+      : "memory");
+}
+
+// True once the phase of parity `parity` has completed; does not block.
+__device__ __forceinline__ bool bar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0u;
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (done == 0u);
+}
+
+// j-tile jt's five 512-byte plane rows into `slot`, completing on `bar`.
+__device__ __forceinline__ void fill_slot(float* slot, uint64_t* bar,
+                                          const float* __restrict__ planes,
+                                          int64_t mm, int jt) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}" ::"r"(
+          smem_u32(bar)),
+      "r"(kRecords * kPlaneBytes)
+      : "memory");
+  const float* src = planes + static_cast<int64_t>(jt) * kAtomTile;
+#pragma unroll
+  for (int k = 0; k < kRecords; ++k) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(slot + k * kAtomTile)),
+        "l"(src + k * mm), "r"(kPlaneBytes), "r"(smem_u32(bar))
+        : "memory");
+  }
+}
+
+// The producer (lane 0 of warp 0), before its warp consumes load g of
+// the `total` (pass-major) loads: issues the loads after `next` up to
+// g + kRing - 1 whose slot every warp has released, waiting only for
+// load g itself.  Returns the next load to issue.
+__device__ __forceinline__ int produce(int g, int next, int total,
+                                       float* ring, uint64_t* full,
+                                       uint64_t* empty,
+                                       const uint32_t* ents, int n_live,
+                                       const float* __restrict__ planes,
+                                       int64_t mm) {
+  while (next < total && next < g + kRing) {
+    const int s = next % kRing;
+    if (next >= kRing) {
+      const uint32_t parity = (next / kRing - 1) & 1;
+      if (next == g) {
+        bar_wait(&empty[s], parity);
+      } else if (!bar_test(&empty[s], parity)) {
+        break;
+      }
+    }
+    fill_slot(ring + s * kTileFloats, &full[s], planes, mm,
+              static_cast<int>(ents[next % n_live] & 0xFFFFu));
+    ++next;
+  }
+  return next;
+}
+
+template <int K, bool kRows>
+__global__ void __launch_bounds__(32 * kLanes, min_ctas(K))
 fused_count_kernel(const float* __restrict__ planes,   // [8, m]
                    const int32_t* __restrict__ jlist,  // [m/128, 128]
                    const float4* __restrict__ sphere,  // [p] x, y, z, valid
                    int32_t* __restrict__ out,          // [m]
+                   int32_t* __restrict__ rows,         // [m/128 * 4L]
                    int m, int p, int passes) {
-  extern __shared__ float4 smem[];
-  const int n_cover = passes * kSlices * K;
-  float4* sph = smem;                                       // [n_cover]
-  float* jrec = reinterpret_cast<float*>(smem + n_cover);   // [5][128]
-  int* cnt = reinterpret_cast<int*>(jrec + kRecords * kAtomTile);  // [128]
+  constexpr int L = kLanes;
+  constexpr int kWarps = L;
+  constexpr int kWarpAtoms = 32 / L;
+  constexpr uint32_t kFull = 0xFFFFFFFFu;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRingBytes);
+  uint64_t* empty = full + kRing;
+  float4* atoms = reinterpret_cast<float4*>(smem + kAtomsOffset);
+  float* agid = reinterpret_cast<float*>(atoms + kCtaAtoms);
+  uint32_t* ents = reinterpret_cast<uint32_t*>(smem + kEntsOffset);
+  int* n_live_sh = reinterpret_cast<int*>(ents + kJlistRows);
+  float4* sph = reinterpret_cast<float4*>(smem + kSphereOffset);
 
   const int tid = threadIdx.x;
-  const int a = tid % kAtomTile;
-  const int slice = tid / kAtomTile;
-  const int tile = blockIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int a_local = lane / L;
+  const int q = lane % L;
+  const int tile = blockIdx.x / kQuarters;
   const int n_tiles = m / kAtomTile;
   const int64_t mm = m;
-  const int64_t i = static_cast<int64_t>(tile) * kAtomTile + a;
+  const int64_t atom0 = static_cast<int64_t>(tile) * kAtomTile +
+                        (blockIdx.x % kQuarters) * kCtaAtoms;
+  const int n_cover = passes * L * K;
 
-  stage_sphere(sph, sphere, p, n_cover);
-  if (tid < kAtomTile) cnt[tid] = 0;
-  const IAtom at = load_i_atom(planes, mm, i);
+  // Staging: the tile's live entries in order, the barriers, the CTA's
+  // atoms and the zero-padded sphere, whose point norms decide far_ok.
+  if (warp == 0) {
+    const int32_t* row = jlist + static_cast<int64_t>(tile) * kJlistRows;
+    const int n_entries = min(max(row[0], 0), kJlistRows - 1);
+    int n = 0;
+    for (int e0 = 0; e0 < n_entries; e0 += 32) {
+      const int e = e0 + lane;
+      const uint32_t ent =
+          e < n_entries ? static_cast<uint32_t>(row[1 + e]) : 0u;
+      const bool live = (ent >> 16) != 0u &&
+                        static_cast<int>(ent & 0xFFFFu) < n_tiles;
+      const uint32_t b = __ballot_sync(kFull, live);
+      if (live) ents[n + __popc(b & ((1u << lane) - 1u))] = ent;
+      n += __popc(b);
+    }
+    if (lane == 0) {
+      *n_live_sh = n;
+      for (int s = 0; s < kRing; ++s) {
+        bar_init(&full[s], 1);
+        bar_init(&empty[s], kWarps);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+  }
+  if (tid < kCtaAtoms) {
+    const int64_t i = atom0 + tid;
+    atoms[tid] = make_float4(planes[i], planes[mm + i], planes[2 * mm + i],
+                             planes[3 * mm + i]);
+    agid[tid] = planes[4 * mm + i];
+  }
+  bool sphere_ok = true;
+  for (int k = tid; k < n_cover; k += 32 * L) {
+    const float4 s = k < p ? sphere[k] : make_float4(0.f, 0.f, 0.f, 0.f);
+    sph[k] = s;
+    if (s.w > 0.0f && !(point_norm2(s) <= kUnitNorm2)) sphere_ok = false;
+  }
+  const bool far_ok = __syncthreads_and(sphere_ok) != 0;
+  const int n_live = *n_live_sh;
+  const int total = passes * n_live;
+  const int cta_atom = warp * kWarpAtoms + a_local;
+  const IAtom at = load_i_atom(planes, mm, atom0 + cta_atom);
 
-  const int32_t* row = jlist + static_cast<int64_t>(tile) * kJlistRows;
-  const int n_entries = min(max(row[0], 0), kJlistRows - 1);
+  int next = 0;  // the producer's next load
+  int g = 0;     // this warp's load
   int accessible = 0;
-
+  int streamed = 0;
   for (int pass = 0; pass < passes; ++pass) {
-    __syncthreads();  // sphere and counters staged
-    const int p0 = (pass * kSlices + slice) * K;
+    const int p0 = (pass * L + q) * K;
     float sx[K], sy[K], sz[K], occ[K];
     load_points<K>(sph, p0, kNegBig, sx, sy, sz, occ);
-    for (int e = 0; e < n_entries; ++e) {
-      const uint32_t entry = static_cast<uint32_t>(row[1 + e]);
-      const int jt = static_cast<int>(entry & 0xFFFFu);
-      uint32_t mask = entry >> 16;
-      if (jt >= n_tiles || mask == 0u) continue;  // uniform over the CTA
-      load_j_tile(jrec, planes, mm, jt);
-      while (mask != 0u) {
-        const int g = __ffs(mask) - 1;
-        mask &= mask - 1u;
-        stream_group<K>(jrec, g, at, sx, sy, sz, occ);
+    for (int e = 0; e < n_live; ++e, ++g) {
+      const int s = g % kRing;
+      if (tid == 0) {
+        next = produce(g, next, total, ring, full, empty, ents, n_live,
+                       planes, mm);
       }
+      __syncwarp();
+      bar_wait(&full[s], (g / kRing) & 1);
+      const float* jrec = ring + s * kTileFloats;
+      const uint32_t mask = ents[e] >> 16;
+#pragma unroll 1
+      for (int c = 0; c < kAtomTile / 32; ++c) {
+        const uint32_t gm = (mask >> (4 * c)) & 0xFu;
+        if (gm == 0u) continue;  // uniform over the warp
+        const int r = c * 32 + lane;
+        uint32_t keep = 0u;
+        if ((gm >> (lane >> 3)) & 1u) {
+          const float jx = jrec[r];
+          const float jy = jrec[kAtomTile + r];
+          const float jz = jrec[2 * kAtomTile + r];
+          const float jr = jrec[3 * kAtomTile + r];
+          const float jg = jrec[4 * kAtomTile + r];
+#pragma unroll
+          for (int a = 0; a < kWarpAtoms; ++a) {
+            const int ca = warp * kWarpAtoms + a;
+            keep |= static_cast<uint32_t>(keep_pair(
+                        atoms[ca], agid[ca], jx, jy, jz, jr, jg, far_ok))
+                    << a;
+          }
+        }
+        uint32_t u = __ballot_sync(kFull, keep != 0u);
+        if (kRows) streamed += __popc(u);
+        while (u != 0u) {  // uniform over the warp
+          const int b = __ffs(u) - 1;
+          u &= u - 1u;
+          const bool mine = (__shfl_sync(kFull, keep, b) >> a_local) & 1u;
+          float vx, vy, vz;
+          const float lim =
+              row_lim_kept(jrec, c * 32 + b, at, mine, vx, vy, vz);
+          row_margins<K>(vx, vy, vz, lim, sx, sy, sz, occ);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(&empty[s]);
     }
     accessible += count_accessible<K>(sph, p0, occ);
   }
-  write_count(cnt, a, slice, accessible, out, i);
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) {
+    accessible += __shfl_xor_sync(kFull, accessible, off);
+  }
+  if (q == 0) out[atom0 + cta_atom] = accessible;
+  if (kRows && lane == 0) rows[blockIdx.x * kWarps + warp] = streamed;
 }
 
-template <int K>
+template <int K, bool kRows>
 int launch(const float* planes, const int32_t* jlist, const float4* sphere,
-           int32_t* out, int m, int p, int passes, cudaStream_t stream) {
-  fused_count_kernel<K>
-      <<<m / kAtomTile, kThreads, count_smem(passes, K), stream>>>(
-          planes, jlist, sphere, out, m, p, passes);
+           int32_t* out, int32_t* rows, int m, int p, int passes,
+           cudaStream_t stream) {
+  const int smem = kSphereOffset + 16 * passes * kLanes * K;
+  auto kernel = fused_count_kernel<K, kRows>;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+  }
+  kernel<<<(m / kAtomTile) * kQuarters, 32 * kLanes, smem, stream>>>(
+      planes, jlist, sphere, out, rows, m, p, passes);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRows>
+int dispatch(const void* planes, const void* jlist, const void* sphere,
+             void* out, void* rows, int m, int p, void* stream) {
+  if (m <= 0 || m % kAtomTile != 0 || p <= 0 || p > kMaxPPad ||
+      reinterpret_cast<uintptr_t>(planes) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int passes = (p + kLanes * kMaxK - 1) / (kLanes * kMaxK);
+  const int k = (p + kLanes * passes - 1) / (kLanes * passes);
+  const auto* pl = static_cast<const float*>(planes);
+  const auto* jl = static_cast<const int32_t*>(jlist);
+  const auto* sp = static_cast<const float4*>(sphere);
+  auto* o = static_cast<int32_t*>(out);
+  auto* r = static_cast<int32_t*>(rows);
+  auto* st = static_cast<cudaStream_t>(stream);
+  RUSTSASA_SWITCH_K(k, launch<K, kRows>(pl, jl, sp, o, r, m, p, passes, st))
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` without synchronizing.  planes: f32
-// [8, m] (rows x, y, z, r_eff, gid+1); jlist: i32 [m/128, 128]; sphere:
-// f32 [p, 4]; out: i32 [m].  m is a positive multiple of 128 and
-// 0 < p <= 2048.  Returns the cudaError_t of the launch (0 = success).
+// [8, m] (rows x, y, z, r_eff, gid+1), 16-byte aligned; jlist: i32
+// [m/128, 128]; sphere: f32 [p, 4]; out: i32 [m].  m is a positive
+// multiple of 128 and 0 < p <= 2048.  Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int fused_count_launch(const void* planes, const void* jlist,
                                   const void* sphere, void* out, int m,
                                   int p, void* stream) {
-  int passes, k;
-  if (m <= 0 || m % kAtomTile != 0 || !count_split(p, &passes, &k)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  RUSTSASA_SWITCH_K(
-      k, launch<K>(static_cast<const float*>(planes),
-                   static_cast<const int32_t*>(jlist),
-                   static_cast<const float4*>(sphere),
-                   static_cast<int32_t*>(out), m, p, passes,
-                   static_cast<cudaStream_t>(stream)))
+  return dispatch<false>(planes, jlist, sphere, out, nullptr, m, p, stream);
+}
+
+// As fused_count_launch, in the instantiation that also writes to rows
+// (i32 [m/128 * 64], not null), for each warp (tile-major, 2 atoms each),
+// the j-rows it streamed over all passes.
+extern "C" int fused_count_rows_launch(const void* planes, const void* jlist,
+                                       const void* sphere, void* out,
+                                       void* rows, int m, int p,
+                                       void* stream) {
+  if (rows == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(planes, jlist, sphere, out, rows, m, p, stream);
 }

@@ -14,7 +14,10 @@ replacing the Pallas `_fused_count_kernel`).  Each has its plain-torch
 version here (`dequant_q13_reference`, `dequant_q16_reference`,
 `tile_boxes_reference`, `build_jlist_banded_reference`,
 `fused_counts_reference`): the CPU path, and the kernels' reference on
-the card.
+the card.  The count kernel streams only the j-rows some atom of a warp
+keeps under a conservative reach test; `fused_counts_kept_reference` is
+the plain model of that skip, and `reach_work` counts the work these
+inputs need (the kernel's bound).
 
 Counts are held byte-exact against the reference at every real atom
 slot, so every float expression below keeps the reference's operation
@@ -770,6 +773,207 @@ def fused_counts_reference(planes, jlist, sphere):
             occ = torch.maximum(occ, (lim - dots).amax(dim=1))
         acc = (occ <= 0.0) & point_valid
         out[sl] = acc.sum(dim=-1, dtype=torch.int32).reshape(-1)
+    return out
+
+
+def _tile_blocks(planes, jlist):
+    """Blocks of at most 64 i-tiles, as (tile slice, slot slice, the
+    admitted j-atoms (jidx, jv) of admitted_atoms, the i-atoms' planes
+    (x, y, z, r_eff, gid) each [B, 1, ATOM_TILE])."""
+    m = planes.shape[1]
+    t = m // ATOM_TILE
+    dev = planes.device
+    ent = jlist[:, 1:].to(torch.int64) & 0xFFFFFFFF  # [T, JLIST_CAP]
+    live = (torch.arange(JLIST_CAP, device=dev)[None, :]
+            < jlist[:, 0:1].to(torch.int64))
+    tiles_per_block = max(1, min(t, 64))
+    for t0 in range(0, t, tiles_per_block):
+        t1 = min(t, t0 + tiles_per_block)
+        sl = slice(t0 * ATOM_TILE, t1 * ATOM_TILE)
+        yield (slice(t0, t1), sl, *admitted_atoms(ent[t0:t1], live[t0:t1]),
+               tuple(planes[row, sl].reshape(t1 - t0, 1, ATOM_TILE)
+                     for row in range(5)))
+
+
+def _j_chunks(n_j, b, p, dev):
+    """Slices of at most REFERENCE_BLOCK_ELEMS[device] / (b x 128 x p)
+    admitted j-atoms."""
+    jc = max(1, REFERENCE_BLOCK_ELEMS[dev.type] // (b * ATOM_TILE * p))
+    return [slice(j0, j0 + jc) for j0 in range(0, n_j, jc)]
+
+
+# The reach skip of csrc/fused_count.cu (count_tile.cuh kReachSlack,
+# kUnitNorm2, kRadiusRatio), as f32 tensors so every comparison and
+# product rounds in f32 as the kernel's do.
+REACH_SLACK = torch.tensor(1.0 + 2.0 ** -14, dtype=torch.float32)
+UNIT_NORM2 = torch.tensor(1.0 + 2.0 ** -20, dtype=torch.float32)
+RADIUS_RATIO = torch.tensor(8.0, dtype=torch.float32)
+_MIN_R = torch.tensor(1e-6, dtype=torch.float32)
+# Consecutive i-atoms a warp of the count kernel holds (32 lanes,
+# COUNT_LANES an atom); the warp streams the union of their rows.
+WARP_ATOMS = 32 // _kernels.COUNT_LANES
+
+
+def sphere_far_ok(sphere) -> bool:
+    """Whether every valid point of sphere [P, 4] has (sx*sx + sy*sy) +
+    sz*sz <= UNIT_NORM2 in f32, so the kernel may skip rows by distance."""
+    s = sphere[sphere[:, 3] > 0.0]
+    n2 = (s[:, 0] * s[:, 0] + s[:, 1] * s[:, 1]) + s[:, 2] * s[:, 2]
+    return bool((n2 <= UNIT_NORM2.to(sphere.device)).all())
+
+
+def reach_far(v2, ri, rj):
+    """The distance part of the kernel's keep_pair on broadcastable f32
+    tensors (v2 as fused_counts_reference rounds it) -> bool: v2 > (r_i +
+    r_j)^2 * REACH_SLACK, r_i >= 1e-6 and RADIUS_RATIO * r_j >= r_i."""
+    dev = v2.device
+    reach = ri + rj
+    return ((v2 > (reach * reach) * REACH_SLACK.to(dev))
+            & (ri >= _MIN_R.to(dev)) & (rj * RADIUS_RATIO.to(dev) >= ri))
+
+
+def reach_keep(v2, ri, rj, gi, gj, far_ok: bool):
+    """The kernel's keep_pair -> bool: false where gid_i == 0, gid_j == 0
+    or gid_j == gid_i, and, where far_ok, where reach_far."""
+    drop = (gi == 0.0) | (gj == 0.0) | (gj == gi)
+    return ~(drop | (reach_far(v2, ri, rj) & far_ok))
+
+
+def _warp_any(keep):
+    """keep [..., ATOM_TILE] ORed over each warp's WARP_ATOMS atoms and
+    broadcast back to them."""
+    shape = keep.shape
+    return (keep.reshape(*shape[:-1], ATOM_TILE // WARP_ATOMS, WARP_ATOMS)
+            .any(dim=-1).repeat_interleave(WARP_ATOMS, dim=-1))
+
+
+def fused_counts_kept_reference(planes, jlist, sphere):
+    """fused_counts_reference with only the j-rows the count kernel
+    streams: for each warp of WARP_ATOMS consecutive atoms of a tile, the
+    admitted rows that some atom of the warp keeps (reach_keep); an atom's
+    lim is -1e30 at a streamed row it does not keep, and a row its warp
+    does not stream leaves its max.  The plain model of the kernel's skip:
+    byte-equal to fused_counts_reference at real slots when the skip is
+    right."""
+    m = planes.shape[1]
+    dev = planes.device
+    p = sphere.shape[0]
+    sx, sy, sz = sphere[:, 0], sphere[:, 1], sphere[:, 2]
+    point_valid = sphere[:, 3] > 0.0
+    far_ok = sphere_far_ok(sphere)
+    out = torch.empty(m, dtype=torch.int32, device=dev)
+    for _ts, sl, jidx, jv, (xi, yi, zi, ri, gi) in _tile_blocks(planes,
+                                                                 jlist):
+        b = jidx.shape[0]
+        xk, yk, zk, rk, gk = (planes[row][jidx] for row in range(5))
+        r2i = ri * ri
+        inv2ri = torch.full_like(ri, 0.5) / torch.clamp_min(ri, 1e-6)
+        occ = torch.full((b, ATOM_TILE, p), _NEG_BIG, dtype=torch.float32,
+                         device=dev)
+        for js in _j_chunks(jidx.shape[1], b, p, dev):
+            vx = xi - xk[:, js, None]  # [B, Jc, A]
+            vy = yi - yk[:, js, None]
+            vz = zi - zk[:, js, None]
+            v2 = (vx * vx + vy * vy) + vz * vz
+            rkk = rk[:, js, None]
+            lim = ((rkk * rkk - v2) - r2i) * inv2ri
+            keep = (reach_keep(v2, ri, rkk, gi, gk[:, js, None], far_ok)
+                    & jv[:, js, None])
+            streamed = _warp_any(keep)
+            lim = torch.where(keep, lim, _NEG_BIG)
+            vx, vy, vz, lim = (a[..., None] for a in (vx, vy, vz, lim))
+            margins = lim - (sx * vx + (sy * vy + sz * vz))  # [B, Jc, A, P]
+            margins = torch.where(streamed[..., None], margins,
+                                  float("-inf"))
+            occ = torch.maximum(occ, margins.amax(dim=1))
+        acc = (occ <= 0.0) & point_valid
+        out[sl] = acc.sum(dim=-1, dtype=torch.int32).reshape(-1)
+    return out
+
+
+# Group sizes of reach_work's "in reach of some atom of" columns: the
+# tile, a warp of 32 atoms, 4 consecutive atoms, the atom itself.
+REACH_GROUPS = (ATOM_TILE, 32, 4, 1)
+# FP32 instructions of one margin (3 mul, 2 add, 1 sub, 1 max), and of
+# the reach test for one (i-atom, j-row) pair as its arithmetic needs it:
+# v2 (3 sub, 3 mul, 2 add), (r_i + r_j)^2 (1 add, 1 mul), the slack (1
+# mul), the compare (1), and the gid tests gid_j != gid_i, gid_j != 0 (2).
+# The kernel's own SASS spends REACH_INSTR_SASS, the radius guards, 8 r_j
+# and the padding test on top (6 FADD, 6 FMUL and 5 FSETP a pair: 35 in
+# the block before the vote of fused_count_kernel<7, false>, 17 for each
+# of a warp's 2 atoms and 1 for the row's own gid_j == 0 test;
+# scripts/sass_mix.py --before VOTE.ANY): a cross-check, not the
+# yardstick.
+INSTR_PER_MARGIN = 7
+REACH_INSTR_PER_PAIR = 14
+REACH_INSTR_SASS = 17
+
+
+def needed_instructions(work: dict, n_points: int,
+                        per_pair: int = REACH_INSTR_PER_PAIR) -> int:
+    """FP32 instructions the counts of reach_work's inputs need: a margin
+    at each of n_points points for each pair in reach, and a reach test
+    of `per_pair` instructions for each admitted pair (chip_smoke.py's
+    bound of kernel 1)."""
+    return (INSTR_PER_MARGIN * n_points * work["reach"][1]
+            + per_pair * work["admitted"])
+
+
+def reach_work(planes, jlist, sphere) -> dict:
+    """The count kernel's work on these inputs, summed over the real
+    i-atoms (gid != 0), plain torch -> {"atoms", "admitted", "reach":
+    {group size: pairs}, "far", "kept", "warp_rows"}.
+
+    "admitted" counts the (i, j) pairs of the admitted j-atoms;
+    "reach"[G] the admitted pairs whose j-atom is in reach of some real
+    atom of i's aligned group of G atoms (REACH_GROUPS): v2 < (r_i +
+    r_j)^2 in f32, gid_j not gid_i nor 0.  "reach"[1] is the pairs in
+    reach.  "far" counts the admitted pairs whose gids keep them but the
+    kernel's distance test skips (reach_far, where the sphere allows it).
+    "kept" counts the pairs of the rows each warp streams (reach_keep
+    ORed over its WARP_ATOMS atoms), and "warp_rows" [T, ATOM_TILE /
+    WARP_ATOMS] i64 those rows by warp, for one point pass.
+    """
+    dev = planes.device
+    t = planes.shape[1] // ATOM_TILE
+    far_ok = sphere_far_ok(sphere)
+    out = {"atoms": 0, "admitted": 0, "reach": dict.fromkeys(REACH_GROUPS, 0),
+           "far": 0, "kept": 0,
+           "warp_rows": torch.zeros((t, ATOM_TILE // WARP_ATOMS),
+                                    dtype=torch.int64, device=dev)}
+    for ts, _sl, jidx, jv, (xi, yi, zi, ri, gi) in _tile_blocks(planes,
+                                                                jlist):
+        b = jidx.shape[0]
+        xk, yk, zk, rk, gk = (planes[row][jidx] for row in range(5))
+        real = gi != 0.0  # [B, 1, A]
+
+        def per_group(hit, g):
+            """Pairs of real atoms whose group of g has a hit, and the
+            rows each group hits [B, A / g]."""
+            rows = hit.reshape(b, -1, ATOM_TILE // g, g).any(dim=-1)
+            n_real = real.reshape(b, 1, ATOM_TILE // g, g).sum(dim=-1)
+            return int((rows * n_real).sum()), rows.sum(dim=1)
+
+        out["atoms"] += int(real.sum())
+        out["admitted"] += int((jv.sum(dim=1) * real.sum(dim=(1, 2))).sum())
+        for js in _j_chunks(jidx.shape[1], b, 1, dev):
+            vx = xi - xk[:, js, None]
+            vy = yi - yk[:, js, None]
+            vz = zi - zk[:, js, None]
+            v2 = (vx * vx + vy * vy) + vz * vz
+            rkk = rk[:, js, None]
+            gkk = gk[:, js, None]
+            near = (gkk != gi) & (gkk != 0.0) & real & jv[:, js, None]
+            reach = ri + rkk
+            hit = (v2 < reach * reach) & near
+            for g in REACH_GROUPS:
+                out["reach"][g] += per_group(hit, g)[0]
+            if far_ok:
+                out["far"] += int((near & reach_far(v2, ri, rkk)).sum())
+            keep = reach_keep(v2, ri, rkk, gi, gkk, far_ok) & jv[:, js, None]
+            pairs, rows = per_group(keep, WARP_ATOMS)
+            out["kept"] += pairs
+            out["warp_rows"][ts] += rows
     return out
 
 

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..ops import fused_kernel as fk
-from ..ops.fused_kernel import ATOM_TILE, GROUPS_PER_TILE
+from ..ops.fused_kernel import ATOM_TILE, GROUPS_PER_TILE, INSTR_PER_MARGIN
 
 PROBE = 1.4
 N_POINTS = 100
@@ -28,8 +28,6 @@ TEST_STRUCTURES = os.path.join(
     "tests", "data", "freesasa_pdbs",
 )
 STRUCTURE_SUFFIXES = (".pdb", ".cif", ".pdb.gz", ".cif.gz")
-# FP32 instructions per margin: 3 mul, 2 add, 1 sub, 1 max.
-INSTR_PER_MARGIN = 7
 # band_structures: atoms per cubic angstrom (about a folded protein's
 # heavy atoms), the largest structure, and the tiles of padding (no real
 # atom, tmeta (0, 0)) band_chunk_wire appends.
@@ -186,6 +184,82 @@ def band_chunk_wire(structures, wire: str, pad_tiles: int = BAND_PAD_TILES):
     return arrays, tiles(tmeta), offsets
 
 
+# tangent_chunk: radii on the q13 wire's lattice (multiples of 2^-13)
+# between these bounds, and the spacing of the clusters (A).  With far,
+# half the partners sit up to TANGENT_FAR past tangency (relative), and
+# half of them have r_j / r_i in TANGENT_RATIO, about the skip's guard of
+# 1/8 (fused_kernel.RADIUS_RATIO), the rest in [TANGENT_RATIO[1], 1].
+TANGENT_R = (2.4, 3.6)
+TANGENT_SPACING = 40.0
+TANGENT_FAR = 2.0 * 2.0 ** -14
+TANGENT_RATIO = (0.11, 0.16)
+
+
+def tangent_chunk(n_points: int, n_atoms: int = 400, seed: int = 0,
+                  ulps: float = 8.0, far: bool = False):
+    """Near-tangent pairs for the count kernel's reach skip, as numpy
+    (planes [8, M] f32, jlist [M/128, 128] i32, real [M] bool), M the
+    atoms rounded up to whole tiles, every tile's j-list admitting every
+    group of every tile.
+
+    Clusters TANGENT_SPACING apart, each an i-atom and up to 60 partner
+    j-atoms, one for each of distinct points s_k of the n_points sphere,
+    at c_j = c_i + d s_k with d = (r_i + r_j)(1 + t 2^-24), t uniform in
+    [-ulps, ulps]: j's sphere touches i's at s_k, within a few roundings.
+    Radii are on the q13 lattice in TANGENT_R; gids are slot + 1.  With
+    far, half the partners sit at the edge of the kernel's distance skip,
+    d = (r_i + r_j) sqrt(fused_kernel.REACH_SLACK)(1 + t 2^-24), the rest
+    at d = (r_i + r_j)(1 + t), t uniform in [0, TANGENT_FAR], across
+    where the skip starts; the partners' radii as TANGENT_RATIO says, so
+    the skip meets its worst radius ratio and pairs just past its guard.
+    """
+    from ..ops.sphere import sphere_points
+
+    rng = np.random.default_rng(seed)
+    pts = sphere_points(n_points).astype(np.float64)
+    q_lo, q_hi = (int(r * fk.R_QUANT) for r in TANGENT_R)
+    coords, radii = [], []
+    c = 0
+    while len(coords) < n_atoms:
+        k = min(60, n_points, n_atoms - len(coords) - 1)
+        if k < 1:
+            break
+        center = 50.0 + TANGENT_SPACING * np.array(
+            [c % 4, (c // 4) % 4, c // 16], np.float64)
+        ri = rng.integers(q_lo, q_hi) / fk.R_QUANT
+        coords.append(center)
+        radii.append(ri)
+        for s in rng.choice(n_points, k, replace=False):
+            if not far:
+                rj = rng.integers(q_lo, q_hi) / fk.R_QUANT
+                d = (ri + rj) * (1.0 + rng.uniform(-ulps, ulps) * 2.0 ** -24)
+            else:
+                lo, hi = (TANGENT_RATIO if rng.random() < 0.5
+                          else (TANGENT_RATIO[1], 1.0))
+                rj = round(ri * rng.uniform(lo, hi) * fk.R_QUANT) / fk.R_QUANT
+                if rng.random() < 0.5:  # at the skip's edge
+                    d = (ri + rj) * np.sqrt(float(fk.REACH_SLACK)) * (
+                        1.0 + rng.uniform(-ulps, ulps) * 2.0 ** -24)
+                else:
+                    d = (ri + rj) * (1.0 + rng.uniform(0.0, TANGENT_FAR))
+            coords.append(center + d * pts[s])
+            radii.append(rj)
+        c += 1
+    n = len(coords)
+    m = -(-n // ATOM_TILE) * ATOM_TILE
+    t = m // ATOM_TILE
+    planes = np.zeros((fk.N_PLANES, m), np.float32)
+    planes[0:3, :n] = np.asarray(coords, np.float32).T
+    planes[3, :n] = np.asarray(radii, np.float32)
+    planes[4, :n] = np.arange(1, n + 1, dtype=np.float32)
+    jlist = np.zeros((t, fk.JLIST_ROWS), np.int64)
+    jlist[:, 0] = t
+    jlist[:, 1:1 + t] = (0xFFFF << 16) | np.arange(t)
+    real = np.zeros(m, bool)
+    real[:n] = True
+    return planes, (jlist & 0xFFFFFFFF).astype(np.uint32).view(np.int32), real
+
+
 def _popcount16(x):
     return sum((x >> g) & 1 for g in range(GROUPS_PER_TILE))
 
@@ -259,6 +333,15 @@ def time_variants(cases, real, atoms: int, device, reps: int):
         }
         outs[name] = out
     return variants, outs
+
+
+def k1_instructions(planes, jlist, sphere) -> int:
+    """FP32 instructions kernel 1's counts of these inputs need
+    (fused_kernel.needed_instructions of reach_work at the sphere's
+    valid points): the work its rate is given at, since it streams only
+    rows in reach."""
+    work = fk.reach_work(planes, jlist, sphere)
+    return fk.needed_instructions(work, int((sphere[:, 3] > 0).sum()))
 
 
 def real_slots(offsets, m, device):

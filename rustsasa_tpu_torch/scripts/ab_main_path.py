@@ -20,6 +20,8 @@ measures:
               between two CUDA events after a warm call;
   stages_2m   r4_atombox's q16 chunk (the first 900 files, 2,097,152
               slots, w = 32), the same way;
+  host_cull   `profile_fused`'s kernel 1 (and the areas) on the first
+              512 files' host-cull f32 wire, best of three;
   single_file `benches/single_protein.py` (example.cif, warm, median of
               25 calls of the CLI's single-file route);
   trajectory  `benches/md_trajectory.py`'s timed pass (example.cif x
@@ -56,8 +58,8 @@ import torch
 from rustsasa_tpu_torch import bench
 from rustsasa_tpu_torch.benches import md_trajectory, single_protein
 from rustsasa_tpu_torch.ops import engine, fused_kernel as fk
-from rustsasa_tpu_torch.scripts import _study, profile_native_pipeline
-from rustsasa_tpu_torch.scripts import r4_atombox
+from rustsasa_tpu_torch.scripts import _study, profile_fused
+from rustsasa_tpu_torch.scripts import profile_native_pipeline, r4_atombox
 
 work, reps, slots = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 dev = torch.device("cuda", 0)
@@ -109,6 +111,9 @@ planes4, tparams, tmeta, _real, _atoms, _n = r4_atombox.load_chunk(corpus, dev)
 out["stages_2m"] = stages("q16", (planes4, tparams), tmeta, r4_atombox.W)
 say("stages_2m %s" % out["stages_2m"])
 del wire, planes4, tparams, tmeta
+fused = profile_fused.run(corpus, device="cuda")
+out["host_cull"] = {"ms": fused["ms"], "atoms": fused["atoms"]}
+say("host_cull %s" % out["host_cull"])
 
 single = single_protein.run(device="cuda")
 out["single_file"] = {"median_ms": single["value"],
@@ -145,6 +150,7 @@ FIGURES = (
     ("stages_05m", "kernel_ms"), ("stages_05m", "chain_ms"),
     ("stages_2m", "dequant_ms"), ("stages_2m", "cull_ms"),
     ("stages_2m", "kernel_ms"), ("stages_2m", "chain_ms"),
+    ("host_cull", "ms"),
     ("single_file", "median_ms"), ("single_file", "best_ms"),
     ("trajectory", "s"), ("device2", "device2_s"), ("device2", "load_s"),
     ("device2", "emit_s"), ("bench", "median"), ("bench", "spread"),

@@ -16,9 +16,11 @@ then the best of three, each between two CUDA events.
 
 Reports milliseconds, ns per j-iteration (j-list entries x 128 i-atoms),
 cycles per j-iteration at the H100's 1.98 GHz boost clock, Matoms/s, and
-FP32 instructions/s (7 per margin over the admitted 8-atom groups x 128
-i-atoms x the padded sphere, as chip_smoke.py's count_bound counts them)
-against the 33.5T/s issue peak.  The reference fed four jittered copies
+FP32 instructions/s at the work the inputs need (fused_kernel.
+needed_instructions of reach_work: 7 a point for each in-reach pair of
+real atoms and the reach test for each admitted pair, as chip_smoke.py
+bounds kernel 1) against the 33.5T/s issue peak, whose share of it is
+the kernel's share of its bound.  The reference fed four jittered copies
 of the planes to defeat its TPU link's memo of repeated calls; CUDA has
 none, so one set of tensors serves.
 """
@@ -34,7 +36,6 @@ import numpy as np
 from ..ops import fused_kernel as fk
 from ..ops.neighbors import _round_bucket
 from . import _study
-from ._study import INSTR_PER_MARGIN
 
 LIMIT = 512
 N_POINTS = 100
@@ -72,11 +73,14 @@ def packed_inputs(corpus_dir=None, limit: int = LIMIT):
 def run(corpus_dir=None, limit: int = LIMIT, device="cuda",
         reps: int = 3) -> dict:
     """Packs and times as the module docstring says.  Returns the shape
-    (files, atoms, m, m_pad, tiles, failed, avg_jtiles, jiters, margins),
-    the timings (pack_s, first_ms, ms, ns_per_jiter, cycles_per_jiter,
-    matoms_s, fp32_instr_per_s, peak_share), where it ran (cpu_count,
-    gpu_name, power_limit) and the last call's per-slot SASA
-    (`sasa`, numpy [M_pad] f32)."""
+    (files, atoms, m, m_pad, tiles, failed, avg_jtiles, jiters), the work
+    (admitted_pairs, reach_pairs, streamed_pairs: (i, j) pairs of real
+    atoms admitted, in reach, and in the rows the kernel streams;
+    margins: the in-reach pairs x N_POINTS; instr), the timings
+    (pack_s, first_ms, ms, ns_per_jiter, cycles_per_jiter, matoms_s,
+    fp32_instr_per_s, peak_share, bound_ms), where it ran (cpu_count,
+    gpu_name, power_limit) and the last call's per-slot SASA (`sasa`,
+    numpy [M_pad] f32)."""
     from ..ops import engine
 
     dev = engine.resolve_devices(device)[0]
@@ -88,21 +92,25 @@ def run(corpus_dir=None, limit: int = LIMIT, device="cuda",
     jiters = int(jlist[:, 0].astype(np.int64).sum()) * fk.ATOM_TILE
     planes_d, jlist_d = fk.to_device((planes, jlist), dev)
     sphere = engine._sphere_device(N_POINTS, dev)
-    margins = (int(_study.streamed_groups(jlist_d).sum()) // 2
-               * fk.J_GROUP * fk.ATOM_TILE * sphere.shape[0])
+    work = fk.reach_work(planes_d, jlist_d, sphere)
+    instr = fk.needed_instructions(work, N_POINTS)
     first_ms, ms, out = _study.timed(
         lambda: fk.fused_sasa(planes_d, jlist_d, sphere, n_points=N_POINTS),
         dev, reps)
-    rate = INSTR_PER_MARGIN * margins / (ms * 1e-3)
+    rate = instr / (ms * 1e-3)
     return {
         "files": n_files, "atoms": atoms, "m": m, "m_pad": planes.shape[1],
         "tiles": tiles, "failed": failed,
         "avg_jtiles": float(jlist[:tiles, 0].mean()), "jiters": jiters,
-        "margins": margins, "pack_s": pack_s, "first_ms": first_ms,
+        "admitted_pairs": work["admitted"], "reach_pairs": work["reach"][1],
+        "streamed_pairs": work["kept"],
+        "margins": work["reach"][1] * N_POINTS, "instr": instr,
+        "pack_s": pack_s, "first_ms": first_ms,
         "ms": ms, "ns_per_jiter": ms * 1e6 / jiters,
         "cycles_per_jiter": ms * 1e-3 / jiters * CLOCK_HZ,
         "matoms_s": atoms / (ms * 1e-3) / 1e6, "fp32_instr_per_s": rate,
-        "peak_share": rate / FP32_INSTR_PER_S, **_study.where(dev),
+        "peak_share": rate / FP32_INSTR_PER_S,
+        "bound_ms": instr / FP32_INSTR_PER_S * 1e3, **_study.where(dev),
         "sasa": out.cpu().numpy(),
     }
 
@@ -120,9 +128,14 @@ def lines(r: dict) -> list[str]:
         f"warm {r['ms']:.3f}ms -> {r['ns_per_jiter']:.3f} ns/j-iter "
         f"({r['cycles_per_jiter']:.2f} cycles at 1.98 GHz), "
         f"{r['matoms_s']:.2f} Matoms/s device-only",
-        f"{r['margins'] / 1e9:.3f}G margins x {INSTR_PER_MARGIN} FP32 "
-        f"instructions: {r['fp32_instr_per_s'] / 1e12:.2f}T/s, "
-        f"{r['peak_share']:.3f} of the 33.5T/s issue peak",
+        f"j-atoms an atom: {r['admitted_pairs'] / r['atoms']:.1f} admitted, "
+        f"{r['reach_pairs'] / r['atoms']:.1f} in reach, "
+        f"{r['streamed_pairs'] / r['atoms']:.1f} streamed",
+        f"{r['instr'] / 1e9:.3f}G FP32 instructions needed ("
+        f"{fk.INSTR_PER_MARGIN} a margin in reach, "
+        f"{fk.REACH_INSTR_PER_PAIR} a reach test): "
+        f"{r['fp32_instr_per_s'] / 1e12:.2f}T/s, {r['peak_share']:.3f} of "
+        f"the 33.5T/s issue peak (bound {r['bound_ms']:.3f} ms)",
         _study.where_line(r),
     ]
 

@@ -153,10 +153,13 @@ def run(triples, device, *, slots: int = _study.M_PAD, reps: int = 4,
 
     Returns {"structures", "atoms", "slots", "tiles", "failed",
     "variants": {name: {"first_ms", "ms", "matoms_s", "max_dcount",
-    "mean_dcount", "j_atoms_per_atom", "margins"}}} with k1 (kernel 1)
-    first.  "j_atoms_per_atom" counts the j-atoms streamed per atom and
-    point pass over the tiles with a non-empty j-list; "margins" the
-    (j, i, point) margins a variant evaluates.
+    "mean_dcount", "j_atoms_per_atom", "margins", "instr"}}} with k1
+    (kernel 1) first.  "j_atoms_per_atom" counts the j-atoms streamed per
+    atom and point pass over the tiles with a non-empty j-list;
+    "margins" the (j, i, point) margins a variant evaluates; "instr" the
+    FP32 instructions of its work: 7 a margin, and for k1 (which streams
+    only rows in reach, fused_kernel.reach_work) the instructions these
+    inputs need (_study.k1_instructions).
     """
     device = torch.device(device)
     planes, jl, real, n_atoms, tiles, failed = _study.host_cull_chunk(
@@ -170,13 +173,20 @@ def run(triples, device, *, slots: int = _study.M_PAD, reps: int = 4,
               for v in variants]
     result, outs = _study.time_variants(cases, real, n_atoms, device, reps)
     busy = max(int((jl[:, 0] > 0).sum()), 1)
+    work = fk.reach_work(planes, jl, sphere)
     for name, v in result.items():
         if name == "k1":
-            j_atoms = int(_study.streamed_groups(jl).sum()) // 2 * J_GROUP
+            # A warp's rows are streamed by each of its WARP_ATOMS atoms,
+            # so a tile's 128 atoms stream its 128 / WARP_ATOMS warps'
+            # rows x WARP_ATOMS / 128 each on average.
+            j_atoms = (int(work["warp_rows"].sum())
+                       // work["warp_rows"].shape[1])
         else:
             j_atoms = int(outs[name][1].sum()) // passes
         v["j_atoms_per_atom"] = j_atoms / busy
         v["margins"] = j_atoms * ATOM_TILE * points
+        v["instr"] = _study.INSTR_PER_MARGIN * v["margins"]
+    result["k1"]["instr"] = _study.k1_instructions(planes, jl, sphere)
     return {
         "structures": len(triples), "atoms": n_atoms, "slots": slots,
         "tiles": tiles, "failed": failed, "variants": result,
@@ -190,7 +200,7 @@ def report(result, device, head: str) -> None:
           f"{_study.device_name(device)}", flush=True)
     k1 = result["variants"]["k1"]
     for name, v in result["variants"].items():
-        rate = _study.INSTR_PER_MARGIN * v["margins"] / (v["ms"] * 1e-3)
+        rate = v["instr"] / (v["ms"] * 1e-3)
         print(f"{name:11s} first {v['first_ms']:9.1f} ms  warm "
               f"{v['ms']:9.3f} ms ({v['ms'] / k1['ms']:.3f}x k1)  "
               f"{v['matoms_s']:7.2f} Matoms/s  {rate / 1e12:6.2f}T FP32 "

@@ -143,9 +143,12 @@ def run(triples, device, *, w: int = W, slots: int = _study.M_PAD,
 
     Returns {"structures", "atoms", "slots", "tiles", "build_ms",
     "variants": {name: {"first_ms", "ms", "matoms_s", "max_dcount",
-    "mean_dcount", "margins", "instr_per_margin"}}} with variants prod
-    (kernel 1) and mp_static; "margins" counts the (j, i, point) margins
-    both evaluate.
+    "mean_dcount", "margins", "instr_per_margin", "instr"}}} with
+    variants prod (kernel 1) and mp_static; "margins" counts the (j, i,
+    point) margins of the admitted groups, "instr" the FP32 instructions
+    of each one's work: instr_per_margin a margin for mp_static, and for
+    prod, which streams only rows in reach, what these inputs need
+    (_study.k1_instructions).
     """
     device = torch.device(device)
     planes, qvalid, tmeta, real, n_atoms, tiles = _study.banded_chunk(
@@ -166,6 +169,8 @@ def run(triples, device, *, w: int = W, slots: int = _study.M_PAD,
                       ("mp_static", MAXPLUS_INSTR_PER_MARGIN)):
         result[name]["margins"] = margins
         result[name]["instr_per_margin"] = per
+        result[name]["instr"] = per * margins
+    result["prod"]["instr"] = _study.k1_instructions(planes, jlist, sphere)
     return {
         "structures": len(triples), "atoms": n_atoms, "slots": slots,
         "tiles": tiles, "build_ms": build_ms, "variants": result,
@@ -179,11 +184,11 @@ def report(result, device, head: str) -> None:
           f"{result['build_ms']:.3f} ms", flush=True)
     prod = result["variants"]["prod"]
     for name, v in result["variants"].items():
-        rate = v["instr_per_margin"] * v["margins"] / (v["ms"] * 1e-3)
+        rate = v["instr"] / (v["ms"] * 1e-3)
         print(f"{name:9s} first {v['first_ms']:9.1f} ms  warm {v['ms']:9.3f} "
               f"ms ({v['ms'] / prod['ms']:.3f}x prod)  {v['matoms_s']:7.2f} "
               f"Matoms/s  {rate / 1e12:6.2f}T FP32 instr/s at its own work "
-              f"({v['instr_per_margin']} per margin)  max|dc|="
+              f"({v['instr'] / v['margins']:.3f} per admitted margin)  max|dc|="
               f"{v['max_dcount']} mean|dc|={v['mean_dcount']:.5f}",
               flush=True)
 

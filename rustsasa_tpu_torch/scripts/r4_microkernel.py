@@ -79,9 +79,13 @@ def run(triples, device, *, slots: int = _study.M_PAD, reps: int = 4,
 
     Returns {"structures", "atoms", "slots", "tiles", "failed",
     "variants": {name: {"first_ms", "ms", "matoms_s", "max_dcount",
-    "mean_dcount", "groups", "margins"}}} with k1 (kernel 1) first, then
-    each variant; "groups" counts the 8-atom groups a variant streams per
-    point pass and "margins" its (j, i, point) margins.
+    "mean_dcount", "groups", "margins", "instr"}}} with k1 (kernel 1)
+    first, then each variant; "groups" counts the 8-atom groups a variant
+    streams per point pass (for k1, prod's: the admitted ones), "margins"
+    the (j, i, point) margins of those groups and "instr" the FP32
+    instructions of a variant's work: 7 a margin, and for k1, which
+    streams only rows in reach, what these inputs need
+    (_study.k1_instructions).
     """
     device = torch.device(device)
     planes, jl, real, n_atoms, tiles, failed = _study.host_cull_chunk(
@@ -99,6 +103,8 @@ def run(triples, device, *, slots: int = _study.M_PAD, reps: int = 4,
     for name, v in result.items():
         v["groups"] = groups[name]
         v["margins"] = groups[name] * J_GROUP * ATOM_TILE * points
+        v["instr"] = _study.INSTR_PER_MARGIN * v["margins"]
+    result["k1"]["instr"] = _study.k1_instructions(planes, jl, sphere)
     return {
         "structures": len(triples), "atoms": n_atoms, "slots": slots,
         "tiles": tiles, "failed": failed, "variants": result,
@@ -112,7 +118,7 @@ def report(result, device, head: str) -> None:
           f"{_study.device_name(device)}", flush=True)
     k1 = result["variants"]["k1"]
     for name, v in result["variants"].items():
-        rate = _study.INSTR_PER_MARGIN * v["margins"] / (v["ms"] * 1e-3)
+        rate = v["instr"] / (v["ms"] * 1e-3)
         print(f"{name:7s} first {v['first_ms']:9.1f} ms  warm {v['ms']:9.3f} "
               f"ms ({v['ms'] / k1['ms']:.3f}x k1)  {v['matoms_s']:7.2f} "
               f"Matoms/s  {rate / 1e12:6.2f}T FP32 instr/s at its own work  "

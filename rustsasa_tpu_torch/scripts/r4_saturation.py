@@ -158,7 +158,9 @@ def run(triples, device, *, slots: int = _study.M_PAD, reps: int = 4,
     "matoms_s", "max_dcount", "skipped"}}} with variants prod and
     sat<check_every>; "entries" counts the j-list entries of all point
     passes, "skipped" the share of them a variant did not stream, and
-    "margins" the (j, i, point) margins prod evaluates.
+    "margins" the (j, i, point) margins of the admitted groups, "instr"
+    the FP32 instructions prod (kernel 1, which streams only rows in
+    reach) needs on these inputs (_study.k1_instructions).
     """
     device = torch.device(device)
     planes, jl, real, n_atoms, tiles, failed = _study.host_cull_chunk(
@@ -182,7 +184,9 @@ def run(triples, device, *, slots: int = _study.M_PAD, reps: int = 4,
     return {
         "structures": len(triples), "atoms": n_atoms, "slots": slots,
         "tiles": tiles, "failed": failed, "entries": entries,
-        "margins": margins, "variants": variants,
+        "margins": margins,
+        "instr": _study.k1_instructions(planes, jl, sphere),
+        "variants": variants,
     }
 
 
@@ -193,9 +197,8 @@ def report(result, device, head: str) -> None:
           f"{result['entries']} j-list entries over all point passes, on "
           f"{_study.device_name(device)}", flush=True)
     for name, v in result["variants"].items():
-        # Saturation variants skip part of prod's margins; their rate is
-        # counted at prod's work.
-        rate = _study.INSTR_PER_MARGIN * result["margins"] / (v["ms"] * 1e-3)
+        # Every variant's rate is counted at the work prod needs.
+        rate = result["instr"] / (v["ms"] * 1e-3)
         print(f"{name:6s} first {v['first_ms']:9.1f} ms  warm {v['ms']:9.3f} "
               f"ms  {v['matoms_s']:7.2f} Matoms/s  {rate / 1e12:6.2f}T FP32 "
               f"instr/s at prod's work  max|dc|={v['max_dcount']}  skipped "

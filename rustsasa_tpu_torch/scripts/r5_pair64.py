@@ -146,11 +146,13 @@ def run(triples, device, *, w: int = W, slots: int = _study.M_PAD,
     Returns {"structures", "atoms", "slots", "tiles", "kernel_equal",
     "builders": {name: {"first_ms", "ms"}}, "variants": {name: {"first_ms",
     "ms",
-    "matoms_s", "max_dcount", "j_atoms_per_atom", "margins"}}} with
-    variants prod, nibble and pair64.  "j_atoms_per_atom" is the
-    lane-weighted count of streamed j-atoms per atom over the tiles with
-    a non-empty j-list, "margins" the (j, i, point) margins the kernel
-    evaluates.
+    "matoms_s", "max_dcount", "j_atoms_per_atom", "margins", "instr"}}}
+    with variants prod, nibble and pair64.  "j_atoms_per_atom" is the
+    lane-weighted count of admitted j-atoms per atom over the tiles with
+    a non-empty j-list, "margins" their (j, i, point) margins, "instr"
+    the FP32 instructions of the kernel's work: 7 a margin, and for prod
+    (kernel 1, which streams only rows in reach) what these inputs need
+    (_study.k1_instructions).
     """
     device = torch.device(device)
     planes, qvalid, tmeta_d, real, n_atoms, tiles = _study.banded_chunk(
@@ -192,6 +194,9 @@ def run(triples, device, *, w: int = W, slots: int = _study.M_PAD,
         variants[name]["j_atoms_per_atom"] = (lane_groups * J_GROUP / 2
                                               / max(int(busy.sum()), 1))
         variants[name]["margins"] = lane_groups * J_GROUP * ATOM_TILE // 2 * points
+        variants[name]["instr"] = _study.INSTR_PER_MARGIN * variants[name][
+            "margins"]
+    variants["prod"]["instr"] = _study.k1_instructions(planes, jlist, sphere)
     return {
         "structures": len(triples), "atoms": n_atoms, "slots": slots,
         "tiles": tiles, "builders": builders, "variants": variants,
@@ -209,7 +214,7 @@ def report(result, device, head: str) -> None:
     print(f"banded_kernel j-lists byte-equal to banded: "
           f"{result['kernel_equal']}", flush=True)
     for name, v in result["variants"].items():
-        rate = _study.INSTR_PER_MARGIN * v["margins"] / (v["ms"] * 1e-3)
+        rate = v["instr"] / (v["ms"] * 1e-3)
         print(f"{name:8s} first {v['first_ms']:9.1f} ms  warm {v['ms']:9.3f} "
               f"ms  {v['matoms_s']:7.2f} Matoms/s  {rate / 1e12:6.2f}T FP32 "
               f"instr/s  max|dc|={v['max_dcount']}  "

@@ -2,13 +2,17 @@
 
     python -m rustsasa_tpu_torch.scripts.sass_mix ke_maxplus ke_bf16
     python -m rustsasa_tpu_torch.scripts.sass_mix --lib path/to/lib.so
+    python -m rustsasa_tpu_torch.scripts.sass_mix fused_count \
+        --before VOTE.ANY
 
 Builds the named `ops/csrc/` sources (or takes built libraries),
 disassembles each with the CUDA toolkit's `cuobjdump -sass` and prints,
 per kernel instantiation, its instruction count and, for each innermost
 loop (a backward branch and the instructions from its target), the
-loop's length and its instructions by opcode.  Needs the toolkit, not
-the card.
+loop's length and its instructions by opcode.  With --before OPCODE it
+also prints the straight-line block that leads to each instruction of
+that opcode (from the branch before it), e.g. fused_count.cu's reach
+test, which ends in a warp vote.  Needs the toolkit, not the card.
 """
 
 from __future__ import annotations
@@ -67,6 +71,22 @@ def innermost_loops(code) -> list[tuple[int, int]]:
                              for o in spans))
 
 
+def blocks_before(code, op: str) -> list[tuple[int, int]]:
+    """(first, last) instruction indices of the block before each
+    instruction of opcode `op`: from the one after the branch that
+    precedes it (or the function's start) to the one before it."""
+    spans = []
+    for i, (_addr, ins) in enumerate(code):
+        if opcode(ins) != op:
+            continue
+        first = i
+        while first > 0 and not opcode(code[first - 1][1]).startswith("BRA"):
+            first -= 1
+        if first < i:
+            spans.append((first, i - 1))
+    return spans
+
+
 def mix(code, first: int, last: int) -> collections.Counter:
     return collections.Counter(opcode(ins) for _, ins in code[first:last + 1])
 
@@ -84,7 +104,14 @@ def _cuobjdump() -> str:
     return os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
 
 
-def report(lib: str, min_loop: int = 16) -> None:
+def _line(kind, code, first, last):
+    counts = mix(code, first, last)
+    body = ", ".join(f"{op} {n}" for op, n in counts.most_common())
+    return (f"    {kind} 0x{code[first][0]:04x}-0x{code[last][0]:04x}, "
+            f"{last - first + 1} instructions: {body}")
+
+
+def report(lib: str, min_loop: int = 16, before: str | None = None) -> None:
     text = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
     functions = parse(text)
@@ -93,12 +120,10 @@ def report(lib: str, min_loop: int = 16) -> None:
     for fn, code in functions.items():
         print(f"  {names[fn]}: {len(code)} instructions", flush=True)
         for first, last in innermost_loops(code):
-            if last - first + 1 < min_loop:
-                continue
-            counts = mix(code, first, last)
-            body = ", ".join(f"{op} {n}" for op, n in counts.most_common())
-            print(f"    loop 0x{code[first][0]:04x}-0x{code[last][0]:04x}, "
-                  f"{last - first + 1} instructions: {body}", flush=True)
+            if last - first + 1 >= min_loop:
+                print(_line("loop", code, first, last), flush=True)
+        for first, last in blocks_before(code, before) if before else ():
+            print(_line(f"before {before}", code, first, last), flush=True)
 
 
 def main(argv=None) -> int:
@@ -106,6 +131,8 @@ def main(argv=None) -> int:
     parser.add_argument("sources", nargs="*", help="csrc/<name>.cu to build")
     parser.add_argument("--lib", action="append", default=[],
                         help="a built library to disassemble")
+    parser.add_argument("--before", default=None, metavar="OPCODE",
+                        help="also the block before each such instruction")
     args = parser.parse_args(argv)
     libs = list(args.lib)
     if args.sources:
@@ -119,7 +146,7 @@ def main(argv=None) -> int:
         parser.print_usage(sys.stderr)
         return 1
     for lib in libs:
-        report(lib)
+        report(lib, before=args.before)
     return 0
 
 

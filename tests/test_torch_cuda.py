@@ -63,6 +63,51 @@ def test_kernel_byte_equal_plain(cuda, n_points):
     assert int(got[real].max()) <= n_points
 
 
+@pytest.mark.parametrize("far", [False, True])
+@pytest.mark.parametrize("n_points", [20, 60, 100, 256, 1000])
+def test_kernel_byte_equal_plain_on_tangent_pairs(cuda, n_points, far):
+    """Near-tangent pairs (a rounding from flipping a count under an
+    exact reach test), and with far pairs at the edge of the distance
+    skip and spread past it (small j-radii about its guard): the kernel
+    and its kRows instantiation byte-equal to the plain version, and the
+    rows each warp streamed equal to the plain model's, fewer than the
+    admitted ones."""
+    planes, jlist, real = (torch.from_numpy(a).to(cuda) for a in
+                           _study.tangent_chunk(n_points, 400, n_points,
+                                                far=far))
+    sphere = engine._sphere_device(n_points, cuda)
+    want = fk.fused_counts_reference(planes, jlist, sphere)
+    assert torch.equal(fk.fused_counts(planes, jlist, sphere)[real],
+                       want[real])
+    before = _kernels.launch_counts["fused_count_rows"]
+    got, rows = _kernels.fused_count(planes, jlist, sphere, rows=True)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["fused_count_rows"] == before + 1
+    assert torch.equal(got[real], want[real])
+    work = fk.reach_work(planes, jlist, sphere)
+    assert work["far"] > 0 or not far
+    passes, _k = _kernels.lane_passes(n_points)
+    assert torch.equal(rows.long(), work["warp_rows"] * passes)
+    admitted = (int(jlist[:, 0].sum()) * 128 * rows.shape[1]
+                * passes)
+    assert 0 < int(rows.sum()) < admitted
+
+
+def test_fused_count_rows_checks_inputs(cuda):
+    planes = torch.zeros((8, 256), device=cuda)
+    jlist = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+    sphere = torch.zeros((104, 4), device=cuda)
+    # Bulk copies need 16-byte aligned planes.
+    shifted = torch.zeros(8 * 256 + 1, device=cuda)[1:].view(8, 256)
+    with pytest.raises(ValueError, match="16-byte"):
+        _kernels.fused_count(shifted, jlist, sphere)
+    with pytest.raises(ValueError, match="16-byte"):
+        _kernels.fused_count(shifted, jlist, sphere, rows=True)
+    counts, rows = _kernels.fused_count(planes, jlist, sphere, rows=True)
+    assert rows.shape == (2, 64) and int(rows.sum()) == 0
+    assert counts.shape == (256,)
+
+
 def test_engine_cuda_equals_cpu(cuda):
     structures = _structures([90, 400, 1300], seed=5)
     structures.append(_structures([260], seed=6, spread=120.0)[0])  # q16
@@ -103,7 +148,11 @@ def test_fused_count_on_host_cull_jlist_byte_equal_plain(cuda):
     sphere = engine._sphere_device(100, cuda)
     got = fk.fused_counts(planes_d, jlist_d, sphere)
     want = fk.fused_counts_reference(planes_d, jlist_d, sphere)
-    assert torch.equal(got, want)
+    # Real slots equal; a padding slot (gid 0) skips every j-row, so its
+    # count is its 100 valid points, not the reference's, and its area 0.
+    real = planes_d[4] > 0
+    assert torch.equal(got[real], want[real])
+    assert bool((got[~real] == 100).all())
     area = fk.fused_sasa(planes_d, jlist_d, sphere, n_points=100)
     area_cpu = fk.fused_sasa(*fk.to_device((planes, jlist), "cpu"),
                              engine._sphere_device(100, torch.device("cpu")),
@@ -306,6 +355,8 @@ def test_saturation_byte_equal_plain(cuda, n_points):
     for wire in ((planes5, jlist), r4_saturation.buried_block_wire()):
         planes, jl = fk.to_device(wire, cuda)
         prod = fk.fused_counts(planes, jl, sphere)
+        # fused_count's counts at padding slots are not the reference's.
+        real = planes[4] > 0
         for check_every in (1, 2, 4):
             got, streamed = _launched(
                 "saturation_count",
@@ -315,7 +366,8 @@ def test_saturation_byte_equal_plain(cuda, n_points):
             want, want_streamed = r4_saturation.saturation_counts_reference(
                 planes, jl, sphere, check_every=check_every
             )
-            assert torch.equal(got, want) and torch.equal(got, prod)
+            assert torch.equal(got, want)
+            assert torch.equal(got[real], prod[real])
             assert torch.equal(streamed, want_streamed)
             assert bool((streamed <= passes * jl[:, 0]).all())
     # The lattice's buried tile stops early in every pass; the shell's do not.

@@ -82,7 +82,10 @@ def test_profile_fused_equals_reference_fused_sasa(corpus):
     _stage_values(r, {"pack_s", "first_ms", "ms", "ns_per_jiter",
                       "cycles_per_jiter", "matoms_s", "fp32_instr_per_s",
                       "peak_share", "files", "atoms", "m", "m_pad", "tiles",
-                      "jiters", "margins", "avg_jtiles", "failed"} | WHERE)
+                      "jiters", "margins", "avg_jtiles", "failed",
+                      "admitted_pairs", "reach_pairs", "streamed_pairs",
+                      "instr", "bound_ms"} | WHERE)
+    assert r["reach_pairs"] <= r["streamed_pairs"] < r["admitted_pairs"]
     assert profile_fused.FUSED_M_BUCKETS == _FUSED_M_BUCKETS
     planes, jlist, m, atoms, files, failed = profile_fused.packed_inputs(
         corpus, 2)

@@ -47,20 +47,36 @@ runs fifteen phases, each of which must pass:
      pass equal the chunks the engine dispatched, dequant_boxes' the
      q13, q16 and host-cull q16 chunks, band_jlist's the q13 and q16
      chunks;
-  5. list kernel vs plain: the neighbor phase's records for 1jz8 (the
-     largest test structure) at 100 points, through the list-occlusion
-     kernel and its plain-torch version; byte-equal, both timed, with the
-     tiles' neighbor bounds (min, mean, max), the device time of the
-     records' four K-major copies and the wrapper's host time a call; and
-     byte-equal again at 960 and 50,000 points (several blocks of points a
-     tile, beyond one wave of CTAs);
+  5. the list path's kernels vs plain: the neighbor kernel
+     (neighbor_cells.cu) against the plain neighbor phase on the seeded
+     cases of `_study.neighbor_cases` (a batch of three structures with
+     padding rows and a shared group id, groups of four ids, clusters at
+     +-1,000 A, a 4,000 A line, pairs at the cutoff within an ulp of d2,
+     the dense ball whose rows overflow K, six structures in N = 8), one
+     launch each: counts, max_count and each row's set of record bit
+     patterns equal, the list SASA at 100 points from either byte-equal;
+     then 1jz8 (the largest test structure): its records as the list
+     path makes them (one neighbor launch a run), the list-occlusion
+     kernel and its plain version on them at 100 points, byte-equal, both
+     timed, with the tiles' neighbor bounds (min, mean, max) and the
+     wrapper's host time a call, byte-equal again at 960 and 50,000
+     points (several blocks of points a tile, beyond one wave of CTAs);
+     the neighbor kernel alone and the whole phase (cell keys, sort,
+     kernel) warm, in a CUDA graph and as calls back to back, the plain
+     version (expansion, top-k, its K-major copies) warm, held equal as
+     on the cases, the list SASA at P = 104, 960 and 50,000 byte-equal
+     from kernel-made and plain-made records, and the kernel's bound
+     (bytes; FP32 operations of the pairs its cells visit), its share
+     of it, ptxas registers and spills;
   6. list path: `calculate_sasa_internal(backend="list")` on example.cif
      against the golden array and protein total, and the closed-form cases
-     of tests/test_sanity.py at 50,000 points within 0.5 %; the list
-     kernel must launch and the count kernel must not;
+     of tests/test_sanity.py at 50,000 points within 0.5 %; the list and
+     neighbor kernels must launch once each a batch and the count kernel
+     must not;
   7. host-cull wires: `process_directory` over all 88 FreeSASA structures
      on CUDA, with the chunks of each route counted (the three largest
-     need the host-cull wires or the list path); their JSON is
+     need the host-cull wires or the list path, one list and one neighbor
+     kernel a list chunk); their JSON is
      byte-identical to the CPU's; a shared-group-id structure through the
      f32 wire equals the CPU result exactly;
   8. count-kernel studies: on a banded q16 chunk of 524,288 slots
@@ -93,7 +109,8 @@ runs fifteen phases, each of which must pass:
      example.cif at residue level with --device cuda and --device cpu
      (every value within 1e-3; whether the files are byte-equal is
      printed), in directory mode over the 88 FreeSASA files, and with -T
-     on a 16-frame DCD; each run's wall time and launches;
+     on a 16-frame DCD; each run's wall time and launches (a neighbor
+     kernel for each list kernel; both launch in directory mode);
  12. trajectory: `compute_trajectory_sasa` over example.cif x 2,500
      jittered frames (benches/md_trajectory.py's workload), a warm and a
      timed pass; frames 0, 1,250 and 2,499 byte-equal to
@@ -101,7 +118,8 @@ runs fifteen phases, each of which must pass:
      within 1e-3 of the CPU's plain path;
  13. quality gate: `scripts/quality_gate.run_gate` on the card, all four
      depths and the occupancy row, 88/88 files and a pass in every row;
-     the count and list kernels must launch;
+     the count and list kernels must launch, a neighbor kernel for each
+     list kernel;
  14. scale-out, on the one card: phase 4's corpus through an engine on
      two streams of it (`devices=[cuda:0, cuda:0]`; a warm and a timed
      pass), byte-equal to phase 4's last pass, every entry dispatching
@@ -111,8 +129,9 @@ runs fifteen phases, each of which must pass:
      (`parallel.mesh`) over two streams on the largest even batch of
      FreeSASA structures sharing an N bucket, re-run while its max count
      exceeds K, byte-equal to `_sasa_batched` on the whole batch with its
-     total equal to that batch's sum and one list kernel a shard; and
-     `graft_entry.dryrun_multichip` over the two entries.  The kernel
+     total equal to that batch's sum and one list and one neighbor kernel
+     a shard; and `graft_entry.dryrun_multichip` over the two entries
+     (one of each a shard again).  The kernel
      records carry these paths' launches (`scale_out_launches`);
  15. profilers and studies: the reference's last scripts through their
      ports' run() at the scripts' sizes on "cuda" -
@@ -136,8 +155,10 @@ ke_maxplus's six variants, ke_bf16's two and ke_stream's nobig and
 noscalar) with their
 bound, share of it, FP32 instruction rate, ptxas registers and spills
 and shared memory.  Prints the card's name and
-power limit, one JSON line with the thirteen kernel sources' numbers
-(band_cull.cu as its two kernels, dequant_boxes bound by bytes) and a
+power limit, one JSON line with the fourteen kernel sources' numbers
+(band_cull.cu as its two kernels, dequant_boxes and neighbor_cells bound
+by bytes; neighbor_cells timed alone in a CUDA graph, with its time as
+a call and the whole phase's beside it) and a
 record of its own for mxu_dots_def (each with its bound: the larger of its FP32
 instructions at this run's work over the 33.5T/s issue peak, for the
 DEFAULT variants also its mma work over the 989 TFLOP/s bf16
@@ -201,6 +222,9 @@ KERNELS = {
                       "599-610"),
     "band_jlist": ("rustsasa_tpu_torch/ops/csrc/band_cull.cu",
                    "rustsasa_tpu/ops/fused_kernel.py:612-711"),
+    # The list path's neighbor phase (XLA device code in the JAX package).
+    "neighbor_cells": ("rustsasa_tpu_torch/ops/csrc/neighbor_cells.cu",
+                       "rustsasa_tpu/ops/engine.py:138-211"),
 }
 LARGEST = ("1hbn.pdb.gz", "1n62.pdb.gz", "1jz8.pdb.gz")
 # csrc/band_cull.cu: FP32 instructions of one band_jlist point-box test
@@ -213,6 +237,8 @@ BAND_INSTR_PER_TEST = 22
 DEQUANT_INSTR_PER_SLOT = 41
 BOX_BYTES_PER_TILE = 4 * (16 * 7 + 7)
 BAND_KERNELS = ("dequant_boxes", "band_jlist")
+# The list path's kernels: one of each a list batch.
+LIST_KERNELS = ("list_occlusion", "neighbor_cells")
 # csrc/fused_count.cu's shared memory before the sphere (kSphereOffset):
 # a 4-slot ring of 5 x 128 floats, 8 mbarriers, 32 atoms (20 bytes each)
 # and the j-list row.
@@ -237,6 +263,12 @@ REFERENCE_RESIDUE_RMSE = 45.9163
 # Sphere sizes phase 5 also holds the list kernel to its plain version at
 # on 1jz8's records: 8 and 391 blocks of points a tile.
 LIST_BIG_SPHERES = (960, 50_000)
+# csrc/neighbor_cells.cu: FP32 operations of one visited pair (sq_j: 3
+# FMUL, 2 FADD; the cross term: FMUL, 2 FFMA; d2: FADD, FMUL, FSUB, the
+# clamp; the compare) and of one record (v: 3 FSUB; v2: 3 FMUL, 2 FADD;
+# nr: FADD; limit: FMUL, 2 FSUB, the division).
+NEIGHBOR_OPS_PER_PAIR = 13
+NEIGHBOR_OPS_PER_RECORD = 13
 
 
 def log(msg: str) -> None:
@@ -812,16 +844,70 @@ def phase_main_path(device):
             **record["band_launches"][-1]}, record["median"]
 
 
-def phase_list_kernel(device, build_logs):
-    """Kernel 2 and its plain version on the neighbor phase's records for
-    the largest test structure; returns its JSON record."""
+def neighbor_vs_plain(got, want):
+    """(max |diff| over the rows' sorted records, the parts that differ)
+    of the neighbor kernel's (planes, counts, max_count) against its
+    plain version's; the diff is 0.0 when they are equal."""
+    import torch
+
+    from rustsasa_tpu_torch.scripts import _study
+
+    bad = _study.records_differ(got, want)
+    a, b = (_study.record_multisets(rec[0], rec[1]).view(torch.float32)
+            for rec in (got, want))
+    return float((a - b).abs().nan_to_num(0.0).max()), bad
+
+
+def neighbor_kernel_cases(device):
+    """The neighbor kernel against its plain version on the seeded cases
+    of _study.neighbor_cases (one launch each): counts, max_count and
+    each row's set of record bit patterns equal, and the list path's SASA
+    at 100 points byte-equal from either."""
     import torch
 
     from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
-    from rustsasa_tpu_torch.scripts import layout_probe
+    from rustsasa_tpu_torch.scripts import _study
 
+    sphere = engine._sphere_device(100, device)
+    for name, packed, gid, k in _study.neighbor_cases():
+        packed, gid = (torch.from_numpy(a).to(device) for a in (packed, gid))
+        before = _kernels.launch_counts["neighbor_cells"]
+        got = neighbors.neighbor_records(packed, gid, probe=PROBE, k=k)
+        launches = _kernels.launch_counts["neighbor_cells"] - before
+        want = neighbors.neighbor_records_reference(packed, gid, probe=PROBE,
+                                                    k=k)
+        err, bad = neighbor_vs_plain(got, want)
+        equal = bool(torch.equal(*(neighbors.records_sasa(
+            rec, packed, gid, sphere, probe=PROBE, n_points=100)
+            for rec in (got, want))))
+        log(f"[neighbor] {name}: B={gid.shape[0]}, N={gid.shape[1]}, "
+            f"K={got[0].shape[1]}, max count {int(got[2])}; counts, "
+            f"max_count and records equal to plain: {not bad} (max |diff| "
+            f"{err}); SASA byte-equal: {equal}; {launches} launch")
+        if bad or not equal or launches != 1:
+            raise AssertionError(f"neighbor kernel on {name}: {bad}, SASA "
+                                 f"equal {equal}, {launches} launches")
+
+
+def phase_list_kernel(device, build_logs):
+    """Phase 5: the list path's two kernels against their plain versions:
+    the neighbor kernel on the seeded cases, then on the largest test
+    structure the neighbor phase (kernel, whole phase, plain version with
+    its K-major copies) and the list kernel on its records; returns
+    their JSON records."""
+    import torch
+
+    from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
+    from rustsasa_tpu_torch.scripts import _study, layout_probe
+
+    neighbor_kernel_cases(device)
+    _kernels.reset_launch_counts()
     rec = layout_probe.list_records(device, os.path.join(SOURCE_DIR,
                                                          LARGEST[-1]))
+    runs = _kernels.launch_counts["neighbor_cells"]
+    if runs != rec["runs"] or _kernels.launch_counts["list_occlusion"]:
+        raise AssertionError(f"{rec['runs']} neighbor phases, launches "
+                             f"{_kernels.launch_counts}")
     planes, area, sphere, kmax = (rec[key] for key in
                                   ("planes", "area", "sphere", "kmax"))
     kernel_ms, got = cuda_ms(
@@ -840,7 +926,8 @@ def phase_list_kernel(device, build_logs):
         f"K={kdim} (max candidates {rec['max_count']}), P={sphere.shape[0]}"
         f"; tile bound min {int(kmax.min())}, mean {float(kd.mean()):.1f}, "
         f"max {int(kmax.max())} over {kmax.numel()} tiles; neighbor phase "
-        f"{rec['neighbor_s'] * 1e3:.1f} ms (host clock, first call)")
+        f"{rec['neighbor_s'] * 1e3:.1f} ms (host clock, first call, "
+        f"{runs} launch(es))")
     # The wrapper's host time per call: its checks, allocations and
     # launches, enqueued back to back ahead of the card.
     torch.cuda.synchronize()
@@ -850,9 +937,8 @@ def phase_list_kernel(device, build_logs):
     host_us = (time.perf_counter() - t0) / 50 * 1e6
     torch.cuda.synchronize()
     log(f"[list-kernel] list_occlusion {kernel_ms:.4f} ms (host "
-        f"{host_us:.1f} us a call), its four K-major record copies "
-        f"(neighbors.occlusion_sasa) {rec['copy_ms']:.4f} ms, plain torch "
-        f"{plain_ms:.3f} ms; max |diff| {max_err}, byte-equal: {equal}")
+        f"{host_us:.1f} us a call), plain torch {plain_ms:.3f} ms; max "
+        f"|diff| {max_err}, byte-equal: {equal}")
     if not equal or not bool(torch.isfinite(got).all()):
         raise AssertionError("list kernel disagrees with its plain version")
     if not bool((got[:n] > 0).any()):
@@ -884,8 +970,77 @@ def phase_list_kernel(device, build_logs):
     redesigned_log("[list-kernel]", build_logs["list_occlusion"],
                    "list_occlusion (1jz8)", kernel_ms, work, instr,
                    "list_occlusion_kernel", LIST_SMEM)
-    return record("list_occlusion", None, max_err, kernel_ms, plain_ms, None,
-                  work)
+    listed = record("list_occlusion", None, max_err, kernel_ms, plain_ms,
+                    None, work)
+
+    # The neighbor phase on 1jz8: the kernel alone and the whole phase
+    # (keys, sort, kernel, max count) warm, in a CUDA graph and as calls
+    # back to back; the plain version with its K-major copies.
+    packed, gid, k = rec["packed"], rec["gid"], rec["k"]
+    grid = neighbors.cell_grid(packed, gid, PROBE)
+    sorted_keys, perm = torch.sort(grid.keys, stable=True)
+
+    def kernel():
+        return _kernels.neighbor_cells(packed, gid, grid.max_r, grid.keys,
+                                       sorted_keys, perm, probe=PROBE, k=k)
+
+    def phase():
+        return neighbors.neighbor_records(packed, gid, probe=PROBE, k=k)
+
+    def plain():
+        return neighbors.neighbor_records_reference(packed, gid, probe=PROBE,
+                                                    k=k)
+
+    nb_graph_ms = graph_ms(kernel, 20)
+    nb_call_ms, _ = cuda_ms(kernel, 20)
+    phase_graph_ms = graph_ms(phase, 20)
+    phase_call_ms, mine = cuda_ms(phase, 20)
+    nb_plain_ms, theirs = cuda_ms(plain, 3)
+    v, limit, _c, _m = neighbors._neighbor_phase(packed[0], gid[0],
+                                                  probe=PROBE, k=k)
+    copy_ms, _ = cuda_ms(lambda: neighbors.k_major(v, limit, n_pad), 20)
+    nb_err, bad = neighbor_vs_plain(mine, theirs)
+    log(f"[neighbor] {LARGEST[-1]}: kernel {nb_graph_ms:.4f} ms in a graph, "
+        f"{nb_call_ms:.4f} ms a call; the phase (cell keys, sort, kernel, "
+        f"max) {phase_graph_ms:.4f} ms in a graph, {phase_call_ms:.4f} ms a "
+        f"call; plain (expansion, top-k, K-major copies) {nb_plain_ms:.3f} "
+        f"ms, its copies {copy_ms:.4f} ms; cell edge {float(grid.h[0]):.4f} "
+        f"A; counts, max_count and records equal: {not bad} (max |diff| "
+        f"{nb_err})")
+    if bad:
+        raise AssertionError(f"neighbor kernel on {LARGEST[-1]}: {bad}")
+    for n_points in (100, *LIST_BIG_SPHERES):
+        ball = engine._sphere_device(n_points, device)
+        same = bool(torch.equal(*(neighbors.records_sasa(
+            r, packed, gid, ball, probe=PROBE, n_points=n_points)
+            for r in (mine, theirs))))
+        log(f"[neighbor] {LARGEST[-1]} list SASA at P={ball.shape[0]} from "
+            f"kernel-made and plain-made records byte-equal: {same}")
+        if not same:
+            raise AssertionError(f"list SASA at P={ball.shape[0]} differs "
+                                 "between the two record sets")
+    # Bound: bytes of the kernel's inputs read once (packed, gid, max_r,
+    # keys, sorted keys, permutation) and its outputs written once (the
+    # K x N4 records, counts); operations: each visited pair's test and
+    # each kept record, by this run's cells.
+    m = gid.numel()
+    visits = int(_study.visited_pairs(grid.keys, sorted_keys).sum())
+    kept = int(mine[1].clamp(max=k).sum())
+    ops = NEIGHBOR_OPS_PER_PAIR * visits + NEIGHBOR_OPS_PER_RECORD * kept
+    nbytes = 44 * m + 4 * gid.shape[0] + 16 * k * n_pad + 4 * m
+    nb_bound = bound(ops, nbytes)
+    regs = [v for fn, v in ptxas_entries(build_logs["neighbor_cells"]).items()
+            if "neighbor_cells_kernel" in fn]
+    log(f"[neighbor] bound {nb_bound[0]:.4f} ms ({nb_bound[1]}: {nbytes} "
+        f"bytes, {ops} FP32 operations for {visits} visited pairs and "
+        f"{kept} records, {visits / n:.1f} and {kept / n:.1f} an atom); "
+        f"the kernel at {nb_bound[0] / nb_graph_ms:.3f} of it in a graph; "
+        f"ptxas (registers, spill stores) {regs}")
+    neighbor = record("neighbor_cells", None, nb_err, nb_graph_ms, nb_plain_ms,
+                      None, nb_bound)
+    neighbor.update(call_ms=nb_call_ms, phase_graph_ms=phase_graph_ms,
+                    phase_call_ms=phase_call_ms, copy_ms=copy_ms)
+    return listed, neighbor
 
 
 ANALYTIC = (
@@ -900,7 +1055,8 @@ ANALYTIC = (
 
 
 def phase_list_path(device):
-    """The list path end to end; returns the list kernel's launches."""
+    """The list path end to end; returns the list path's two kernels'
+    launches ({name: n})."""
     import numpy as np
 
     from rustsasa_tpu_torch import (
@@ -945,9 +1101,10 @@ def phase_list_path(device):
             raise AssertionError(f"{name}: relative error {rel}")
     launches = dict(_kernels.launch_counts)
     log(f"[list] launches: {launches}")
-    if launches["list_occlusion"] == 0 or launches["fused_count"] != 0:
+    if launches["list_occlusion"] == 0 or launches["fused_count"] != 0 or (
+            launches["neighbor_cells"] != launches["list_occlusion"]):
         raise AssertionError(f"list path launches {launches}")
-    return launches["list_occlusion"]
+    return {k: launches[k] for k in LIST_KERNELS}
 
 
 def phase_host_cull(device, work):
@@ -981,7 +1138,8 @@ def phase_host_cull(device, work):
     if routes["host_q16"] < 1:
         raise AssertionError("no chunk took the host-cull q16 wire")
     if (launches["fused_count"] != engine.chunks_dispatched
-            or launches["list_occlusion"] != routes["list"]):
+            or launches["list_occlusion"] != routes["list"]
+            or launches["neighbor_cells"] != routes["list"]):
         raise AssertionError(f"launches {launches} for routes {routes}")
 
     # Each route's share: its structures alone, selected in advance, one
@@ -1519,8 +1677,11 @@ def run_cli(args, tag):
                              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
     launches = json.loads(counts[-1].split(" ", 1)[1])
     log(f"[cli] {tag}: {wall:.3f}s wall (process start included), "
-        f"{launches['fused_count']} fused_count and "
-        f"{launches['list_occlusion']} list_occlusion launches")
+        f"{launches['fused_count']} fused_count, "
+        f"{launches['list_occlusion']} list_occlusion and "
+        f"{launches['neighbor_cells']} neighbor_cells launches")
+    if launches["neighbor_cells"] != launches["list_occlusion"]:
+        raise AssertionError(f"CLI {tag}: launches {launches}")
     return wall, launches
 
 
@@ -1566,7 +1727,8 @@ def phase_cli(smi):
     _, launches = run_cli([SOURCE_DIR, out_dir, "--format", "json",
                            "--device", "cuda"], "88 FreeSASA files, directory")
     n_out = len(os.listdir(out_dir))
-    if n_out != len(os.listdir(SOURCE_DIR)) or not launches["fused_count"]:
+    if n_out != len(os.listdir(SOURCE_DIR)) or not launches["fused_count"] or (
+            not launches["list_occlusion"]):
         raise AssertionError(f"directory mode: {n_out} outputs, {launches}")
 
     dcd = os.path.join(work, "traj16.dcd")
@@ -1662,7 +1824,8 @@ def phase_quality_gate(device, smi):
             not row["pass"] or row["n_ok"] != row["n_files"] or row["n_files"]
             != n for row in result["rows"]):
         raise AssertionError("the quality gate failed")
-    if not launches["fused_count"] or not launches["list_occlusion"]:
+    if not launches["fused_count"] or not launches["list_occlusion"] or (
+            launches["neighbor_cells"] != launches["list_occlusion"]):
         raise AssertionError(f"gate launches {launches}")
 
 
@@ -1693,7 +1856,7 @@ def phase_scale_out(device, corpus_dir, main_median, smi):
     n_files = len(os.listdir(corpus_dir))
     if len(one) != n_files:
         raise AssertionError(f"phase 4 left {len(one)} outputs")
-    launches = {"fused_count": {}, "list_occlusion": {},
+    launches = {"fused_count": {}, **{k: {} for k in LIST_KERNELS},
                 **{k: {} for k in BAND_KERNELS}}
 
     # 1. Device list: chunks dealt to two streams of the card.
@@ -1790,8 +1953,10 @@ def phase_scale_out(device, corpus_dir, main_median, smi):
         step_s = time.perf_counter() - t0
         n_launch = _kernels.launch_counts["list_occlusion"]
         runs += 1
-        if n_launch != len(devices):
-            raise AssertionError(f"sharded step: {n_launch} list launches")
+        if n_launch != len(devices) or (
+                _kernels.launch_counts["neighbor_cells"] != len(devices)):
+            raise AssertionError(f"sharded step: launches "
+                                 f"{_kernels.launch_counts}")
         if mc <= k:
             break
         k = min(neighbors._round_bucket(mc, neighbors._K_BUCKETS), n_pad)
@@ -1805,13 +1970,14 @@ def phase_scale_out(device, corpus_dir, main_median, smi):
         f"{len(devices)} shards on {device}: {step_s * 1e3:.1f} ms (host "
         f"clock), total {float(total[0]):.3f} A^2; byte-equal to "
         f"_sasa_batched on the whole batch: {equal}; total equals its sum: "
-        f"{float(total[0]) == want_total}; list_occlusion launches "
-        f"{n_launch}")
+        f"{float(total[0]) == want_total}; list_occlusion and "
+        f"neighbor_cells launches {n_launch} each")
     if not equal or float(total[0]) != want_total or mc != int(whole_mc):
         raise AssertionError("sharded list step differs from unsharded")
     if not bool(torch.isfinite(sasa).all()) or not want_total > 0.0:
         raise AssertionError("sharded list step: no surface")
-    launches["list_occlusion"]["sharded"] = n_launch
+    for k in LIST_KERNELS:
+        launches[k]["sharded"] = n_launch
 
     # 4. The multi-device dry run over the same two entries.
     _kernels.reset_launch_counts()
@@ -1819,14 +1985,15 @@ def phase_scale_out(device, corpus_dir, main_median, smi):
     dry = dict(_kernels.launch_counts)
     log(f"[scale-out] dryrun_multichip({devices}) passed; launches "
         f"fused_count {dry['fused_count']}, list_occlusion "
-        f"{dry['list_occlusion']}")
-    if dry["fused_count"] != len(devices) or dry["list_occlusion"] != (
-            len(devices)):
+        f"{dry['list_occlusion']}, neighbor_cells {dry['neighbor_cells']}")
+    if dry["fused_count"] != len(devices) or any(
+            dry[k] != len(devices) for k in LIST_KERNELS):
         raise AssertionError(f"dryrun launches {dry}")
     launches["fused_count"]["dryrun"] = dry["fused_count"]
     for k in BAND_KERNELS:
         launches[k]["dryrun"] = dry[k]
-    launches["list_occlusion"]["dryrun"] = dry["list_occlusion"]
+    for k in LIST_KERNELS:
+        launches[k]["dryrun"] = dry[k]
     log(f"[scale-out] phase 14 took {time.perf_counter() - t_phase:.1f}s")
     return launches
 
@@ -2002,8 +2169,10 @@ def main() -> int:
     main_launches, main_median = phase_main_path(device)
     for rec in main_records:
         rec["launches"] = main_launches[rec["name"]]
-    listed = phase_list_kernel(device, build_logs)
-    listed["launches"] = phase_list_path(device)
+    list_records = phase_list_kernel(device, build_logs)
+    list_launches = phase_list_path(device)
+    for rec in list_records:
+        rec["launches"] = list_launches[rec["name"]]
     phase_host_cull(device, WORK)
     studies = phase_count_studies(corpus_dir, device)
     studies_ii = phase_count_studies_ii(corpus_dir, device, build_logs)
@@ -2012,14 +2181,15 @@ def main() -> int:
     phase_trajectory(device, smi)
     phase_quality_gate(device, smi)
     scale_out = phase_scale_out(device, corpus_dir, main_median, smi)
-    listed["scale_out_launches"] = scale_out["list_occlusion"]
+    for rec in list_records:
+        rec["scale_out_launches"] = scale_out[rec["name"]]
     profilers = phase_profilers(device, corpus_dir, smi)
     for rec in main_records:
         rec["scale_out_launches"] = scale_out[rec["name"]]
         rec["profilers_launches"] = profilers[rec["name"]]
     log(f"[smoke] fifteen phases in {time.perf_counter() - t_start:.1f}s")
     log(smi)
-    print(json.dumps({"kernels": [*main_records, listed, *studies,
+    print(json.dumps({"kernels": [*main_records, *list_records, *studies,
                                   *studies_ii, *experiments]}))
     print(json.dumps({
         "ok": True,

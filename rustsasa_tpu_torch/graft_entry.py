@@ -3,8 +3,9 @@
 Port of `__graft_entry__.py`.
 
 entry(device): one list-path SASA step (`neighbors._sasa_batched`: the
-neighbor phase, then the list occlusion kernel on CUDA) over an example
-batch, returned as (fn, args) with the args on the device.
+neighbor phase, then the occlusion; on CUDA the neighbor and list
+occlusion kernels) over an example batch, returned as (fn, args) with
+the args on the device.
 
 dryrun_multichip(devices): one full sharded step over a device list
 (`parallel.mesh`), then the fused engine's chunk dealt round-robin to

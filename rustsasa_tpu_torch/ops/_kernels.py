@@ -79,6 +79,7 @@ launch_counts = {
     "nibble_count": 0, "saturation_count": 0, "micro_count": 0,
     "reach_count": 0, "maxplus_count": 0, "ke_stream": 0, "ke_maxplus": 0,
     "ke_bf16": 0, "ke_mxu": 0, "dequant_boxes": 0, "band_jlist": 0,
+    "neighbor_cells": 0,
 }
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
@@ -86,6 +87,7 @@ _launchers: dict = {}
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
+_FLOAT = ctypes.c_float
 # C signature of each kernel's launch function <name>_launch, by name.
 _SIGNATURES = {
     "fused_count": [_VOIDP] * 4 + [_INT] * 2 + [_VOIDP],
@@ -100,6 +102,7 @@ _SIGNATURES = {
     **{name: [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP] for name in KE_VARIANTS},
     "dequant_boxes": [_INT] + [_VOIDP] * 12 + [_INT, _VOIDP],
     "band_jlist": [_VOIDP] * 10 + [_INT] * 2 + [_VOIDP],
+    "neighbor_cells": [_VOIDP] * 8 + [_INT] * 4 + [_FLOAT] * 2 + [_VOIDP],
 }
 # The source (csrc/<source>.cu) of each launch function not named after
 # its own; every source builds to one library.
@@ -112,6 +115,9 @@ WIRES = ("q13", "q16", "planes")
 # most slots: the gid plane holds slot + 1 as an exact f32.
 MAX_BAND_W = 127
 MAX_BAND_SLOTS = 1 << 24
+# Structures a neighbor_cells batch may hold (csrc/neighbor_cells.cu
+# kMaxBatch, neighbors.MAX_CELL_BATCH).
+MAX_CELL_BATCH = 511
 
 
 class Boxes(NamedTuple):
@@ -722,3 +728,49 @@ def band_jlist(planes, qvalid, tmeta, boxes, w: int):
             tmeta.data_ptr(), *(b.data_ptr() for b in boxes),
             jlist.data_ptr(), m, w)
     return jlist
+
+
+def neighbor_cells(packed, group_id, max_r, keys, sorted_keys, perm, *,
+                   probe: float, k: int):
+    """Launch the list path's cell-list neighbor phase -> (planes [4, K,
+    M4] f32: vx, vy, vz, limit K-major; counts [B*N] i32), byte-equal to
+    neighbors.neighbor_records_reference (per row the same records, in
+    another order).
+
+    packed [B, N, 4] f32 (16-byte aligned), group_id [B, N] i32 (-1 =
+    padding), max_r [B] f32 (each structure's largest real radius), keys
+    [B*N] i64 (neighbors.cell_grid), sorted_keys and perm [B*N] i64 (a
+    stable sort of the keys), all contiguous on one CUDA device; 1 <= B
+    <= MAX_CELL_BATCH, 1 <= k <= N, M4 = B*N rounded up to 4.
+    """
+    device = packed.device
+    _check("packed", packed, torch.float32, 3, device)
+    _check("group_id", group_id, torch.int32, 2, device)
+    _check("max_r", max_r, torch.float32, 1, device)
+    b, n = group_id.shape
+    m = b * n
+    for name, t in (("keys", keys), ("sorted_keys", sorted_keys),
+                    ("perm", perm)):
+        _check(name, t, torch.int64, 1, device)
+        _check_shape(name, t, (m,))
+    _check_shape("packed", packed, (b, n, 4))
+    _check_shape("max_r", max_r, (b,))
+    if not 1 <= b <= MAX_CELL_BATCH or n == 0:
+        raise ValueError(f"group_id shape {(b, n)}: need 1 to "
+                         f"{MAX_CELL_BATCH} structures of at least one slot")
+    if not 1 <= k <= n:
+        raise ValueError(f"k = {k} outside [1, {n}]")
+    m4 = m + (-m % 4)
+    if m4 >= 1 << 31:
+        raise ValueError(f"{m} slots: too many for one launch")
+    if packed.data_ptr() % 16:
+        raise ValueError("neighbor_cells: packed must start on a 16-byte "
+                         "boundary")
+    _on_cuda("neighbor_cells", device)
+    planes = torch.empty((4, k, m4), dtype=torch.float32, device=device)
+    counts = torch.empty(m, dtype=torch.int32, device=device)
+    _launch("neighbor_cells", device, packed.data_ptr(), group_id.data_ptr(),
+            max_r.data_ptr(), keys.data_ptr(), sorted_keys.data_ptr(),
+            perm.data_ptr(), planes.data_ptr(), counts.data_ptr(), b, n, k,
+            m4, probe, 2.0 * probe)
+    return planes, counts

@@ -5,11 +5,17 @@ Port of the list path of `rustsasa_tpu/ops/engine.py` (`_neighbor_phase`,
 fused wires cannot: spheres of more than 2048 points (the analytic tier
 runs 50,000) and structures whose host-cull j-lists overflow.
 
-  1. Neighbor phase: pairwise d^2 by the |a|^2 + |b|^2 - 2ab^T expansion
-     (a full-FP32 matmul), every atom within r_i + max_r + 2 probe is a
-     candidate, and the K nearest are kept by top-k.  The caller re-runs
-     with a larger K while any row has more candidates than K: no silent
-     truncation.
+  1. Neighbor phase: pairwise d^2 by the |a|^2 + |b|^2 - 2ab^T expansion,
+     the cross term as the fused multiply-add chain the reference's
+     HIGHEST dot computes (`fma.dot3`); every atom within r_i + max_r +
+     2 probe is a candidate, and the K nearest are kept.  The caller
+     re-runs with a larger K while any row has more candidates than K:
+     no silent truncation.  On CUDA this is the hand-written cell-list
+     kernel `csrc/neighbor_cells.cu` over a whole [B, N] batch, which
+     writes the records K-major, as the occlusion kernel reads them;
+     `neighbor_records_reference` is its plain-torch version (the dense
+     expansion and top-k of `_neighbor_phase`, structure by structure),
+     taken only for CPU tensors.
   2. Occlusion: point s of atom i is occluded iff some neighbor k has
      (sx*vx + sy*vy) + sz*vz < limit_k.  On CUDA this is the hand-written
      kernel `csrc/list_occlusion.cu` (replacing the Pallas
@@ -17,25 +23,27 @@ runs 50,000) and structures whose host-cull j-lists overflow.
      plain-torch version, taken only for CPU tensors.
 
 Every float expression keeps the reference's operation order with
-separate multiplies and adds, so the occlusion is byte-equal to the
-Pallas kernel on the same neighbor records.
+separate multiplies and adds, so the records and the occlusion are
+byte-equal to the reference's on the same inputs.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import _kernels
+from .fma import dot3
 
 ATOM_TILE = 128
 _NEG_BIG = -1e30
 
-# Candidate-selection slack: the matmul distance expansion loses a few
-# ulps to cancellation; widening the cutoff only ever adds candidates,
-# and the occlusion test recomputes v exactly.
+# Candidate-selection slack: the distance expansion loses a few ulps to
+# cancellation; widening the cutoff only ever adds candidates, and the
+# occlusion test recomputes v exactly.
 _CUTOFF_SLACK = float(np.float32(1e-3))
 
 # Atom-count and neighbor-count buckets (reference engine._N_BUCKETS,
@@ -46,12 +54,31 @@ _N_BUCKETS = [
 ]
 _K_BUCKETS = [16, 32, 64, 96, 128, 160, 192, 256, 320, 384, 512]
 
-# Above this atom count the [N, N] working set is built in row blocks.
+# Above this atom count the plain version builds its [N, N] working set
+# in row blocks.
 _DENSE_N_LIMIT = 8192
 _ROW_CHUNK = 4096
 
 # (k, atom, point) margins the plain-torch occlusion materializes per block.
 REFERENCE_BLOCK_ELEMS = 1 << 25
+
+# The cell list of csrc/neighbor_cells.cu.  An atom's key is (structure
+# << 54) | (cell x << 36) | (cell y << 18) | cell z, padding atoms
+# PAD_KEY (they sort last); a batch holds at most
+# _kernels.MAX_CELL_BATCH structures, so no real key reaches PAD_KEY's
+# structure field.
+CELL_BITS = 18
+CELL_MAX = (1 << CELL_BITS) - 1
+PAD_KEY = (1 << 63) - 1
+# The cell edge h of a structure: h^2 = (thr + D2_ERR * (R^2 + thr)) *
+# (1 + H_SLACK), thr = (2 max_r + 2 probe)^2 + 1e-3 the widest candidate
+# cutoff, R the largest |c| of its atoms.  csrc/neighbor_cells.cu derives
+# |d2 - |c_i - c_j|^2| <= 14.04 u R^2 + u |c_i - c_j|^2 (u = 2^-24) for
+# the expansion; D2_ERR = 32 u covers it and the f32 cutoff's rounding,
+# H_SLACK the f64 cell arithmetic.  A candidate pair is then at most h
+# apart on every axis, one cell at most.
+D2_ERR = 2.0 ** -19
+H_SLACK = 2.0 ** -20
 
 
 def _round_bucket(n: int, buckets: list[int]) -> int:
@@ -72,74 +99,171 @@ def _sum3(x):
     return (x[..., 0] + x[..., 1]) + x[..., 2]
 
 
-def _check_full_fp32(t: torch.Tensor) -> None:
-    """The d^2 expansion must not run in TF32: with |coords| ~ 1e2 its
-    ~1e-3 relative error would silently drop true neighbors."""
-    if t.device.type == "cuda" and (
-        torch.backends.cuda.matmul.allow_tf32
-        or torch.get_float32_matmul_precision() != "highest"
-    ):
-        raise RuntimeError(
-            "the neighbor phase needs full-FP32 matmuls: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False"
-        )
+def _pair_d2(a, b):
+    """d^2 = max((|a|^2 + |b|^2) - 2 a.b, 0) of atoms a and b [..., 3]
+    (broadcast), a.b as fma(z, z', fma(y, y', x x'))."""
+    cross = dot3(a[..., 0], b[..., 0], a[..., 1], b[..., 1], a[..., 2],
+                 b[..., 2])
+    return torch.clamp_min((_sum3(a * a) + _sum3(b * b)) - 2.0 * cross, 0.0)
+
+
+def _candidates(lo_coords, lo_radii, lo_gid, coords, group_id, max_radius,
+                probe: float):
+    """(d2, cand) [rows, N] of row atoms against one structure's columns:
+    cand where both atoms are real, their group ids differ and d2 <=
+    ((r_i + max_r) + 2 probe)^2 + slack."""
+    d2 = _pair_d2(lo_coords[:, None, :], coords[None, :, :])
+    cutoff = (lo_radii + max_radius) + 2.0 * probe
+    pair_ok = (
+        (lo_gid >= 0)[:, None]
+        & (group_id >= 0)[None, :]
+        & (lo_gid[:, None] != group_id[None, :])
+    )
+    return d2, pair_ok & (
+        d2 <= cutoff[:, None] * cutoff[:, None] + _CUTOFF_SLACK
+    )
+
+
+def _records(lo_coords, lo_radii, nbr_coords, nbr_radii, probe: float):
+    """Row atoms' records against their neighbors [rows, K, 3] and
+    [rows, K]: (v = c_i - c_j [rows, K, 3], limit = ((nr^2 - |v|^2) -
+    reff_i^2) / (2 reff_i) [rows, K]), nr = r_j + probe, reff_i = r_i +
+    probe."""
+    v = lo_coords[:, None, :] - nbr_coords
+    v2 = _sum3(v * v)
+    lo_reff = lo_radii + probe
+    nr = nbr_radii + probe
+    limit = ((nr * nr - v2) - (lo_reff * lo_reff)[:, None]) / (
+        2.0 * lo_reff[:, None]
+    )
+    return v, limit
 
 
 def _neighbor_phase(packed, group_id, *, probe: float, k: int):
-    """Candidate selection for one structure.
+    """Candidate selection for one structure (plain torch).
 
     packed: [N, 4] f32 x, y, z, radius; group_id: [N] i32, -1 = padding.
     Returns (v [N, K, 3] = c_i - c_k, limit [N, K] with -1e30 on invalid
     slots, counts [N] i64 candidates per row, max_count 0-d tensor),
     K = min(k, N).  Rows above _DENSE_N_LIMIT go in _ROW_CHUNK blocks.
     """
-    _check_full_fp32(packed)
     coords = packed[:, 0:3]
     radii = packed[:, 3]
-    valid = group_id >= 0
     n = coords.shape[0]
     k_eff = min(k, n)
-    max_radius = torch.where(valid, radii, 0.0).max()
-    sq = _sum3(coords * coords)
+    max_radius = torch.where(group_id >= 0, radii, 0.0).max()
 
-    def rows(lo_coords, lo_radii, lo_gid, lo_sq):
-        cross = torch.matmul(lo_coords, coords.T)
-        d2 = torch.clamp_min(
-            (lo_sq[:, None] + sq[None, :]) - 2.0 * cross, 0.0
-        )
-        cutoff = (lo_radii + max_radius) + 2.0 * probe
-        pair_ok = (
-            (lo_gid >= 0)[:, None]
-            & valid[None, :]
-            & (lo_gid[:, None] != group_id[None, :])
-        )
-        cand = pair_ok & (
-            d2 <= cutoff[:, None] * cutoff[:, None] + _CUTOFF_SLACK
-        )
+    def rows(lo_coords, lo_radii, lo_gid):
+        d2, cand = _candidates(lo_coords, lo_radii, lo_gid, coords, group_id,
+                               max_radius, probe)
         counts = cand.sum(dim=1)
         score = torch.where(cand, -d2, _NEG_BIG)
         nbr_idx = torch.topk(score, k_eff, dim=1).indices  # valid first
         nbr_valid = cand.gather(1, nbr_idx)
-        v = lo_coords[:, None, :] - coords[nbr_idx]
-        v2 = _sum3(v * v)
-        lo_reff = lo_radii + probe
-        nr = radii[nbr_idx] + probe
-        limit = ((nr * nr - v2) - (lo_reff * lo_reff)[:, None]) / (
-            2.0 * lo_reff[:, None]
-        )
-        limit = torch.where(nbr_valid, limit, _NEG_BIG)
-        return v, limit, counts
+        v, limit = _records(lo_coords, lo_radii, coords[nbr_idx],
+                            radii[nbr_idx], probe)
+        return v, torch.where(nbr_valid, limit, _NEG_BIG), counts
 
     if n <= _DENSE_N_LIMIT or n % _ROW_CHUNK != 0:
-        v, limit, counts = rows(coords, radii, group_id, sq)
+        v, limit, counts = rows(coords, radii, group_id)
     else:
         parts = [
             rows(coords[lo:lo + _ROW_CHUNK], radii[lo:lo + _ROW_CHUNK],
-                 group_id[lo:lo + _ROW_CHUNK], sq[lo:lo + _ROW_CHUNK])
+                 group_id[lo:lo + _ROW_CHUNK])
             for lo in range(0, n, _ROW_CHUNK)
         ]
         v, limit, counts = (torch.cat(x) for x in zip(*parts))
     return v, limit, counts, counts.max()
+
+
+def k_major(v, limit, m4: int):
+    """[M, K, 3] v and [M, K] limit -> [4, K, m4] planes (vx, vy, vz,
+    limit) as the occlusion kernel reads them; columns past M hold
+    records that never occlude (v = 0, limit -1e30)."""
+    m, k = limit.shape
+    planes = torch.zeros((4, k, m4), dtype=torch.float32, device=limit.device)
+    planes[:3, :, :m] = v.permute(2, 1, 0)
+    planes[3, :, :m] = limit.T
+    planes[3, :, m:] = _NEG_BIG
+    return planes
+
+
+def neighbor_records_reference(packed, group_id, *, probe: float, k: int):
+    """Plain version of csrc/neighbor_cells.cu: the neighbor phase of a
+    [B, N] batch, structure by structure, copied K-major ->
+    (planes [4, K, M4] f32, counts [B*N] i32, max_count 0-d i32); M4 is
+    B*N rounded up to 4, K = min(k, N)."""
+    b, n = group_id.shape
+    phases = [_neighbor_phase(packed[i], group_id[i], probe=probe, k=k)
+              for i in range(b)]
+    v, limit, counts = (torch.cat(x) for x in list(zip(*phases))[:3])
+    counts = counts.to(torch.int32)
+    return k_major(v, limit, _round_up4(b * n)), counts, counts.max()
+
+
+def _round_up4(m: int) -> int:
+    return m + (-m % 4)
+
+
+class CellGrid(NamedTuple):
+    """The cell list of a [B, N] batch: keys [B*N] i64 by atom (PAD_KEY
+    for padding), each structure's largest real radius max_r [B] f32 and
+    cell edge h [B] f64."""
+    keys: torch.Tensor
+    max_r: torch.Tensor
+    h: torch.Tensor
+
+
+def cell_grid(packed, group_id, probe: float) -> CellGrid:
+    """Bin a [B, N] batch's real atoms into cells of edge h (f64, on the
+    batch's device, with no readback): cell = floor((c - lo) / h) per
+    axis from the structure's lowest corner lo, h as D2_ERR says, and no
+    smaller than the structure's span over CELL_MAX - 1 cells."""
+    b, n = group_id.shape
+    if b > _kernels.MAX_CELL_BATCH:
+        raise ValueError(f"{b} structures in a cell-list batch, at most "
+                         f"{_kernels.MAX_CELL_BATCH}")
+    valid = group_id >= 0
+    some = valid.any(dim=1, keepdim=True)
+    c = packed[..., 0:3].to(torch.float64)
+    max_r = torch.where(valid, packed[..., 3], 0.0).amax(dim=1)
+    lo = torch.where(valid[..., None], c, math.inf).amin(dim=1)
+    hi = torch.where(valid[..., None], c, -math.inf).amax(dim=1)
+    lo, hi = (torch.where(some, t, 0.0) for t in (lo, hi))
+    r2 = torch.where(valid, (c * c).sum(dim=-1), 0.0).amax(dim=1)
+    cut = 2.0 * max_r.to(torch.float64) + 2.0 * probe
+    thr = cut * cut + 1e-3
+    h = torch.maximum(
+        ((thr + D2_ERR * (r2 + thr)) * (1.0 + H_SLACK)).sqrt(),
+        (hi - lo).amax(dim=1) / (CELL_MAX - 1),
+    )
+    cell = ((c - lo[:, None, :]) / h[:, None, None]).floor().clamp(
+        0, CELL_MAX).to(torch.int64)
+    key = (
+        (torch.arange(b, device=packed.device)[:, None] << 54)
+        | (cell[..., 0] << 36) | (cell[..., 1] << 18) | cell[..., 2]
+    )
+    key = torch.where(valid, key, PAD_KEY)
+    return CellGrid(key.reshape(b * n), max_r, h)
+
+
+def neighbor_records(packed, group_id, *, probe: float, k: int):
+    """The neighbor phase of a [B, N] batch -> (planes [4, K, M4] f32 K-major
+    vx, vy, vz, limit; counts [B*N] i32; max_count 0-d i32), K = min(k,
+    N).  CPU tensors take the plain version; CUDA tensors bin the atoms
+    (cell_grid, then a stable sort of the keys) and launch
+    csrc/neighbor_cells.cu (or raise), with no readback."""
+    if packed.device.type == "cpu":
+        return neighbor_records_reference(packed, group_id, probe=probe, k=k)
+    if packed.device.type != "cuda":
+        raise ValueError(f"neighbor_records: unsupported device "
+                         f"{packed.device}")
+    grid = cell_grid(packed, group_id, probe)
+    sorted_keys, perm = torch.sort(grid.keys, stable=True)
+    planes, counts = _kernels.neighbor_cells(
+        packed, group_id, grid.max_r, grid.keys, sorted_keys, perm,
+        probe=probe, k=min(k, group_id.shape[1]))
+    return planes, counts, counts.max()
 
 
 def _area_factor(radii, valid, probe: float, n_points: int):
@@ -192,68 +316,63 @@ def occlusion_sasa_reference(vx, vy, vz, limit, area, sphere, kmax):
     return accessible * area
 
 
+def occlusion_planes(vx, vy, vz, limit, area, sphere, kmax):
+    """List-path occlusion + area on K-major records [K, M] (M a multiple
+    of 4 on CUDA) -> per-atom SASA [M] f32.  CPU tensors take the
+    plain-torch version; CUDA tensors launch the hand-written kernel (or
+    raise) and never fall back."""
+    if limit.device.type == "cpu":
+        return occlusion_sasa_reference(vx, vy, vz, limit, area, sphere, kmax)
+    if limit.device.type != "cuda":
+        raise ValueError(f"occlusion_planes: unsupported device "
+                         f"{limit.device}")
+    return _kernels.list_occlusion(vx, vy, vz, limit, area, sphere, kmax)
+
+
 def occlusion_sasa(v, limit, area, sphere, kmax):
     """List-path occlusion + area: v [N, K, 3], limit [N, K], area [N],
     sphere [P, 4], kmax per 128-atom tile -> per-atom SASA [N] f32.
 
-    Mirrors the reference's `occlusion_sasa_pallas`: the neighbor records
-    go K-major, so one neighbor step reads one contiguous row of atoms.
-    CPU tensors take the plain-torch version; CUDA tensors launch the
-    hand-written kernel (or raise) and never fall back.  The kernel takes
-    N a multiple of 4: on CUDA the copies are padded to one with records
-    that never occlude (v = 0, limit = 0) and the result cut back to N.
+    Mirrors the reference's `occlusion_sasa_pallas`: the records go
+    K-major (k_major, padded to a multiple of 4 atoms with records that
+    never occlude), so one neighbor step reads one contiguous row of
+    atoms, then occlusion_planes.
     """
-    if v.device.type == "cpu":
-        vx, vy, vz = (v[:, :, a].T.contiguous() for a in range(3))
-        return occlusion_sasa_reference(vx, vy, vz, limit.T.contiguous(),
-                                        area, sphere, kmax)
-    if v.device.type != "cuda":
-        raise ValueError(f"occlusion_sasa: unsupported device {v.device}")
     n = limit.shape[0]
-    pad = -n % 4
-    vx, vy, vz, lim = (torch.nn.functional.pad(t.T, (0, pad)).contiguous()
-                       if pad else t.T.contiguous()
-                       for t in (v[:, :, 0], v[:, :, 1], v[:, :, 2], limit))
-    if pad:
-        area = torch.nn.functional.pad(area, (0, pad))
-    return _kernels.list_occlusion(vx, vy, vz, lim, area, sphere, kmax)[:n]
-
-
-def _occlusion_sasa(v, limit, counts, radii, valid, sphere, *, probe: float,
-                    n_points: int):
-    """Area factor + per-tile bound + occlusion for flat [M, K] records."""
-    area = _area_factor(radii, valid, probe, n_points)
-    kmax = tile_kmax(counts, limit.shape[1])
-    return occlusion_sasa(v, limit, area, sphere.contiguous(), kmax)
+    m4 = _round_up4(n)
+    area = torch.nn.functional.pad(area, (0, m4 - n))
+    return occlusion_planes(*k_major(v, limit, m4), area, sphere, kmax)[:n]
 
 
 def _sasa_single(packed, group_id, sphere, *, k: int, n_points: int,
                  probe: float):
     """One padded structure -> (per-atom SASA [N], max_count tensor)."""
-    v, limit, counts, max_count = _neighbor_phase(
-        packed, group_id, probe=probe, k=k
-    )
-    sasa = _occlusion_sasa(
-        v, limit, counts, packed[:, 3], group_id >= 0, sphere,
-        probe=probe, n_points=n_points,
-    )
-    return sasa, max_count
+    sasa, max_count = _sasa_batched(packed[None], group_id[None], sphere,
+                                    k=k, n_points=n_points, probe=probe)
+    return sasa[0], max_count
+
+
+def records_sasa(records, packed, group_id, sphere, *, probe: float,
+                 n_points: int):
+    """Per-atom SASA [M4] of a [B, N] batch from its neighbor records
+    (planes, counts, max_count): the area factor, the tiles' bounds and
+    one flat occlusion over the B * N atoms (zero past them)."""
+    planes, counts, _ = records
+    m = group_id.numel()
+    area = _area_factor(packed[..., 3].reshape(m), group_id.reshape(m) >= 0,
+                        probe, n_points)
+    area = torch.nn.functional.pad(area, (0, planes.shape[2] - m))
+    kmax = tile_kmax(counts, planes.shape[1])
+    return occlusion_planes(*planes, area, sphere.contiguous(), kmax)
 
 
 def _sasa_batched(packed, group_id, sphere, *, k: int, n_points: int,
                   probe: float):
-    """[B, N, ...] batch: per-structure neighbor phases, then one flat
-    occlusion over the B * N atoms -> (SASA [B, N], max_count tensor)."""
+    """[B, N, ...] batch: one neighbor phase over the batch (one kernel
+    on CUDA), then one flat occlusion over the B * N atoms -> (SASA
+    [B, N], max_count tensor)."""
     b, n = group_id.shape
-    phases = [
-        _neighbor_phase(packed[i], group_id[i], probe=probe, k=k)
-        for i in range(b)
-    ]
-    v, limit, counts = (torch.cat(x) for x in list(zip(*phases))[:3])
-    sasa = _occlusion_sasa(
-        v, limit, counts, packed[:, :, 3].reshape(b * n),
-        group_id.reshape(b * n) >= 0, sphere,
-        probe=probe, n_points=n_points,
-    )
-    max_count = torch.stack([ph[3] for ph in phases]).max()
-    return sasa.reshape(b, n), max_count
+    records = neighbor_records(packed, group_id, probe=probe, k=k)
+    sasa = records_sasa(records, packed, group_id, sphere, probe=probe,
+                        n_points=n_points)
+    return sasa[:b * n].reshape(b, n), records[2]

@@ -4,9 +4,9 @@ Port of `rustsasa_tpu/parallel/mesh.py`.  The reference's mesh is a 1-D
 `jax.sharding.Mesh` over local devices with the structure batch sharded
 on its axis, and `shard_map` runs one XLA scan per shard with `psum` /
 `pmax` for the metrics.  Here the mesh is a list of `torch.device`s; each
-shard runs `neighbors._sasa_batched` (the list occlusion kernel on CUDA)
-on its entry's own stream, and the metrics are reduced on the first
-entry.  Per-structure results need no collective: each structure's
+shard runs `neighbors._sasa_batched` (on CUDA the neighbor and list
+occlusion kernels, one launch each) on its entry's own stream, and the
+metrics are reduced on the first entry.  Per-structure results need no collective: each structure's
 neighbor phase is its own and `tile_kmax` only bounds loops, so the
 sharded step is byte-equal to `_sasa_batched` over the whole batch.
 """

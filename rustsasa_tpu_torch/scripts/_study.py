@@ -380,3 +380,182 @@ def where_line(info: dict) -> str:
 def device_name(device) -> str:
     return (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+
+
+# neighbor_cases: the radii of the seeded clusters, and the offsets (A)
+# whose clusters the cases move far from the origin, where the distance
+# expansion's error is largest.
+NEIGHBOR_RADII = BAND_RADII
+NEIGHBOR_OFFSETS = (1000.0, -1000.0)
+
+
+def _cluster(rng, n, side, offset=0.0):
+    coords = (rng.uniform(0.0, side, (n, 3)) + offset).astype(np.float32)
+    return coords, rng.choice(NEIGHBOR_RADII, n), np.arange(n, dtype=np.int32)
+
+
+def cutoff_pairs(n_pairs: int, seed: int = 0, spread: float = 200.0,
+                 ulps: int = 6):
+    """(coords [2 n_pairs, 3] f32, radius, {pair: (d2, thr) ulps apart})
+    of atom pairs whose distance expansion (neighbors._pair_d2, as the
+    plain version and the kernel round it) lands next to the candidate
+    cutoff thr = ((r + r) + 2 probe)^2 + 1e-3 of one radius r: j's
+    coordinates stepped by up to `ulps` ulps on each axis from distance
+    sqrt(thr), keeping d2 <= thr nearest to it for even pairs and d2 >
+    thr nearest to it for odd ones."""
+    from ..ops import neighbors
+
+    rng = np.random.default_rng(seed)
+    r = np.float32(1.8)
+    cut = (r + r) + np.float32(2.0 * PROBE)
+    thr = cut * cut + np.float32(neighbors._CUTOFF_SLACK)
+    base = rng.uniform(-spread / 2, spread / 2, (n_pairs, 3)).astype(np.float32)
+    u = rng.normal(size=(n_pairs, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    j0 = (base + u * np.sqrt(float(thr))).astype(np.float32)
+    steps = np.arange(-ulps, ulps + 1, dtype=np.float32)
+    grid = np.stack(np.meshgrid(steps, steps, steps, indexing="ij"),
+                    -1).reshape(-1, 3)
+    cand = (j0[:, None, :] + grid[None] * np.spacing(j0)[:, None, :]).astype(
+        np.float32)  # [pairs, steps^3, 3]
+    d2 = neighbors._pair_d2(torch.from_numpy(base[:, None, :]),
+                            torch.from_numpy(cand)).numpy()
+    coords = np.empty((2 * n_pairs, 3), np.float32)
+    gap = {}
+    for p in range(n_pairs):
+        below = p % 2 == 0
+        ok = d2[p] <= thr if below else d2[p] > thr
+        at = np.flatnonzero(ok)[np.argmin(np.abs(d2[p][ok] - thr))]
+        coords[2 * p] = base[p]
+        coords[2 * p + 1] = cand[p, at]
+        gap[p] = int(abs(np.int64(d2[p, at].view(np.int32))
+                         - np.int64(thr.view(np.int32))))
+    return coords, r, gap
+
+
+def neighbor_case_names(offsets=NEIGHBOR_OFFSETS):
+    """The names of neighbor_cases(offsets=offsets), in order."""
+    return ("batch", "groups", *(f"offset {o:+g}" for o in offsets),
+            "long_thin", "cutoff", "ball", "small")
+
+
+def neighbor_cases(seed: int = 0, offsets=NEIGHBOR_OFFSETS):
+    """Seeded list-path batches for the neighbor kernel and its plain
+    version: [(name, packed [B, N, 4] f32, gid [B, N] i32, k)].
+
+    batch: three structures (100, 700 and 1,000 atoms) in one 30 A box,
+    padded to N = 1,024 (padding rows), one of them with two atoms
+    sharing a group id; groups: 500 atoms in groups of four ids; offset
+    o: a 600-atom cluster moved to o on every axis, for each o of
+    `offsets`; long_thin: 2,000 atoms on a 4,000 A line through the
+    origin; cutoff: pairs whose d2 lands next to the cutoff (cutoff_pairs),
+    64 far from the origin and 64 near it, where d2 is within an ulp of
+    it; ball: tests/test_torch_list_path.py's dense ball of 300 atoms,
+    whose rows overflow K = 160 (the kept records are the K nearest);
+    small: six structures of at most 8 atoms in N = 8 (K = 8; one
+    128-atom tile holds them all).
+    """
+    from ..ops import engine
+
+    rng = np.random.default_rng(seed)
+
+    def one(coords, radius):
+        n = coords.shape[0]
+        return (coords, np.full(n, radius, np.float32),
+                np.arange(n, dtype=np.int32))
+
+    batch = [_cluster(rng, n, 30.0, 50.0) for n in (100, 700, 1000)]
+    batch[1][2][7] = batch[1][2][3]
+    coords, radii, _ = _cluster(rng, 500, 18.0, 40.0)
+    groups = [(coords, radii, (np.arange(500) // 4).astype(np.int32))]
+    offset = [(f"offset {off:+g}", [_cluster(rng, 600, 22.0, off)], 768, 160)
+              for off in offsets]
+    line = np.zeros((2000, 3), np.float32)
+    line[:, 0] = np.linspace(-2000.0, 2000.0, 2000, dtype=np.float32)
+    line[:, 1:] = rng.uniform(-1.5, 1.5, (2000, 2))
+    long_thin = [(line, rng.choice(NEIGHBOR_RADII, 2000),
+                  np.arange(2000, dtype=np.int32))]
+    far, r, _ = cutoff_pairs(32, seed, spread=200.0)
+    near, _, _ = cutoff_pairs(32, seed + 1, spread=4.0)
+    ball = np.random.default_rng(0).normal(0, 2.5, (300, 3)).astype(
+        np.float32)
+    small = [_cluster(rng, int(m), 6.0) for m in rng.integers(1, 9, 6)]
+    cases = [("batch", batch, 1024, 160), ("groups", groups, 512, 160),
+             *offset, ("long_thin", long_thin, 2048, 64),
+             ("cutoff", [one(np.concatenate([far, near]), r)], 128, 128),
+             ("ball", [one(ball, 1.8)], 384, 160), ("small", small, 8, 16)]
+    return [(name, *engine._pack(n_pad, structures), k)
+            for name, structures, n_pad, k in cases]
+
+
+def record_multisets(planes, counts):
+    """Each row's kept records as a set: [M, K, 4] i32 bit patterns of
+    (vx, vy, vz, limit), the first min(count, K) slots of each row sorted
+    (by vx, vy, vz, limit bits), the rest set to -1 (no f32 pattern the
+    records take; the slots past a row's candidates are the kernel's
+    own)."""
+    k = planes.shape[1]
+    m = counts.shape[0]
+    bits = planes[:, :, :m].permute(2, 1, 0).contiguous().view(torch.int32)
+    live = (torch.arange(k, device=planes.device)[None, :]
+            < counts.to(torch.int64)[:, None])
+    bits = torch.where(live[..., None], bits, -1).to(torch.int64)
+    hi = (bits[..., 0] << 32) | (bits[..., 1] & 0xFFFFFFFF)
+    lo = (bits[..., 2] << 32) | (bits[..., 3] & 0xFFFFFFFF)
+    order = torch.sort(lo, dim=1, stable=True).indices
+    order = order.gather(1, torch.sort(hi.gather(1, order), dim=1,
+                                       stable=True).indices)
+    return bits.to(torch.int32).gather(1, order[..., None].expand(-1, -1, 4))
+
+
+def records_differ(got, want):
+    """Where the neighbor kernel's (planes, counts, max_count) `got`
+    differs from its plain version's `want`: [] when the counts and
+    max_count are equal and every row keeps the same set of record bit
+    patterns, with the kernel's slots past them and its padding columns
+    (0, 0, 0, -1e30); else the parts that differ."""
+    (gp, gc, gm), (wp, wc, wm) = got, want
+    bad = []
+    if not torch.equal(gc.to(torch.int64), wc.to(torch.int64)):
+        bad.append(f"counts differ at {int((gc != wc).sum())} rows")
+    if int(gm) != int(wm):
+        bad.append(f"max_count {int(gm)} != {int(wm)}")
+    if gp.shape != wp.shape:
+        return bad + [f"planes {tuple(gp.shape)} != {tuple(wp.shape)}"]
+    if not bad and not torch.equal(record_multisets(gp, gc),
+                                   record_multisets(wp, wc)):
+        bad.append("the rows' records differ")
+    k, m = gp.shape[1], gc.shape[0]
+    dead = (torch.arange(k, device=gp.device)[:, None]
+            >= gc.to(torch.int64)[None, :])
+    dead = torch.cat([dead, torch.ones((k, gp.shape[2] - m), dtype=torch.bool,
+                                       device=gp.device)], dim=1)
+    if bool((gp[:3][:, dead] != 0).any()) or bool(
+            (gp[3][dead] != np.float32(-1e30)).any()):
+        bad.append("slots past the candidates are not (0, 0, 0, -1e30)")
+    return bad
+
+
+def visited_pairs(keys, sorted_keys):
+    """The atoms csrc/neighbor_cells.cu's scan visits for each row: those
+    of the 27 cells around the row's own (itself included) -> [M] i64, 0
+    for padding rows.  keys by atom and sorted, as neighbor_records makes
+    them."""
+    from ..ops import neighbors
+
+    cm = neighbors.CELL_MAX
+    real = keys != neighbors.PAD_KEY
+    base = (keys >> 54) << 54
+    cx, cy, cz = (keys >> 36) & cm, (keys >> 18) & cm, keys & cm
+    z0 = (cz - 1).clamp(min=0)
+    z1 = (cz + 1).clamp(max=cm)
+    total = torch.zeros_like(keys)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            x, y = cx + dx, cy + dy
+            ok = real & (x >= 0) & (x <= cm) & (y >= 0) & (y <= cm)
+            col = base | (x.clamp(0, cm) << 36) | (y.clamp(0, cm) << 18)
+            lo = torch.searchsorted(sorted_keys, col | z0)
+            hi = torch.searchsorted(sorted_keys, col | z1, right=True)
+            total += torch.where(ok, hi - lo, 0)
+    return total

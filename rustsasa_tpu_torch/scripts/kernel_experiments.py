@@ -44,8 +44,8 @@ import torch
 
 from ..ops import _kernels
 from ..ops import fused_kernel as fk
+from ..ops.fma import dot3
 from . import _study
-from .r3_maxplus import dot3
 
 A = 128
 P = 128

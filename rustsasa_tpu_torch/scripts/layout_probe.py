@@ -73,41 +73,38 @@ SPIN_CYCLES = 400_000
 
 def list_records(device, path=LIST_STRUCTURE, n_points=N_POINTS):
     """The list path's inputs for one structure, as its neighbor phase
-    makes them: {"planes": [vx, vy, vz, limit] [K, N] K-major, "area",
-    "sphere", "kmax", "n" (atoms), "max_count", "neighbor_s" (host clock
-    of the neighbor phase, first call), "copy_ms" (device time of the four
-    K-major copies, CUDA events)}."""
+    makes them (`neighbors.neighbor_records`: on a card the cell-list
+    kernel, re-run while a row overflows K): {"planes": [vx, vy, vz,
+    limit] [K, N] K-major, "area", "sphere", "kmax", "n" (atoms),
+    "max_count", "k", "runs" (neighbor phases), "packed" [1, N, 4] and
+    "gid" [1, N] (its inputs), "neighbor_s" (host clock of the neighbor
+    phases, first call)}."""
     coords, radii, gids = _study.select(path)
     n = coords.shape[0]
     n_pad = neighbors._round_bucket(n, neighbors._N_BUCKETS)
-    packed, g = (torch.from_numpy(a[0]).to(device)
+    packed, g = (torch.from_numpy(a).to(device)
                  for a in engine._pack(n_pad, [(coords, radii, gids)]))
     k = neighbors._initial_k(n_pad)
+    runs = 0
     t0 = time.perf_counter()
     while True:
-        v, limit, counts, mc = neighbors._neighbor_phase(
-            packed, g, probe=PROBE, k=k)
+        planes, counts, mc = neighbors.neighbor_records(packed, g,
+                                                        probe=PROBE, k=k)
+        runs += 1
         if int(mc) <= k:
             break
         k = min(neighbors._round_bucket(int(mc), neighbors._K_BUCKETS), n_pad)
     if device.type == "cuda":
         torch.cuda.synchronize()
     neighbor_s = time.perf_counter() - t0
-
-    def copies():
-        # neighbors.occlusion_sasa's K-major copies of the records.
-        return [t.T.contiguous() for t in (v[..., 0], v[..., 1], v[..., 2],
-                                          limit)]
-
-    copy_ms = _study.timed(copies, device, 20)[1] if device.type == "cuda" \
-        else None
     return {
-        "planes": copies(),
-        "area": neighbors._area_factor(packed[:, 3], g >= 0, PROBE, n_points),
+        "planes": list(planes),
+        "area": neighbors._area_factor(packed[0, :, 3], g[0] >= 0, PROBE,
+                                       n_points),
         "sphere": engine._sphere_device(n_points, device),
-        "kmax": neighbors.tile_kmax(counts, limit.shape[1]),
-        "n": n, "max_count": int(mc), "neighbor_s": neighbor_s,
-        "copy_ms": copy_ms,
+        "kmax": neighbors.tile_kmax(counts, planes.shape[1]),
+        "n": n, "max_count": int(mc), "k": k, "runs": runs,
+        "packed": packed, "gid": g, "neighbor_s": neighbor_s,
     }
 
 

@@ -28,6 +28,7 @@ import sys
 import torch
 
 from ..ops import _kernels, engine
+from ..ops.fma import dot3
 from ..ops import fused_kernel as fk
 from ..ops.fused_kernel import (
     ATOM_TILE, JLIST_CAP, J_GROUP, REFERENCE_BLOCK_ELEMS, _NEG_BIG,
@@ -40,29 +41,6 @@ W = 32
 MAX_FLIPS = 2
 # FP32 instructions per margin of the max-plus kernel: add, max.
 MAXPLUS_INSTR_PER_MARGIN = 2
-
-
-def fma_f32(a, b, c):
-    """a * b + c for f32 tensors, rounded once to f32 (a fused
-    multiply-add).  The product is exact in f64; the f64 sum s and its
-    exact error e (TwoSum) give a * b + c = s + e, and s rounded to odd
-    (stepped one ulp toward e when inexact and even) then rounds to f32
-    correctly, with no double rounding."""
-    a, b, c = (x.to(torch.float64) for x in (a, b, c))
-    prod = a * b
-    s = prod + c
-    bb = s - prod
-    e = (prod - (s - bb)) + (c - bb)
-    step = (e != 0.0) & ((s.view(torch.int64) & 1) == 0)
-    toward = torch.where(e > 0.0, float("inf"), float("-inf"))
-    s = torch.where(step, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
-
-
-def dot3(a0, b0, a1, b1, a2, b2):
-    """a0*b0 + a1*b1 + a2*b2 as XLA-CPU computes a K = 3 dot_general (and
-    sum(x * x) over 3): fma(a2, b2, fma(a1, b1, a0 * b0))."""
-    return fma_f32(a2, b2, fma_f32(a1, b1, a0 * b0))
 
 
 def maxplus_counts_reference(planes, jlist, sphere):

@@ -275,7 +275,7 @@ def test_launchers_refuse_mixed_devices():
 
 def test_band_cull_source_builds_two_launchers():
     assert "band_cull" in _kernels.SOURCES
-    assert len(_kernels.SOURCES) == 13
+    assert len(_kernels.SOURCES) == 14
     for name in ("dequant_boxes", "band_jlist"):
         assert name in _kernels._SIGNATURES and name in _kernels.launch_counts
     assert _kernels.WIRES == ("q13", "q16", "planes")

@@ -255,7 +255,9 @@ def test_list_path_engine_cuda_equals_cpu(cuda):
     assert eng.backend == "list"
     _kernels.reset_launch_counts()
     got = eng.compute(structures)
-    assert _kernels.launch_counts["list_occlusion"] == eng.routes.counts["list"]
+    assert (_kernels.launch_counts["list_occlusion"]
+            == _kernels.launch_counts["neighbor_cells"]
+            == eng.routes.counts["list"])
     assert _kernels.launch_counts["fused_count"] == 0
     want = engine.BatchedSasaEngine(params, device="cpu").compute(structures)
     for g, w in zip(got, want):
@@ -741,6 +743,7 @@ def test_sharded_list_step_equals_unsharded(cuda):
     sasa, total, max_count = step(packed, gid, sphere)
     torch.cuda.synchronize()
     assert _kernels.launch_counts["list_occlusion"] == 2
+    assert _kernels.launch_counts["neighbor_cells"] == 2
     whole, whole_mc = neighbors._sasa_batched(
         *(torch.from_numpy(a).to(cuda) for a in (packed, gid, sphere)),
         k=64, n_points=100, probe=1.4)
@@ -862,3 +865,106 @@ def test_band_launchers_refuse_bad_launches(cuda):
     assert torch.equal(jlist, fk.build_jlist_banded_reference(
         planes, qvalid, tmeta, w=16))
     assert (boxes.tmin == 3e4).all() and (boxes.tmaxr == 0).all()
+
+
+@pytest.fixture(scope="module")
+def neighbor_cases():
+    return {name: (packed, gid, k)
+            for name, packed, gid, k in _study.neighbor_cases()}
+
+
+@pytest.mark.parametrize("name", _study.neighbor_case_names())
+def test_neighbor_cells_byte_equal_plain(cuda, neighbor_cases, name):
+    """The cell-list kernel against the plain neighbor phase on the
+    smoke's seeded cases: counts and max_count equal, each row the same
+    set of record bit patterns (the K nearest where the ball's rows
+    overflow), and the list path's SASA from either set byte-equal."""
+    packed, gid, k = neighbor_cases[name]
+    packed, gid = torch.from_numpy(packed).to(cuda), torch.from_numpy(gid).to(
+        cuda)
+    before = _kernels.launch_counts["neighbor_cells"]
+    got = neighbors.neighbor_records(packed, gid, probe=1.4, k=k)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["neighbor_cells"] == before + 1
+    want = neighbors.neighbor_records_reference(packed, gid, probe=1.4, k=k)
+    assert _study.records_differ(got, want) == []
+    sphere = engine._sphere_device(100, cuda)
+    sasa = [neighbors.records_sasa(rec, packed, gid, sphere, probe=1.4,
+                                   n_points=100) for rec in (got, want)]
+    assert torch.equal(sasa[0], sasa[1])
+
+
+def test_list_batches_launch_one_neighbor_kernel_each(cuda):
+    """Every list batch, re-runs included, is one neighbor kernel and one
+    occlusion kernel."""
+    structures = _structures([40, 300, 900], seed=21)
+    rng = np.random.default_rng(0)
+    structures.append((rng.normal(0, 2.5, (300, 3)).astype(np.float32),
+                       np.full(300, 1.8, np.float32), None))  # overflows K
+    eng = engine.BatchedSasaEngine(device=cuda, backend="list")
+    _kernels.reset_launch_counts()
+    got = eng.compute(structures)
+    launches = _kernels.launch_counts
+    assert launches["neighbor_cells"] == launches["list_occlusion"] == (
+        eng.routes.counts["list"]) == 4  # three buckets and one re-run
+    want = engine.BatchedSasaEngine(device="cpu",
+                                    backend="list").compute(structures)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_cuda_list_route_never_takes_the_plain_phase(cuda, monkeypatch):
+    """On the card no list route calls the plain neighbor phase or
+    torch.topk: calculate_sasa_internal, the engine, graft_entry's step
+    and the sharded step."""
+    from rustsasa_tpu_torch import graft_entry
+    from rustsasa_tpu_torch.parallel import mesh
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain neighbor phase ran on the card")
+
+    monkeypatch.setattr(torch, "topk", refuse)
+    monkeypatch.setattr(neighbors, "_neighbor_phase", refuse)
+    monkeypatch.setattr(neighbors, "neighbor_records_reference", refuse)
+    structures = _structures([60, 500], seed=4)
+    _kernels.reset_launch_counts()
+    engine.calculate_sasa_internal(*structures[1][:2], backend="list",
+                                   device=cuda)
+    engine.BatchedSasaEngine(device=cuda, backend="list").compute(structures)
+    fn, args = graft_entry.entry(cuda)
+    fn(*args)
+    packed, gid, sphere = graft_entry._example_batch(b=4, n=128)
+    mesh.make_sharded_sasa([cuda, cuda], k=64, n_points=100)(packed, gid,
+                                                              sphere)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["neighbor_cells"] == (
+        _kernels.launch_counts["list_occlusion"]) == 6
+
+
+def test_neighbor_cells_launcher_refuses_bad_inputs(cuda):
+    b, n = 2, 16
+    args = {
+        "packed": torch.zeros((b, n, 4), device=cuda),
+        "group_id": torch.zeros((b, n), dtype=torch.int32, device=cuda),
+        "max_r": torch.zeros(b, device=cuda),
+        "keys": torch.zeros(b * n, dtype=torch.int64, device=cuda),
+        "sorted_keys": torch.zeros(b * n, dtype=torch.int64, device=cuda),
+        "perm": torch.zeros(b * n, dtype=torch.int64, device=cuda),
+    }
+    before = _kernels.launch_counts["neighbor_cells"]
+    for name, bad, error in (
+            ("packed", args["packed"].cpu(), ValueError),
+            ("group_id", args["group_id"].long(), TypeError),
+            ("perm", args["perm"][:-1], ValueError),
+            ("max_r", args["max_r"].double(), TypeError)):
+        with pytest.raises(error):
+            _kernels.neighbor_cells(**{**args, name: bad}, probe=1.4, k=4)
+    with pytest.raises(ValueError):
+        _kernels.neighbor_cells(**args, probe=1.4, k=n + 1)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        _kernels.neighbor_cells(**{k: t.cpu() for k, t in args.items()},
+                                probe=1.4, k=4)
+    assert _kernels.launch_counts["neighbor_cells"] == before
+    planes, counts = _kernels.neighbor_cells(**args, probe=1.4, k=4)
+    torch.cuda.synchronize()
+    assert planes.shape == (4, 4, b * n) and counts.shape == (b * n,)

@@ -40,7 +40,7 @@ import rustsasa_tpu.utils.jax_cache as jax_cache
 from conftest import REPO_ROOT
 from rustsasa_tpu_torch.ops import _kernels
 from rustsasa_tpu_torch.scripts import kernel_experiments as ke
-from rustsasa_tpu_torch.scripts.r3_maxplus import dot3, fma_f32
+from rustsasa_tpu_torch.ops.fma import dot3, fma_f32
 
 T_SMALL = 2
 NJ_SMALL = 32

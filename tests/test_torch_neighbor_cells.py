@@ -1,0 +1,343 @@
+"""The list path's neighbor phase in the port, on the CPU.
+
+On the card `neighbors.neighbor_records` bins a [B, N] batch into cells
+(`cell_grid`, a stable sort of the keys) and launches
+`ops/csrc/neighbor_cells.cu`; on the CPU it takes the plain version, the
+dense expansion and top-k of `_neighbor_phase` structure by structure.
+Here:
+
+  * the explicit fused multiply-add chain of the cross term against
+    `torch.matmul` and the JAX package's HIGHEST dot, bit for bit;
+  * a CPU model of the kernel's scan, fed the keys, sort and cell edge
+    the launcher passes it, against the plain version on the seeded
+    cases of `scripts/_study.neighbor_cases` (far offsets, a long thin
+    structure, pairs at the cutoff, an overflowing ball): every plain
+    candidate lies in one of its row's 27 cells, and the model's counts
+    and kept records (the K nearest where a row overflows) are the plain
+    version's;
+  * the cell edge's bound, the padding keys, the record comparison the
+    card checks use, and every argument check of the launcher, which
+    runs before the device check and so on CPU tensors.
+
+The kernel itself is held to the plain version on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rustsasa_tpu_torch.ops import _kernels, neighbors
+from rustsasa_tpu_torch.ops.fma import dot3
+from rustsasa_tpu_torch.scripts import _study
+
+PROBE = 1.4
+OFFSETS = (1000.0, -1000.0, 1300.0, -1300.0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def cases():
+    return {name: (torch.from_numpy(packed), torch.from_numpy(gid), k)
+            for name, packed, gid, k in _study.neighbor_cases(
+                offsets=OFFSETS)}
+
+
+@pytest.mark.parametrize("offset", [100.0, 1000.0, -1300.0])
+def test_fma_chain_equals_matmul_and_highest_dot(offset):
+    rng = np.random.default_rng(int(offset) & 0xFFFF)
+    c = (rng.uniform(-40.0, 40.0, (400, 3)) + offset).astype(np.float32)
+    ct = torch.from_numpy(c)
+    chain = dot3(ct[:, None, 0], ct[None, :, 0], ct[:, None, 1],
+                 ct[None, :, 1], ct[:, None, 2], ct[None, :, 2])
+    assert torch.equal(chain, torch.matmul(ct, ct.T))
+    highest = np.asarray(jnp.dot(c, c.T, precision=jax.lax.Precision.HIGHEST,
+                                 preferred_element_type=jnp.float32))
+    np.testing.assert_array_equal(chain.numpy(), highest)
+    # The plain sequential sum rounds differently on many pairs: the
+    # chain is not a reordering that could pass unnoticed.
+    seq = (ct[:, None, 0] * ct[None, :, 0] + ct[:, None, 1] * ct[None, :, 1]
+           ) + ct[:, None, 2] * ct[None, :, 2]
+    assert not torch.equal(chain, seq)
+
+
+def _decode(keys):
+    """(structure, cell x, y, z) of cell keys."""
+    m = neighbors.CELL_MAX
+    return (keys >> 54, (keys >> 36) & m, (keys >> 18) & m, keys & m)
+
+
+def _kernel_model(packed, gid, k):
+    """csrc/neighbor_cells.cu's rows, computed on the CPU from the keys,
+    sort and radii the launcher passes the kernel: each real row visits
+    the 27 cells around its own in the kernel's order (dx, then dy, each
+    column z-1..z+1 from one search of the sorted keys), takes the
+    plain version's candidate test, and on overflow keeps the K smallest
+    (d2 bits, index).  Returns ((planes, counts, max_count) in
+    neighbor_records' form, every row's plain candidates all visited, the
+    atoms each row visited)."""
+    b, n = gid.shape
+    m = b * n
+    kk = min(k, n)
+    grid = neighbors.cell_grid(packed, gid, PROBE)
+    sorted_keys, perm = torch.sort(grid.keys, stable=True)
+    planes = torch.zeros((4, kk, m + (-m % 4)), dtype=torch.float32)
+    planes[3] = neighbors._NEG_BIG
+    counts = torch.zeros(m, dtype=torch.int32)
+    visits = torch.zeros(m, dtype=torch.int64)
+    covered = True
+    _s, cx, cy, cz = _decode(grid.keys)
+    for s in range(b):
+        coords, radii, g = packed[s, :, :3], packed[s, :, 3], gid[s]
+        d2, cand = neighbors._candidates(coords, radii, g, coords, g,
+                                         grid.max_r[s], PROBE)
+        for i in range(n):
+            row = s * n + i
+            if g[i] < 0:
+                continue
+            visited = []
+            for dx in (-1, 0, 1):
+                for dy in (-1, 0, 1):
+                    x, y = int(cx[row]) + dx, int(cy[row]) + dy
+                    if not (0 <= x <= neighbors.CELL_MAX
+                            and 0 <= y <= neighbors.CELL_MAX):
+                        continue
+                    col = (s << 54) | (x << 36) | (y << 18)
+                    lo = max(int(cz[row]) - 1, 0)
+                    hi = min(int(cz[row]) + 1, neighbors.CELL_MAX)
+                    a = int(torch.searchsorted(sorted_keys, col | lo))
+                    z = int(torch.searchsorted(sorted_keys, col | hi,
+                                               right=True))
+                    visited += (perm[a:z] - s * n).tolist()
+            visits[row] = len(visited)
+            js = [j for j in visited if cand[i, j]]
+            covered &= set(js) == set(torch.nonzero(cand[i]).flatten()
+                                      .tolist())
+            counts[row] = len(js)
+            if len(js) > kk:
+                order = sorted(js, key=lambda j: (
+                    int(d2[i, j].view(torch.int32)), j))
+                keep = set(order[:kk])
+                js = [j for j in js if j in keep]
+            if not js:
+                continue
+            v, limit = neighbors._records(
+                coords[i:i + 1], radii[i:i + 1], coords[js][None],
+                radii[js][None], PROBE)
+            planes[:3, :len(js), row] = v[0].T
+            planes[3, :len(js), row] = limit[0]
+    return (planes, counts, counts.max()), covered, visits
+
+
+@pytest.mark.parametrize("name", _study.neighbor_case_names(OFFSETS))
+def test_kernel_model_equals_plain(cases, name):
+    packed, gid, k = cases[name]
+    want = neighbors.neighbor_records_reference(packed, gid, probe=PROBE,
+                                                k=k)
+    got, covered, visits = _kernel_model(packed, gid, k)
+    assert covered, "a plain candidate lies outside its row's 27 cells"
+    # The bound's count of visited pairs (chip_smoke.py) is the model's.
+    keys = neighbors.cell_grid(packed, gid, PROBE).keys
+    assert torch.equal(_study.visited_pairs(
+        keys, torch.sort(keys, stable=True).values), visits)
+    assert _study.records_differ(got, want) == []
+    assert int(want[2]) > 0
+    if name == "ball":
+        assert int(want[2]) > want[0].shape[1]  # rows overflow K
+
+
+@pytest.mark.parametrize("name", _study.neighbor_case_names(OFFSETS))
+def test_candidates_lie_in_adjacent_cells(cases, name):
+    """Every pair the plain version makes candidates sits in the same
+    structure and at most one cell apart on every axis."""
+    packed, gid, _k = cases[name]
+    b, n = gid.shape
+    grid = neighbors.cell_grid(packed, gid, PROBE)
+    s, cx, cy, cz = (t.reshape(b, n) for t in _decode(grid.keys))
+    pairs = 0
+    for i in range(b):
+        coords = packed[i, :, :3]
+        _d2, cand = neighbors._candidates(coords, packed[i, :, 3], gid[i],
+                                          coords, gid[i], grid.max_r[i],
+                                          PROBE)
+        rows, cols = torch.nonzero(cand, as_tuple=True)
+        assert (s[i, rows] == i).all() and (s[i, cols] == i).all()
+        for c in (cx[i], cy[i], cz[i]):
+            assert bool(((c[rows] - c[cols]).abs() <= 1).all())
+        pairs += rows.numel()
+    assert pairs > 0
+
+
+def test_cell_edge_bound():
+    """h^2 covers the widest cutoff plus the expansion's error bound at
+    the structure's largest |c|, grows with it, and a span too wide for
+    2^18 cells widens h instead."""
+    rng = np.random.default_rng(3)
+    packed = np.zeros((3, 64, 4), np.float32)
+    packed[:, :, 3] = 1.6
+    packed[0, :, :3] = rng.uniform(0, 20, (64, 3))
+    packed[1, :, :3] = rng.uniform(0, 20, (64, 3)) + 1300.0
+    packed[2, :, :3] = rng.uniform(0, 1, (64, 3))
+    packed[2, 0, :3] = -1e6
+    packed[2, 1, :3] = 1e6
+    gid = np.tile(np.arange(64, dtype=np.int32), (3, 1))
+    gid[0, 60:] = -1
+    packed[0, 60:, :3] = 1e7  # padding: neither in R nor in the span
+    grid = neighbors.cell_grid(torch.from_numpy(packed),
+                               torch.from_numpy(gid), PROBE)
+    thr = (2 * 1.6 + 2 * PROBE) ** 2 + 1e-3
+    r2 = (packed[1, :, :3].astype(np.float64) ** 2).sum(axis=1).max()
+    assert grid.h[0] ** 2 >= thr * (1 + 2 ** -20)
+    assert grid.h[0] ** 2 < thr + 0.01
+    assert grid.h[1] ** 2 >= thr + 2.0 ** -19 * (r2 + thr)
+    assert grid.h[2] >= 2e6 / (neighbors.CELL_MAX - 1)
+    cells = torch.stack(_decode(grid.keys)[1:])
+    assert int(cells.max()) <= neighbors.CELL_MAX
+
+
+def test_padding_keys_sort_last():
+    packed = torch.zeros((2, 8, 4))
+    packed[..., 3] = 1.5
+    gid = torch.full((2, 8), -1, dtype=torch.int32)
+    gid[0, :3] = torch.arange(3)
+    gid[1, :5] = torch.arange(5)
+    packed[1, :5, 0] = torch.arange(5) * 50.0
+    keys = neighbors.cell_grid(packed, gid, PROBE).keys.reshape(2, 8)
+    assert (keys[gid < 0] == neighbors.PAD_KEY).all()
+    real = keys[gid >= 0]
+    assert int(real.max()) < neighbors.PAD_KEY
+    assert ((real >> 54) == torch.tensor([0] * 3 + [1] * 5)).all()
+    sorted_keys = torch.sort(keys.flatten(), stable=True).values
+    assert (sorted_keys[8:] == neighbors.PAD_KEY).all()
+
+
+def test_neighbor_records_take_the_plain_version_on_the_cpu(cases,
+                                                            monkeypatch):
+    packed, gid, k = cases["batch"]
+
+    def launch(*args, **kw):
+        raise AssertionError("the CPU route launched the kernel")
+
+    monkeypatch.setattr(_kernels, "neighbor_cells", launch)
+    got = neighbors.neighbor_records(packed, gid, probe=PROBE, k=k)
+    want = neighbors.neighbor_records_reference(packed, gid, probe=PROBE,
+                                                k=k)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    planes, counts, mc = got
+    assert planes.shape == (4, k, gid.numel()) and counts.dtype == torch.int32
+    with pytest.raises(ValueError, match="unsupported device"):
+        neighbors.neighbor_records(packed.to("meta"), gid.to("meta"),
+                                   probe=PROBE, k=k)
+
+
+def test_single_is_a_batch_of_one(cases):
+    packed, gid, k = cases["groups"]
+    sphere = torch.from_numpy(_sphere(100))
+    single, mc1 = neighbors._sasa_single(packed[0], gid[0], sphere, k=k,
+                                         n_points=100, probe=PROBE)
+    batched, mc2 = neighbors._sasa_batched(packed, gid, sphere, k=k,
+                                           n_points=100, probe=PROBE)
+    assert torch.equal(single, batched[0]) and int(mc1) == int(mc2)
+    assert single.shape == (gid.shape[1],) and (single[gid[0] < 0] == 0).all()
+
+
+def _sphere(n_points):
+    from rustsasa_tpu_torch.ops import engine
+
+    return engine._sphere_packed(n_points)
+
+
+def test_record_multisets_ignore_slot_order(cases):
+    packed, gid, k = cases["groups"]
+    planes, counts, mc = neighbors.neighbor_records_reference(
+        packed, gid, probe=PROBE, k=k)
+    shuffled = planes.clone()
+    rng = torch.Generator().manual_seed(0)
+    for row in range(counts.shape[0]):
+        c = int(counts[row])
+        shuffled[:, :c, row] = planes[:, torch.randperm(c, generator=rng),
+                                      row]
+    assert torch.equal(_study.record_multisets(planes, counts),
+                       _study.record_multisets(shuffled, counts))
+    # The kernel's own form: nothing but (0, 0, 0, -1e30) past the kept
+    # records, and a flipped bit found.
+    live = torch.arange(planes.shape[1])[:, None] < counts[None, :]
+    clean = torch.where(live[None], shuffled, 0.0)
+    clean[3] = torch.where(live, shuffled[3], neighbors._NEG_BIG)
+    assert _study.records_differ((clean, counts, mc),
+                                 (planes, counts, mc)) == []
+    flipped = clean.clone()
+    flipped.view(torch.int32)[3, 0, 0] ^= 1
+    assert _study.records_differ((flipped, counts, mc),
+                                 (planes, counts, mc)) == [
+        "the rows' records differ"]
+    assert "slots past" in _study.records_differ(
+        (planes, counts, mc), (planes, counts, mc))[0]
+
+
+def _launch_args(b=2, n=8, **over):
+    args = {
+        "packed": torch.zeros((b, n, 4)),
+        "group_id": torch.zeros((b, n), dtype=torch.int32),
+        "max_r": torch.zeros(b),
+        "keys": torch.zeros(b * n, dtype=torch.int64),
+        "sorted_keys": torch.zeros(b * n, dtype=torch.int64),
+        "perm": torch.zeros(b * n, dtype=torch.int64),
+    }
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over, k, error, match", [
+    ({"packed": torch.zeros((2, 8, 4), dtype=torch.float64)}, 4, TypeError,
+     "packed has dtype"),
+    ({"group_id": torch.zeros((2, 8), dtype=torch.int64)}, 4, TypeError,
+     "group_id has dtype"),
+    ({"keys": torch.zeros(16, dtype=torch.int32)}, 4, TypeError,
+     "keys has dtype"),
+    ({"perm": torch.zeros(15, dtype=torch.int64)}, 4, ValueError,
+     "perm shape"),
+    ({"packed": torch.zeros((2, 8, 3))}, 4, ValueError, "packed shape"),
+    ({"max_r": torch.zeros(3)}, 4, ValueError, "max_r shape"),
+    ({"sorted_keys": torch.zeros((16, 1), dtype=torch.int64)}, 4,
+     ValueError, "expected 1-D"),
+    ({"packed": torch.zeros((2, 8, 4)).transpose(0, 1).contiguous()
+      .transpose(0, 1)}, 4, ValueError, "contiguous"),
+    ({}, 0, ValueError, "outside"),
+    ({}, 9, ValueError, "outside"),
+    ({"packed": torch.zeros(2 * 8 * 4 + 1)[1:].view(2, 8, 4)}, 4,
+     ValueError, "16-byte"),
+    ({"max_r": torch.zeros(2, device="meta")}, 4, ValueError, "is on meta"),
+])
+def test_launcher_checks_before_any_launch(over, k, error, match):
+    with pytest.raises(error, match=match):
+        _kernels.neighbor_cells(**_launch_args(**over), probe=PROBE, k=k)
+
+
+def test_launcher_batch_limits():
+    b = _kernels.MAX_CELL_BATCH + 1
+    with pytest.raises(ValueError, match="structures"):
+        _kernels.neighbor_cells(**_launch_args(b=b, n=1), probe=PROBE, k=1)
+    with pytest.raises(ValueError, match="structures"):
+        _kernels.neighbor_cells(**_launch_args(b=0), probe=PROBE, k=1)
+    with pytest.raises(ValueError, match="at most"):
+        neighbors.cell_grid(torch.zeros((b, 1, 4)),
+                            torch.zeros((b, 1), dtype=torch.int32), PROBE)
+
+
+def test_launcher_needs_cuda_tensors():
+    before = dict(_kernels.launch_counts)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        _kernels.neighbor_cells(**_launch_args(), probe=PROBE, k=8)
+    assert _kernels.launch_counts == before

@@ -28,6 +28,7 @@ from rustsasa_tpu.ops import fused_kernel as ref
 from rustsasa_tpu.ops.engine import _sphere_packed
 from rustsasa_tpu_torch.ops import _kernels
 from rustsasa_tpu_torch.ops import fused_kernel as port
+from rustsasa_tpu_torch.ops import fma
 from rustsasa_tpu_torch.scripts import _study, r3_maxplus, r4_saturation
 
 PROBE = 1.4
@@ -114,7 +115,7 @@ def test_fma_emulation_rounds_once():
     c = torch.tensor([2.0 ** 30 + 128.0], dtype=torch.float32)
     naive = (a.double() * b.double() + c.double()).float()
     assert float(naive) == 2.0 ** 30 + 256.0
-    assert float(r3_maxplus.fma_f32(a, b, c)) == 2.0 ** 30 + 128.0
+    assert float(fma.fma_f32(a, b, c)) == 2.0 ** 30 + 128.0
     # XLA-CPU's two-term dot is the same fused multiply-add.
     lhs = np.array([[float(c), float(a)]], np.float32)
     rhs = np.array([[1.0], [float(b)]], np.float32)

@@ -47,36 +47,40 @@ runs fifteen phases, each of which must pass:
      pass equal the chunks the engine dispatched, dequant_boxes' the
      q13, q16 and host-cull q16 chunks, band_jlist's the q13 and q16
      chunks;
-  5. the list path's kernels vs plain: the neighbor kernel
-     (neighbor_cells.cu) against the plain neighbor phase on the seeded
-     cases of `_study.neighbor_cases` (a batch of three structures with
-     padding rows and a shared group id, groups of four ids, clusters at
-     +-1,000 A, a 4,000 A line, pairs at the cutoff within an ulp of d2,
-     the dense ball whose rows overflow K, six structures in N = 8), one
-     launch each: counts, max_count and each row's set of record bit
-     patterns equal, the list SASA at 100 points from either byte-equal;
+  5. the list path's kernels vs plain: the binning kernel (cell_keys)
+     bit-equal to neighbors.cell_grid (keys, max_r, cell edges) and the
+     neighbor kernel (neighbor_cells.cu) against the plain neighbor phase
+     on the seeded cases of `_study.neighbor_cases` (a batch of three
+     structures with padding rows and a shared group id, groups of four
+     ids, clusters at +-1,000 A, a 4,000 A line, pairs at the cutoff
+     within an ulp of d2, the dense ball whose rows overflow K, six
+     structures in N = 8), one launch of each a case: counts, max_count
+     and each row's set of record bit patterns equal, the list SASA at
+     100 points from either byte-equal;
      then 1jz8 (the largest test structure): its records as the list
      path makes them (one neighbor launch a run), the list-occlusion
      kernel and its plain version on them at 100 points, byte-equal, both
      timed, with the tiles' neighbor bounds (min, mean, max) and the
      wrapper's host time a call, byte-equal again at 960 and 50,000
      points (several blocks of points a tile, beyond one wave of CTAs);
-     the neighbor kernel alone and the whole phase (cell keys, sort,
-     kernel) warm, in a CUDA graph and as calls back to back, the plain
-     version (expansion, top-k, its K-major copies) warm, held equal as
-     on the cases, the list SASA at P = 104, 960 and 50,000 byte-equal
-     from kernel-made and plain-made records, and the kernel's bound
-     (bytes; FP32 operations of the pairs its cells visit), its share
-     of it, ptxas registers and spills;
+     the binning kernel bit-equal to cell_grid on 1jz8, the neighbor
+     kernel, the binning kernel, the sort and the whole phase (cell
+     keys, sort, gather, kernel) warm, in a CUDA graph and as calls back
+     to back, the plain versions (cell_grid; expansion, top-k, its
+     K-major copies) warm, held equal as on the cases, the list SASA at
+     P = 104, 960 and 50,000 byte-equal from kernel-made and plain-made
+     records, and each kernel's bound (bytes; FP32 operations of the
+     pairs its cells visit, f64 ones of the binning), its share of it,
+     ptxas registers, spills and shared memory;
   6. list path: `calculate_sasa_internal(backend="list")` on example.cif
      against the golden array and protein total, and the closed-form cases
-     of tests/test_sanity.py at 50,000 points within 0.5 %; the list and
-     neighbor kernels must launch once each a batch and the count kernel
-     must not;
+     of tests/test_sanity.py at 50,000 points within 0.5 %; the list,
+     binning and neighbor kernels must launch once each a batch and the
+     count kernel must not;
   7. host-cull wires: `process_directory` over all 88 FreeSASA structures
      on CUDA, with the chunks of each route counted (the three largest
-     need the host-cull wires or the list path, one list and one neighbor
-     kernel a list chunk); their JSON is
+     need the host-cull wires or the list path, one list, one binning
+     and one neighbor kernel a list chunk); their JSON is
      byte-identical to the CPU's; a shared-group-id structure through the
      f32 wire equals the CPU result exactly;
   8. count-kernel studies: on a banded q16 chunk of 524,288 slots
@@ -86,7 +90,9 @@ runs fifteen phases, each of which must pass:
      version (saturation: counts and entries streamed) and equal to the
      count kernel at every real slot; then the studies' run() at
      2,097,152 slots, kernels only, timed against the count kernel, whose
-     launches are the three kernels' launch counts;
+     launches are the three kernels' launch counts; each kernel's bound
+     on the work its inputs need (kernel 1's: fused_kernel.reach_work of
+     its chunk) beside the old one on every admitted margin;
   9. count-kernel studies II: on the host-cull f32 chunk of phase 8's
      structures the loop micro-variants (micro_count: prod, split2, g16,
      g24, nosmem) and the reach-test kernel (reach_count: base,
@@ -96,7 +102,8 @@ runs fifteen phases, each of which must pass:
      executed), the f32 variants equal to the count kernel at every real
      slot, bf16, bf16p and max-plus with their count difference reported;
      then the three studies' run() at 2,097,152 slots, kernels only, whose
-     launches are the three kernels' launch counts;
+     launches are the three kernels' launch counts; the bounds recounted
+     as in phase 8;
  10. kernel experiments: the 22 variants of scripts/kernel_experiments.py
      on its synthetic data (64 tiles x 1,408 resident j-rows), on its ones
      and on seeded random j-data, each against its plain version:
@@ -109,8 +116,9 @@ runs fifteen phases, each of which must pass:
      example.cif at residue level with --device cuda and --device cpu
      (every value within 1e-3; whether the files are byte-equal is
      printed), in directory mode over the 88 FreeSASA files, and with -T
-     on a 16-frame DCD; each run's wall time and launches (a neighbor
-     kernel for each list kernel; both launch in directory mode);
+     on a 16-frame DCD; each run's wall time and launches (a binning and
+     a neighbor kernel for each list kernel; all three launch in
+     directory mode);
  12. trajectory: `compute_trajectory_sasa` over example.cif x 2,500
      jittered frames (benches/md_trajectory.py's workload), a warm and a
      timed pass; frames 0, 1,250 and 2,499 byte-equal to
@@ -118,8 +126,8 @@ runs fifteen phases, each of which must pass:
      within 1e-3 of the CPU's plain path;
  13. quality gate: `scripts/quality_gate.run_gate` on the card, all four
      depths and the occupancy row, 88/88 files and a pass in every row;
-     the count and list kernels must launch, a neighbor kernel for each
-     list kernel;
+     the count and list kernels must launch, a binning and a neighbor
+     kernel for each list kernel;
  14. scale-out, on the one card: phase 4's corpus through an engine on
      two streams of it (`devices=[cuda:0, cuda:0]`; a warm and a timed
      pass), byte-equal to phase 4's last pass, every entry dispatching
@@ -129,8 +137,8 @@ runs fifteen phases, each of which must pass:
      (`parallel.mesh`) over two streams on the largest even batch of
      FreeSASA structures sharing an N bucket, re-run while its max count
      exceeds K, byte-equal to `_sasa_batched` on the whole batch with its
-     total equal to that batch's sum and one list and one neighbor kernel
-     a shard; and `graft_entry.dryrun_multichip` over the two entries
+     total equal to that batch's sum and one list, one binning and one
+     neighbor kernel a shard; and `graft_entry.dryrun_multichip` over the two entries
      (one of each a shard again).  The kernel
      records carry these paths' launches (`scale_out_launches`);
  15. profilers and studies: the reference's last scripts through their
@@ -150,15 +158,18 @@ runs fifteen phases, each of which must pass:
      carry these paths' launches (`profilers_launches`).
 
 Phases 2, 5, 9 and 10 log the kernels redesigned for this card
-(fused_count; list_occlusion; maxplus_count; ke_mxu's mxu_dots_def,
+(fused_count; list_occlusion and neighbor_cells; maxplus_count; ke_mxu's
+mxu_dots_def,
 ke_maxplus's six variants, ke_bf16's two and ke_stream's nobig and
 noscalar) with their
 bound, share of it, FP32 instruction rate, ptxas registers and spills
 and shared memory.  Prints the card's name and
 power limit, one JSON line with the fourteen kernel sources' numbers
-(band_cull.cu as its two kernels, dequant_boxes and neighbor_cells bound
-by bytes; neighbor_cells timed alone in a CUDA graph, with its time as
-a call and the whole phase's beside it) and a
+(band_cull.cu and neighbor_cells.cu each as its two kernels;
+dequant_boxes, cell_keys and neighbor_cells bound by bytes; cell_keys
+and neighbor_cells timed alone in a CUDA graph, with their times as a
+call and, for neighbor_cells, the sort's and the whole phase's beside
+them) and a
 record of its own for mxu_dots_def (each with its bound: the larger of its FP32
 instructions at this run's work over the 33.5T/s issue peak, for the
 DEFAULT variants also its mma work over the 989 TFLOP/s bf16
@@ -222,7 +233,10 @@ KERNELS = {
                       "599-610"),
     "band_jlist": ("rustsasa_tpu_torch/ops/csrc/band_cull.cu",
                    "rustsasa_tpu/ops/fused_kernel.py:612-711"),
-    # The list path's neighbor phase (XLA device code in the JAX package).
+    # The list path's neighbor phase (XLA device code in the JAX package):
+    # the cell binning and the cell-list kernel.
+    "cell_keys": ("rustsasa_tpu_torch/ops/csrc/neighbor_cells.cu",
+                  "rustsasa_tpu/ops/engine.py:138-211"),
     "neighbor_cells": ("rustsasa_tpu_torch/ops/csrc/neighbor_cells.cu",
                        "rustsasa_tpu/ops/engine.py:138-211"),
 }
@@ -238,7 +252,7 @@ DEQUANT_INSTR_PER_SLOT = 41
 BOX_BYTES_PER_TILE = 4 * (16 * 7 + 7)
 BAND_KERNELS = ("dequant_boxes", "band_jlist")
 # The list path's kernels: one of each a list batch.
-LIST_KERNELS = ("list_occlusion", "neighbor_cells")
+LIST_KERNELS = ("list_occlusion", "cell_keys", "neighbor_cells")
 # csrc/fused_count.cu's shared memory before the sphere (kSphereOffset):
 # a 4-slot ring of 5 x 128 floats, 8 mbarriers, 32 atoms (20 bytes each)
 # and the j-list row.
@@ -269,6 +283,18 @@ LIST_BIG_SPHERES = (960, 50_000)
 # nr: FADD; limit: FMUL, 2 FSUB, the division).
 NEIGHBOR_OPS_PER_PAIR = 13
 NEIGHBOR_OPS_PER_RECORD = 13
+# csrc/neighbor_cells.cu's shared memory per CTA: the staged sorted
+# positions [min(K, kStageCap)][kRows] (dynamic), the rows' counts and
+# their column ranges [kRows][10] int2; its bytes an atom read once
+# (packed, gid, key, sorted key, perm, sorted packed, sorted gid).
+NEIGHBOR_ROWS = 16
+NEIGHBOR_STAGE_CAP = 256
+NEIGHBOR_BYTES_PER_ATOM = 16 + 4 + 8 + 8 + 8 + 16 + 4
+# cell_keys: f64 operations an atom (r2: 3 DMUL, 2 DADD, the max; a key:
+# 3 DSUB, 3 DDIV, 3 floors, 6 clamps) at the FP64 issue rate, half the
+# FP32 one; bytes an atom (packed and gid read, the key written).
+CELL_KEYS_F64_PER_ATOM = 21
+CELL_KEYS_BYTES_PER_ATOM = 16 + 4 + 8
 
 
 def log(msg: str) -> None:
@@ -304,6 +330,27 @@ def kernel1_bound(work, m, sphere, per_pair=None):
     instr = fk.needed_instructions(work, int((sphere[:, 3] > 0).sum()),
                                    per_pair or fk.REACH_INSTR_PER_PAIR)
     return bound(instr, 4 * m * 7 + 16 * sphere.shape[0]), instr
+
+
+def recount_bound(rec, tag, planes, jlist, sphere, work=None):
+    """Gives a count study's record the bound on the work its inputs
+    need, kernel 1's since PR 13 (kernel1_bound of fused_kernel.reach_work
+    on the row's own chunk and kernel 1's j-lists of it, or `work`), and
+    keeps the old one on every admitted margin as old_bound_ms; logs
+    both shares.  Returns the reach work."""
+    from rustsasa_tpu_torch.ops import fused_kernel as fk
+
+    if work is None:
+        work = fk.reach_work(planes, jlist, sphere)
+    (bound_ms, bound_by), _instr = kernel1_bound(work, planes.shape[1],
+                                                 sphere)
+    log(f"{tag} {rec['name']} bound on the work its inputs need "
+        f"{bound_ms:.4f} ms ({bound_by}; {bound_ms / rec['ms']:.3f} of it), "
+        f"on every admitted margin {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_ms'] / rec['ms']:.3f} of it)")
+    rec.update(old_bound_ms=rec["bound_ms"], bound_ms=bound_ms,
+               bound_by=bound_by)
+    return work
 
 
 def kernel1_reach(tag, planes, jlist, sphere, real):
@@ -376,27 +423,12 @@ def cuda_ms(fn, reps, warm=True):
 
 
 def graph_ms(fn, reps):
-    """Mean device milliseconds of `fn()` over `reps` calls captured in one
-    CUDA graph and replayed between two CUDA events, after a warm call:
-    the host's enqueue of each call (allocations, checks, the launch),
-    which cuda_ms counts where it outlasts a short kernel, stays out."""
-    import torch
+    """Mean device milliseconds of `fn()` over `reps` calls in one CUDA
+    graph (`_study.graph_ms`): the host's enqueue of each call, which
+    cuda_ms counts where it outlasts a short kernel, stays out."""
+    from rustsasa_tpu_torch.scripts import _study
 
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return _study.graph_ms(fn, reps)
 
 
 def ptxas_entries(log):
@@ -871,9 +903,11 @@ def neighbor_kernel_cases(device):
     sphere = engine._sphere_device(100, device)
     for name, packed, gid, k in _study.neighbor_cases():
         packed, gid = (torch.from_numpy(a).to(device) for a in (packed, gid))
-        before = _kernels.launch_counts["neighbor_cells"]
+        keys_equal = cell_keys_vs_plain(packed, gid)
+        before = dict(_kernels.launch_counts)
         got = neighbors.neighbor_records(packed, gid, probe=PROBE, k=k)
-        launches = _kernels.launch_counts["neighbor_cells"] - before
+        launches = [_kernels.launch_counts[n] - before[n]
+                    for n in ("cell_keys", "neighbor_cells")]
         want = neighbors.neighbor_records_reference(packed, gid, probe=PROBE,
                                                     k=k)
         err, bad = neighbor_vs_plain(got, want)
@@ -881,20 +915,40 @@ def neighbor_kernel_cases(device):
             rec, packed, gid, sphere, probe=PROBE, n_points=100)
             for rec in (got, want))))
         log(f"[neighbor] {name}: B={gid.shape[0]}, N={gid.shape[1]}, "
-            f"K={got[0].shape[1]}, max count {int(got[2])}; counts, "
-            f"max_count and records equal to plain: {not bad} (max |diff| "
-            f"{err}); SASA byte-equal: {equal}; {launches} launch")
-        if bad or not equal or launches != 1:
-            raise AssertionError(f"neighbor kernel on {name}: {bad}, SASA "
-                                 f"equal {equal}, {launches} launches")
+            f"K={got[0].shape[1]}, max count {int(got[2])}; cell_keys "
+            f"bit-equal to cell_grid: {keys_equal}; counts, max_count and "
+            f"records equal to plain: {not bad} (max |diff| {err}); SASA "
+            f"byte-equal: {equal}; cell_keys and neighbor_cells launches "
+            f"{launches}")
+        if bad or not equal or not keys_equal or launches != [1, 1]:
+            raise AssertionError(f"neighbor kernels on {name}: {bad}, SASA "
+                                 f"equal {equal}, keys equal {keys_equal}, "
+                                 f"{launches} launches")
+
+
+def cell_keys_vs_plain(packed, gid):
+    """Whether the binning kernel's keys, max_r and cell edges are
+    bit-equal to neighbors.cell_grid's (the plain version, on the CPU)."""
+    import torch
+
+    from rustsasa_tpu_torch.ops import _kernels, neighbors
+
+    keys, max_r, h = _kernels.cell_keys(packed, gid, PROBE)
+    want = neighbors.cell_grid(packed.cpu(), gid.cpu(), PROBE)
+    return (torch.equal(keys.cpu(), want.keys)
+            and torch.equal(max_r.cpu().view(torch.int32),
+                            want.max_r.view(torch.int32))
+            and torch.equal(h.cpu().view(torch.int64),
+                            want.h.view(torch.int64)))
 
 
 def phase_list_kernel(device, build_logs):
-    """Phase 5: the list path's two kernels against their plain versions:
-    the neighbor kernel on the seeded cases, then on the largest test
-    structure the neighbor phase (kernel, whole phase, plain version with
-    its K-major copies) and the list kernel on its records; returns
-    their JSON records."""
+    """Phase 5: the list path's three kernels against their plain
+    versions: the binning and neighbor kernels on the seeded cases, then
+    on the largest test structure the list kernel on the neighbor
+    phase's records and the neighbor phase (each kernel, the sort, the
+    whole phase, the plain versions); returns their JSON records (list,
+    binning, neighbor)."""
     import torch
 
     from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
@@ -905,7 +959,8 @@ def phase_list_kernel(device, build_logs):
     rec = layout_probe.list_records(device, os.path.join(SOURCE_DIR,
                                                          LARGEST[-1]))
     runs = _kernels.launch_counts["neighbor_cells"]
-    if runs != rec["runs"] or _kernels.launch_counts["list_occlusion"]:
+    if runs != rec["runs"] or _kernels.launch_counts["cell_keys"] != runs or (
+            _kernels.launch_counts["list_occlusion"]):
         raise AssertionError(f"{rec['runs']} neighbor phases, launches "
                              f"{_kernels.launch_counts}")
     planes, area, sphere, kmax = (rec[key] for key in
@@ -973,16 +1028,29 @@ def phase_list_kernel(device, build_logs):
     listed = record("list_occlusion", None, max_err, kernel_ms, plain_ms,
                     None, work)
 
-    # The neighbor phase on 1jz8: the kernel alone and the whole phase
-    # (keys, sort, kernel, max count) warm, in a CUDA graph and as calls
-    # back to back; the plain version with its K-major copies.
+    # The neighbor phase on 1jz8: the binning kernel, the sort and the
+    # cell-list kernel each alone and the whole phase (keys, sort, gather,
+    # kernel) warm, in a CUDA graph and as calls back to back; the plain
+    # versions (cell_grid; the expansion and top-k with their K-major
+    # copies).
     packed, gid, k = rec["packed"], rec["gid"], rec["k"]
-    grid = neighbors.cell_grid(packed, gid, PROBE)
-    sorted_keys, perm = torch.sort(grid.keys, stable=True)
+    keys_equal = cell_keys_vs_plain(packed, gid)
+    keys, max_r, h = _kernels.cell_keys(packed, gid, PROBE)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    m = gid.numel()
+    sorted_packed = packed.reshape(m, 4).index_select(0, perm)
+    sorted_gid = gid.reshape(m).index_select(0, perm)
 
     def kernel():
-        return _kernels.neighbor_cells(packed, gid, grid.max_r, grid.keys,
-                                       sorted_keys, perm, probe=PROBE, k=k)
+        return _kernels.neighbor_cells(packed, gid, max_r, keys, sorted_keys,
+                                       perm, sorted_packed, sorted_gid,
+                                       probe=PROBE, k=k)
+
+    def binning():
+        return _kernels.cell_keys(packed, gid, PROBE)
+
+    def sort():
+        return torch.sort(keys, stable=True)
 
     def phase():
         return neighbors.neighbor_records(packed, gid, probe=PROBE, k=k)
@@ -993,22 +1061,31 @@ def phase_list_kernel(device, build_logs):
 
     nb_graph_ms = graph_ms(kernel, 20)
     nb_call_ms, _ = cuda_ms(kernel, 20)
+    keys_graph_ms = graph_ms(binning, 20)
+    keys_call_ms, _ = cuda_ms(binning, 20)
+    sort_graph_ms = graph_ms(sort, 20)
     phase_graph_ms = graph_ms(phase, 20)
     phase_call_ms, mine = cuda_ms(phase, 20)
+    keys_plain_ms, _ = cuda_ms(lambda: neighbors.cell_grid(packed, gid,
+                                                           PROBE), 20)
     nb_plain_ms, theirs = cuda_ms(plain, 3)
     v, limit, _c, _m = neighbors._neighbor_phase(packed[0], gid[0],
                                                   probe=PROBE, k=k)
     copy_ms, _ = cuda_ms(lambda: neighbors.k_major(v, limit, n_pad), 20)
     nb_err, bad = neighbor_vs_plain(mine, theirs)
     log(f"[neighbor] {LARGEST[-1]}: kernel {nb_graph_ms:.4f} ms in a graph, "
-        f"{nb_call_ms:.4f} ms a call; the phase (cell keys, sort, kernel, "
-        f"max) {phase_graph_ms:.4f} ms in a graph, {phase_call_ms:.4f} ms a "
-        f"call; plain (expansion, top-k, K-major copies) {nb_plain_ms:.3f} "
-        f"ms, its copies {copy_ms:.4f} ms; cell edge {float(grid.h[0]):.4f} "
-        f"A; counts, max_count and records equal: {not bad} (max |diff| "
-        f"{nb_err})")
-    if bad:
-        raise AssertionError(f"neighbor kernel on {LARGEST[-1]}: {bad}")
+        f"{nb_call_ms:.4f} ms a call; cell_keys {keys_graph_ms:.4f} ms in a "
+        f"graph, {keys_call_ms:.4f} ms a call (plain cell_grid on the card "
+        f"{keys_plain_ms:.4f} ms), bit-equal to cell_grid: {keys_equal}; the "
+        f"stable sort {sort_graph_ms:.4f} ms in a graph; the phase (cell "
+        f"keys, sort, gather, kernel) {phase_graph_ms:.4f} ms in a graph, "
+        f"{phase_call_ms:.4f} ms a call; plain (expansion, top-k, K-major "
+        f"copies) {nb_plain_ms:.3f} ms, its copies {copy_ms:.4f} ms; cell "
+        f"edge {float(h[0]):.4f} A; counts, max_count and records equal: "
+        f"{not bad} (max |diff| {nb_err})")
+    if bad or not keys_equal:
+        raise AssertionError(f"neighbor kernels on {LARGEST[-1]}: {bad}, "
+                             f"keys equal {keys_equal}")
     for n_points in (100, *LIST_BIG_SPHERES):
         ball = engine._sphere_device(n_points, device)
         same = bool(torch.equal(*(neighbors.records_sasa(
@@ -1019,28 +1096,39 @@ def phase_list_kernel(device, build_logs):
         if not same:
             raise AssertionError(f"list SASA at P={ball.shape[0]} differs "
                                  "between the two record sets")
-    # Bound: bytes of the kernel's inputs read once (packed, gid, max_r,
-    # keys, sorted keys, permutation) and its outputs written once (the
-    # K x N4 records, counts); operations: each visited pair's test and
-    # each kept record, by this run's cells.
-    m = gid.numel()
-    visits = int(_study.visited_pairs(grid.keys, sorted_keys).sum())
+    # Bound: bytes of the kernel's inputs read once and its outputs
+    # written once (the K x N4 records, counts, max_count); operations:
+    # each visited pair's test and each kept record, by this run's cells.
+    b = gid.shape[0]
+    visits = int(_study.visited_pairs(keys, sorted_keys).sum())
     kept = int(mine[1].clamp(max=k).sum())
     ops = NEIGHBOR_OPS_PER_PAIR * visits + NEIGHBOR_OPS_PER_RECORD * kept
-    nbytes = 44 * m + 4 * gid.shape[0] + 16 * k * n_pad + 4 * m
+    nbytes = NEIGHBOR_BYTES_PER_ATOM * m + 4 * b + 16 * k * n_pad + 4 * m + 4
     nb_bound = bound(ops, nbytes)
-    regs = [v for fn, v in ptxas_entries(build_logs["neighbor_cells"]).items()
-            if "neighbor_cells_kernel" in fn]
+    smem = (4 * min(k, NEIGHBOR_STAGE_CAP) * NEIGHBOR_ROWS
+            + 4 * NEIGHBOR_ROWS + 8 * NEIGHBOR_ROWS * 10)
     log(f"[neighbor] bound {nb_bound[0]:.4f} ms ({nb_bound[1]}: {nbytes} "
         f"bytes, {ops} FP32 operations for {visits} visited pairs and "
-        f"{kept} records, {visits / n:.1f} and {kept / n:.1f} an atom); "
-        f"the kernel at {nb_bound[0] / nb_graph_ms:.3f} of it in a graph; "
-        f"ptxas (registers, spill stores) {regs}")
+        f"{kept} records, {visits / n:.1f} and {kept / n:.1f} an atom)")
+    redesigned_log("[neighbor]", build_logs["neighbor_cells"],
+                   "neighbor_cells (1jz8, in a graph)", nb_graph_ms, nb_bound,
+                   ops, "neighbor_cells_kernel", smem)
     neighbor = record("neighbor_cells", None, nb_err, nb_graph_ms, nb_plain_ms,
                       None, nb_bound)
     neighbor.update(call_ms=nb_call_ms, phase_graph_ms=phase_graph_ms,
-                    phase_call_ms=phase_call_ms, copy_ms=copy_ms)
-    return listed, neighbor
+                    phase_call_ms=phase_call_ms, sort_graph_ms=sort_graph_ms,
+                    copy_ms=copy_ms)
+    keys_bound = bound(2 * CELL_KEYS_F64_PER_ATOM * m,
+                       CELL_KEYS_BYTES_PER_ATOM * m + 12 * b)
+    regs = [v for fn, v in ptxas_entries(build_logs["neighbor_cells"]).items()
+            if "cell_keys_kernel" in fn]
+    log(f"[neighbor] cell_keys bound {keys_bound[0]:.5f} ms "
+        f"({keys_bound[1]}), {keys_bound[0] / keys_graph_ms:.3f} of it in a "
+        f"graph; ptxas (registers, spill stores) {regs}")
+    binned = record("cell_keys", None, 0.0, keys_graph_ms, keys_plain_ms,
+                    None, keys_bound)  # bit-equal, checked above
+    binned.update(call_ms=keys_call_ms)
+    return listed, binned, neighbor
 
 
 ANALYTIC = (
@@ -1102,7 +1190,8 @@ def phase_list_path(device):
     launches = dict(_kernels.launch_counts)
     log(f"[list] launches: {launches}")
     if launches["list_occlusion"] == 0 or launches["fused_count"] != 0 or (
-            launches["neighbor_cells"] != launches["list_occlusion"]):
+            launches["neighbor_cells"] != launches["list_occlusion"]) or (
+            launches["cell_keys"] != launches["list_occlusion"]):
         raise AssertionError(f"list path launches {launches}")
     return {k: launches[k] for k in LIST_KERNELS}
 
@@ -1139,7 +1228,8 @@ def phase_host_cull(device, work):
         raise AssertionError("no chunk took the host-cull q16 wire")
     if (launches["fused_count"] != engine.chunks_dispatched
             or launches["list_occlusion"] != routes["list"]
-            or launches["neighbor_cells"] != routes["list"]):
+            or launches["neighbor_cells"] != routes["list"]
+            or launches["cell_keys"] != routes["list"]):
         raise AssertionError(f"launches {launches} for routes {routes}")
 
     # Each route's share: its structures alone, selected in advance, one
@@ -1294,6 +1384,10 @@ def phase_count_studies(corpus_dir, device):
         "nibble_count", None, err, ms, plain_ms, prod_ms, count_bound(
             int(_study.streamed_groups(jlist).sum()) * lane_margins, 7, m, p,
             jlist_planes=3))
+    work = recount_bound(records["pair64_count"], "[studies]", planes, jlist,
+                         sphere)
+    recount_bound(records["nibble_count"], "[studies]", planes, jlist, sphere,
+                  work)
 
     # Host-cull f32: saturation checked every 1, 2 and 4 entries.
     planes5, jlist5, real5, _atoms, _tiles, failed = _study.host_cull_chunk(
@@ -1324,6 +1418,8 @@ def phase_count_studies(corpus_dir, device):
                 record("saturation_count", None, err, ms, plain_ms, prod5_ms,
                        count_bound(work, 7, m5, p, extra_out=4 * m5 // 128)),
                 check_every=1)
+            recount_bound(records["saturation_count"], "[studies]", planes5,
+                          jlist5, sphere)
 
     # Full size: the studies' own entry, kernels only.
     t0 = time.perf_counter()
@@ -1402,6 +1498,7 @@ def phase_count_studies_ii(corpus_dir, device, build_logs):
         f"{prod_ms:.3f} ms; all 16 groups of every live entry are "
         f"{groups['nosmem'] / max(groups['prod'], 1):.3f}x the admitted ones")
     records = {}
+    work = fk.reach_work(planes, jl, sphere)
     for variant in r4m.VARIANTS:
         ms, plain_ms, err, _ = _kernel_vs_plain(
             f"micro_count ({variant})",
@@ -1414,6 +1511,8 @@ def phase_count_studies_ii(corpus_dir, device, build_logs):
                 "micro_count", None, err, ms, plain_ms, prod_ms,
                 count_bound(groups[variant] * 8 * 128 * points, 7, m, p)),
                 variant=variant)
+            recount_bound(records["micro_count"], "[studies-ii]", planes, jl,
+                          sphere, work)
     for variant in r3v.VARIANTS:
         ms, plain_ms, err, (_, executed) = _kernel_vs_plain(
             f"reach_count ({variant})",
@@ -1431,6 +1530,8 @@ def phase_count_studies_ii(corpus_dir, device, build_logs):
                 count_bound(rows * 128 * points, 7, m, p,
                             extra_out=4 * m // 128)),
                 variant=variant)
+            recount_bound(records["reach_count"], "[studies-ii]", planes, jl,
+                          sphere, work)
 
     planes_q, qvalid, tmeta, real_q, _atoms, _tiles = _study.banded_chunk(
         triples, device, CHECK_CHUNK_SLOTS)
@@ -1449,6 +1550,8 @@ def phase_count_studies_ii(corpus_dir, device, build_logs):
         "maxplus_count", None, err, ms, plain_ms, prod_q_ms,
         count_bound(margins_q, r3m.MAXPLUS_INSTR_PER_MARGIN, m, p)),
         variant="mp_static")
+    recount_bound(records["maxplus_count"], "[studies-ii]", planes_q, jlist_q,
+                  sphere)
     log(f"[studies-ii] maxplus_count at {margins_q * 2 / (ms * 1e-3) / 1e12:.2f}T "
         f"FP32 instr/s at its own work (2 per margin), fused_count at "
         f"{_study.k1_instructions(planes_q, jlist_q, sphere) / (prod_q_ms * 1e-3) / 1e12:.2f}T "
@@ -1678,9 +1781,11 @@ def run_cli(args, tag):
     launches = json.loads(counts[-1].split(" ", 1)[1])
     log(f"[cli] {tag}: {wall:.3f}s wall (process start included), "
         f"{launches['fused_count']} fused_count, "
-        f"{launches['list_occlusion']} list_occlusion and "
+        f"{launches['list_occlusion']} list_occlusion, "
+        f"{launches['cell_keys']} cell_keys and "
         f"{launches['neighbor_cells']} neighbor_cells launches")
-    if launches["neighbor_cells"] != launches["list_occlusion"]:
+    if not (launches["neighbor_cells"] == launches["cell_keys"]
+            == launches["list_occlusion"]):
         raise AssertionError(f"CLI {tag}: launches {launches}")
     return wall, launches
 
@@ -1825,7 +1930,8 @@ def phase_quality_gate(device, smi):
             != n for row in result["rows"]):
         raise AssertionError("the quality gate failed")
     if not launches["fused_count"] or not launches["list_occlusion"] or (
-            launches["neighbor_cells"] != launches["list_occlusion"]):
+            launches["neighbor_cells"] != launches["list_occlusion"]) or (
+            launches["cell_keys"] != launches["list_occlusion"]):
         raise AssertionError(f"gate launches {launches}")
 
 
@@ -1953,8 +2059,9 @@ def phase_scale_out(device, corpus_dir, main_median, smi):
         step_s = time.perf_counter() - t0
         n_launch = _kernels.launch_counts["list_occlusion"]
         runs += 1
-        if n_launch != len(devices) or (
-                _kernels.launch_counts["neighbor_cells"] != len(devices)):
+        if n_launch != len(devices) or any(
+                _kernels.launch_counts[k] != len(devices)
+                for k in LIST_KERNELS):
             raise AssertionError(f"sharded step: launches "
                                  f"{_kernels.launch_counts}")
         if mc <= k:
@@ -1970,7 +2077,7 @@ def phase_scale_out(device, corpus_dir, main_median, smi):
         f"{len(devices)} shards on {device}: {step_s * 1e3:.1f} ms (host "
         f"clock), total {float(total[0]):.3f} A^2; byte-equal to "
         f"_sasa_batched on the whole batch: {equal}; total equals its sum: "
-        f"{float(total[0]) == want_total}; list_occlusion and "
+        f"{float(total[0]) == want_total}; list_occlusion, cell_keys and "
         f"neighbor_cells launches {n_launch} each")
     if not equal or float(total[0]) != want_total or mc != int(whole_mc):
         raise AssertionError("sharded list step differs from unsharded")
@@ -1985,7 +2092,8 @@ def phase_scale_out(device, corpus_dir, main_median, smi):
     dry = dict(_kernels.launch_counts)
     log(f"[scale-out] dryrun_multichip({devices}) passed; launches "
         f"fused_count {dry['fused_count']}, list_occlusion "
-        f"{dry['list_occlusion']}, neighbor_cells {dry['neighbor_cells']}")
+        f"{dry['list_occlusion']}, cell_keys {dry['cell_keys']}, "
+        f"neighbor_cells {dry['neighbor_cells']}")
     if dry["fused_count"] != len(devices) or any(
             dry[k] != len(devices) for k in LIST_KERNELS):
         raise AssertionError(f"dryrun launches {dry}")

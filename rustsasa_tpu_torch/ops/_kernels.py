@@ -79,7 +79,7 @@ launch_counts = {
     "nibble_count": 0, "saturation_count": 0, "micro_count": 0,
     "reach_count": 0, "maxplus_count": 0, "ke_stream": 0, "ke_maxplus": 0,
     "ke_bf16": 0, "ke_mxu": 0, "dequant_boxes": 0, "band_jlist": 0,
-    "neighbor_cells": 0,
+    "cell_keys": 0, "neighbor_cells": 0,
 }
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
@@ -88,6 +88,7 @@ _launchers: dict = {}
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
+_DOUBLE = ctypes.c_double
 # C signature of each kernel's launch function <name>_launch, by name.
 _SIGNATURES = {
     "fused_count": [_VOIDP] * 4 + [_INT] * 2 + [_VOIDP],
@@ -102,12 +103,14 @@ _SIGNATURES = {
     **{name: [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP] for name in KE_VARIANTS},
     "dequant_boxes": [_INT] + [_VOIDP] * 12 + [_INT, _VOIDP],
     "band_jlist": [_VOIDP] * 10 + [_INT] * 2 + [_VOIDP],
-    "neighbor_cells": [_VOIDP] * 8 + [_INT] * 4 + [_FLOAT] * 2 + [_VOIDP],
+    "cell_keys": [_VOIDP] * 5 + [_INT] * 2 + [_DOUBLE, _VOIDP],
+    "neighbor_cells": [_VOIDP] * 11 + [_INT] * 4 + [_FLOAT] * 2 + [_VOIDP],
 }
 # The source (csrc/<source>.cu) of each launch function not named after
 # its own; every source builds to one library.
 _SOURCE_OF = {"dequant_boxes": "band_cull", "band_jlist": "band_cull",
-              "fused_count_rows": "fused_count"}
+              "fused_count_rows": "fused_count",
+              "cell_keys": "neighbor_cells"}
 SOURCES = tuple(dict.fromkeys(_SOURCE_OF.get(n, n) for n in _SIGNATURES))
 # dequant_boxes' wire codes (csrc/band_cull.cu Wire).
 WIRES = ("q13", "q16", "planes")
@@ -115,8 +118,8 @@ WIRES = ("q13", "q16", "planes")
 # most slots: the gid plane holds slot + 1 as an exact f32.
 MAX_BAND_W = 127
 MAX_BAND_SLOTS = 1 << 24
-# Structures a neighbor_cells batch may hold (csrc/neighbor_cells.cu
-# kMaxBatch, neighbors.MAX_CELL_BATCH).
+# Structures a cell_keys or neighbor_cells batch may hold
+# (csrc/neighbor_cells.cu kMaxBatch).
 MAX_CELL_BATCH = 511
 
 
@@ -730,47 +733,84 @@ def band_jlist(planes, qvalid, tmeta, boxes, w: int):
     return jlist
 
 
-def neighbor_cells(packed, group_id, max_r, keys, sorted_keys, perm, *,
-                   probe: float, k: int):
-    """Launch the list path's cell-list neighbor phase -> (planes [4, K,
-    M4] f32: vx, vy, vz, limit K-major; counts [B*N] i32), byte-equal to
-    neighbors.neighbor_records_reference (per row the same records, in
-    another order).
-
-    packed [B, N, 4] f32 (16-byte aligned), group_id [B, N] i32 (-1 =
-    padding), max_r [B] f32 (each structure's largest real radius), keys
-    [B*N] i64 (neighbors.cell_grid), sorted_keys and perm [B*N] i64 (a
-    stable sort of the keys), all contiguous on one CUDA device; 1 <= B
-    <= MAX_CELL_BATCH, 1 <= k <= N, M4 = B*N rounded up to 4.
-    """
+def _cell_batch(packed, group_id):
+    """Checks shared by the neighbor phase's launchers: packed [B, N, 4]
+    f32 (16-byte aligned) and group_id [B, N] i32, contiguous on one
+    device, 1 <= B <= MAX_CELL_BATCH, N >= 1, B*N rounded up to 4 under
+    2^31.  Returns (device, B, N)."""
     device = packed.device
     _check("packed", packed, torch.float32, 3, device)
     _check("group_id", group_id, torch.int32, 2, device)
-    _check("max_r", max_r, torch.float32, 1, device)
     b, n = group_id.shape
+    _check_shape("packed", packed, (b, n, 4))
+    if not 1 <= b <= MAX_CELL_BATCH or n == 0:
+        raise ValueError(f"group_id shape {(b, n)}: need 1 to "
+                         f"{MAX_CELL_BATCH} structures of at least one slot")
+    if b * n + (-(b * n) % 4) >= 1 << 31:
+        raise ValueError(f"{b * n} slots: too many for one launch")
+    if packed.data_ptr() % 16:
+        raise ValueError("packed must start on a 16-byte boundary")
+    return device, b, n
+
+
+def cell_keys(packed, group_id, probe: float):
+    """Launch the list path's cell binning -> (keys [B*N] i64 by atom,
+    max_r [B] f32, h [B] f64), bit-equal to neighbors.cell_grid (its
+    keys, max_r and h).
+
+    packed [B, N, 4] f32 (16-byte aligned), group_id [B, N] i32 (-1 =
+    padding), contiguous on one CUDA device; 1 <= B <= MAX_CELL_BATCH.
+    """
+    device, b, n = _cell_batch(packed, group_id)
+    _on_cuda("cell_keys", device)
+    keys = torch.empty(b * n, dtype=torch.int64, device=device)
+    max_r = torch.empty(b, dtype=torch.float32, device=device)
+    h = torch.empty(b, dtype=torch.float64, device=device)
+    _launch("cell_keys", device, packed.data_ptr(), group_id.data_ptr(),
+            keys.data_ptr(), max_r.data_ptr(), h.data_ptr(), b, n,
+            2.0 * probe)
+    return keys, max_r, h
+
+
+def neighbor_cells(packed, group_id, max_r, keys, sorted_keys, perm,
+                   sorted_packed, sorted_gid, *, probe: float, k: int):
+    """Launch the list path's cell-list neighbor phase -> (planes [4, K,
+    M4] f32: vx, vy, vz, limit K-major; counts [B*N] i32; max_count 0-d
+    i32), byte-equal to neighbors.neighbor_records_reference (per row the
+    same records, in another order).
+
+    packed [B, N, 4] f32 and sorted_packed [B*N, 4] f32 (16-byte
+    aligned), group_id [B, N] i32 (-1 = padding) and sorted_gid [B*N]
+    i32, max_r [B] f32 (each structure's largest real radius), keys
+    [B*N] i64 (cell_keys), sorted_keys and perm [B*N] i64 (a stable sort
+    of the keys), sorted_packed and sorted_gid the atoms in that order
+    (packed and group_id at perm), all contiguous on one CUDA device;
+    1 <= B <= MAX_CELL_BATCH, 1 <= k <= N, M4 = B*N rounded up to 4.
+    """
+    device, b, n = _cell_batch(packed, group_id)
     m = b * n
+    _check("max_r", max_r, torch.float32, 1, device)
+    _check_shape("max_r", max_r, (b,))
     for name, t in (("keys", keys), ("sorted_keys", sorted_keys),
                     ("perm", perm)):
         _check(name, t, torch.int64, 1, device)
         _check_shape(name, t, (m,))
-    _check_shape("packed", packed, (b, n, 4))
-    _check_shape("max_r", max_r, (b,))
-    if not 1 <= b <= MAX_CELL_BATCH or n == 0:
-        raise ValueError(f"group_id shape {(b, n)}: need 1 to "
-                         f"{MAX_CELL_BATCH} structures of at least one slot")
+    _check("sorted_packed", sorted_packed, torch.float32, 2, device)
+    _check_shape("sorted_packed", sorted_packed, (m, 4))
+    _check("sorted_gid", sorted_gid, torch.int32, 1, device)
+    _check_shape("sorted_gid", sorted_gid, (m,))
+    if sorted_packed.data_ptr() % 16:
+        raise ValueError("sorted_packed must start on a 16-byte boundary")
     if not 1 <= k <= n:
         raise ValueError(f"k = {k} outside [1, {n}]")
     m4 = m + (-m % 4)
-    if m4 >= 1 << 31:
-        raise ValueError(f"{m} slots: too many for one launch")
-    if packed.data_ptr() % 16:
-        raise ValueError("neighbor_cells: packed must start on a 16-byte "
-                         "boundary")
     _on_cuda("neighbor_cells", device)
     planes = torch.empty((4, k, m4), dtype=torch.float32, device=device)
     counts = torch.empty(m, dtype=torch.int32, device=device)
+    max_count = torch.empty((), dtype=torch.int32, device=device)
     _launch("neighbor_cells", device, packed.data_ptr(), group_id.data_ptr(),
-            max_r.data_ptr(), keys.data_ptr(), sorted_keys.data_ptr(),
-            perm.data_ptr(), planes.data_ptr(), counts.data_ptr(), b, n, k,
-            m4, probe, 2.0 * probe)
-    return planes, counts
+            keys.data_ptr(), max_r.data_ptr(), sorted_keys.data_ptr(),
+            perm.data_ptr(), sorted_packed.data_ptr(), sorted_gid.data_ptr(),
+            planes.data_ptr(), counts.data_ptr(), max_count.data_ptr(), b, n,
+            k, m4, probe, 2.0 * probe)
+    return planes, counts, max_count

@@ -10,12 +10,13 @@ runs 50,000) and structures whose host-cull j-lists overflow.
      HIGHEST dot computes (`fma.dot3`); every atom within r_i + max_r +
      2 probe is a candidate, and the K nearest are kept.  The caller
      re-runs with a larger K while any row has more candidates than K:
-     no silent truncation.  On CUDA this is the hand-written cell-list
-     kernel `csrc/neighbor_cells.cu` over a whole [B, N] batch, which
-     writes the records K-major, as the occlusion kernel reads them;
-     `neighbor_records_reference` is its plain-torch version (the dense
-     expansion and top-k of `_neighbor_phase`, structure by structure),
-     taken only for CPU tensors.
+     no silent truncation.  On CUDA this is `csrc/neighbor_cells.cu` over
+     a whole [B, N] batch: its cell binning kernel (`cell_keys`, whose
+     plain version is `cell_grid`), a stable sort, and its cell-list
+     kernel, which writes the records K-major, as the occlusion kernel
+     reads them; `neighbor_records_reference` is the plain-torch version
+     (the dense expansion and top-k of `_neighbor_phase`, structure by
+     structure), taken only for CPU tensors.
   2. Occlusion: point s of atom i is occluded iff some neighbor k has
      (sx*vx + sy*vy) + sz*vz < limit_k.  On CUDA this is the hand-written
      kernel `csrc/list_occlusion.cu` (replacing the Pallas
@@ -215,10 +216,13 @@ class CellGrid(NamedTuple):
 
 
 def cell_grid(packed, group_id, probe: float) -> CellGrid:
-    """Bin a [B, N] batch's real atoms into cells of edge h (f64, on the
-    batch's device, with no readback): cell = floor((c - lo) / h) per
-    axis from the structure's lowest corner lo, h as D2_ERR says, and no
-    smaller than the structure's span over CELL_MAX - 1 cells."""
+    """Plain version of csrc/neighbor_cells.cu's cell_keys: bin a [B, N]
+    batch's real atoms into cells of edge h (f64): cell = floor((c - lo)
+    / h) per axis from the structure's lowest corner lo, h as D2_ERR
+    says, and no smaller than the structure's span over CELL_MAX - 1
+    cells.  Each f64 operation is one IEEE rounding in the order the
+    kernel takes (r2 = (x*x + y*y) + z*z, a true division by a tensor),
+    so the keys are the kernel's bit for bit on any device."""
     b, n = group_id.shape
     if b > _kernels.MAX_CELL_BATCH:
         raise ValueError(f"{b} structures in a cell-list batch, at most "
@@ -230,12 +234,13 @@ def cell_grid(packed, group_id, probe: float) -> CellGrid:
     lo = torch.where(valid[..., None], c, math.inf).amin(dim=1)
     hi = torch.where(valid[..., None], c, -math.inf).amax(dim=1)
     lo, hi = (torch.where(some, t, 0.0) for t in (lo, hi))
-    r2 = torch.where(valid, (c * c).sum(dim=-1), 0.0).amax(dim=1)
+    r2 = torch.where(valid, _sum3(c * c), 0.0).amax(dim=1)
     cut = 2.0 * max_r.to(torch.float64) + 2.0 * probe
     thr = cut * cut + 1e-3
+    span = (hi - lo).amax(dim=1)
     h = torch.maximum(
         ((thr + D2_ERR * (r2 + thr)) * (1.0 + H_SLACK)).sqrt(),
-        (hi - lo).amax(dim=1) / (CELL_MAX - 1),
+        span / torch.full_like(span, CELL_MAX - 1),
     )
     cell = ((c - lo[:, None, :]) / h[:, None, None]).floor().clamp(
         0, CELL_MAX).to(torch.int64)
@@ -250,20 +255,23 @@ def cell_grid(packed, group_id, probe: float) -> CellGrid:
 def neighbor_records(packed, group_id, *, probe: float, k: int):
     """The neighbor phase of a [B, N] batch -> (planes [4, K, M4] f32 K-major
     vx, vy, vz, limit; counts [B*N] i32; max_count 0-d i32), K = min(k,
-    N).  CPU tensors take the plain version; CUDA tensors bin the atoms
-    (cell_grid, then a stable sort of the keys) and launch
-    csrc/neighbor_cells.cu (or raise), with no readback."""
+    N).  CPU tensors take the plain version; CUDA tensors launch
+    csrc/neighbor_cells.cu's cell binning (cell_keys), sort the keys
+    stably, gather the atoms into that order and launch its cell-list
+    kernel (or raise), with no readback."""
     if packed.device.type == "cpu":
         return neighbor_records_reference(packed, group_id, probe=probe, k=k)
     if packed.device.type != "cuda":
         raise ValueError(f"neighbor_records: unsupported device "
                          f"{packed.device}")
-    grid = cell_grid(packed, group_id, probe)
-    sorted_keys, perm = torch.sort(grid.keys, stable=True)
-    planes, counts = _kernels.neighbor_cells(
-        packed, group_id, grid.max_r, grid.keys, sorted_keys, perm,
-        probe=probe, k=min(k, group_id.shape[1]))
-    return planes, counts, counts.max()
+    keys, max_r, _h = _kernels.cell_keys(packed, group_id, probe)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    m = group_id.numel()
+    return _kernels.neighbor_cells(
+        packed, group_id, max_r, keys, sorted_keys, perm,
+        packed.reshape(m, 4).index_select(0, perm),
+        group_id.reshape(m).index_select(0, perm), probe=probe,
+        k=min(k, group_id.shape[1]))
 
 
 def _area_factor(radii, valid, probe: float, n_points: int):

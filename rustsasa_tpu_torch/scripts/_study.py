@@ -310,6 +310,28 @@ def timed(fn, device, reps):
     return first_ms, best, out
 
 
+def graph_ms(fn, reps):
+    """Mean device milliseconds of `fn()` over `reps` calls captured in one
+    CUDA graph and replayed between two CUDA events, after a warm call:
+    the host's enqueue of each call (allocations, checks, the launch),
+    which `timed` counts where it outlasts a short kernel, stays out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def time_variants(cases, real, atoms: int, device, reps: int):
     """Time each (name, fn) of `cases` with `timed`.  fn() returns counts
     [M] i32, or a tuple whose first item they are; the first case is
@@ -486,6 +508,17 @@ def neighbor_cases(seed: int = 0, offsets=NEIGHBOR_OFFSETS):
              ("ball", [one(ball, 1.8)], 384, 160), ("small", small, 8, 16)]
     return [(name, *engine._pack(n_pad, structures), k)
             for name, structures, n_pad, k in cases]
+
+
+def list_batch(path):
+    """(packed [1, N, 4] f32, gid [1, N] i32, k) of one structure as the
+    list path packs it: N its atom-count bucket, k its first K."""
+    from ..ops import engine, neighbors
+
+    coords, radii, gids = select(path)
+    n_pad = neighbors._round_bucket(coords.shape[0], neighbors._N_BUCKETS)
+    packed, gid = engine._pack(n_pad, [(coords, radii, gids)])
+    return packed, gid, neighbors._initial_k(n_pad)
 
 
 def record_multisets(planes, counts):

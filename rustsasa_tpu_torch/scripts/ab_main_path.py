@@ -1,7 +1,7 @@
 """The main path's figures on two checkouts, timed in turns on one card.
 
     python -m rustsasa_tpu_torch.scripts.ab_main_path PARENT_ROOT \\
-        [--out FILE]
+        [--turn main|list_1jz8] [--out FILE]
 
 Compares a change to the banded chunk's device stages with its parent in
 one call on one card: the host's speed moves the corpus figures between
@@ -30,6 +30,21 @@ measures:
               strided corpus files (with load and emit);
   bench       `python -m rustsasa_tpu_torch.bench`'s five passes, median
               and spread (and its quality gate).
+
+With --turn list_1jz8 each turn measures the list path's neighbor phase
+on 1jz8 instead (LIST_TURN_SCRIPT, N = 32,768 at its first K), through
+functions every tree has:
+
+  phase       `neighbors.neighbor_records` (the binning, sort and
+              neighbor kernel), the mean of REPS calls in a CUDA graph
+              and back to back between two CUDA events, after a warm call;
+  kernel      `_kernels.neighbor_cells` alone on the tree's own inputs
+              (keys from `neighbors.cell_grid` and a stable sort, with
+              the sorted gather where the tree's launcher takes it), the
+              same two ways;
+  sasa        `neighbors.records_sasa` on the phase's records at P = 104
+              (100 points), back to back, and the SASA's sum, which the
+              trees must share.
 
 Prints each turn's JSON line and a summary beside the card's name and
 power limit, and writes them to --out.  Needs a CUDA device and the bench corpus (built under
@@ -133,15 +148,102 @@ print(json.dumps(out), flush=True)
 '''
 
 
-def turn(root: str) -> dict:
-    """One turn in `root`: the turn script's JSON record."""
+# Run in a tree's root with its package: argv = reps.
+LIST_TURN_SCRIPT = r'''
+import inspect, json, os, sys
+import torch
+from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
+from rustsasa_tpu_torch.scripts import _study, layout_probe
+
+reps = int(sys.argv[1])
+dev = torch.device("cuda", 0)
+probe = 1.4
+
+
+def timed(fn):
+    """(ms in a CUDA graph, ms a call back to back) of fn()."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    in_graph = start.elapsed_time(stop) / reps
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return in_graph, start.elapsed_time(stop) / reps
+
+
+coords, radii, gids = _study.select(layout_probe.LIST_STRUCTURE)
+n_pad = neighbors._round_bucket(coords.shape[0], neighbors._N_BUCKETS)
+packed, gid = (torch.from_numpy(a).to(dev) for a in
+               engine._pack(n_pad, [(coords, radii, gids)]))
+k = neighbors._initial_k(n_pad)
+m = gid.numel()
+grid = neighbors.cell_grid(packed, gid, probe)
+sorted_keys, perm = torch.sort(grid.keys, stable=True)
+args = [packed, gid, grid.max_r, grid.keys, sorted_keys, perm]
+if "sorted_packed" in inspect.signature(_kernels.neighbor_cells).parameters:
+    args += [packed.reshape(m, 4).index_select(0, perm),
+             gid.reshape(m).index_select(0, perm)]
+phase_graph, phase_call = timed(
+    lambda: neighbors.neighbor_records(packed, gid, probe=probe, k=k))
+kernel_graph, kernel_call = timed(
+    lambda: _kernels.neighbor_cells(*args, probe=probe, k=k))
+records = neighbors.neighbor_records(packed, gid, probe=probe, k=k)
+sphere = engine._sphere_device(100, dev)
+
+
+def sasa():
+    return neighbors.records_sasa(records, packed, gid, sphere, probe=probe,
+                                  n_points=100)
+
+
+sasa()
+torch.cuda.synchronize()
+start = torch.cuda.Event(enable_timing=True)
+stop = torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(reps):
+    out = sasa()
+stop.record()
+torch.cuda.synchronize()
+print(json.dumps({
+    "tree": os.getcwd(), **_study.where(dev),
+    "phase": {"graph_ms": phase_graph, "call_ms": phase_call},
+    "kernel": {"graph_ms": kernel_graph, "call_ms": kernel_call},
+    "sasa": {"ms": start.elapsed_time(stop) / reps,
+             "sum": float(out.double().sum()), "points": sphere.shape[0],
+             "max_count": int(records[2]), "k": k},
+}), flush=True)
+'''
+LIST_FIGURES = (
+    ("phase", "graph_ms"), ("phase", "call_ms"), ("kernel", "graph_ms"),
+    ("kernel", "call_ms"), ("sasa", "ms"), ("sasa", "sum"),
+)
+
+
+def turn(root: str, kind: str = "main") -> dict:
+    """One turn of `kind` in `root`: its turn script's JSON record."""
     work = os.path.join(root, "build", "ab_main_path")
     os.makedirs(work, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=root)
+    argv = ([TURN_SCRIPT, work, str(REPS), str(CHECK_SLOTS)]
+            if kind == "main" else [LIST_TURN_SCRIPT, str(REPS)])
     proc = subprocess.run(
-        [sys.executable, "-c", TURN_SCRIPT, work, str(REPS),
-         str(CHECK_SLOTS)], cwd=root, env=env, stdout=subprocess.PIPE,
-        text=True, timeout=1800, check=True)
+        [sys.executable, "-c", *argv], cwd=root, env=env,
+        stdout=subprocess.PIPE, text=True, timeout=1800, check=True)
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
@@ -157,11 +259,11 @@ FIGURES = (
 )
 
 
-def summary(turns) -> list[str]:
-    """One line a figure: each tree's values in turn order, and their
-    medians."""
+def summary(turns, figures=FIGURES) -> list[str]:
+    """One line a figure of `figures`: each tree's values in turn order,
+    and their medians."""
     out = []
-    for group, key in FIGURES:
+    for group, key in figures:
         by = {"A": [], "B": []}
         for tag, rec in turns:
             by[tag].append(rec[group][key])
@@ -178,15 +280,16 @@ def summary(turns) -> list[str]:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("parent", help="root of the tree to compare with (A)")
+    p.add_argument("--turn", choices=("main", "list_1jz8"), default="main")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     roots = {"A": os.path.abspath(args.parent), "B": ROOT}
     turns = []
     for tag in ORDER:
-        rec = turn(roots[tag])
+        rec = turn(roots[tag], args.turn)
         print(f"{tag} {json.dumps(rec)}", flush=True)
         turns.append((tag, rec))
-    lines = summary(turns)
+    lines = summary(turns, FIGURES if args.turn == "main" else LIST_FIGURES)
     for line in lines:
         print(line, flush=True)
     if args.out:

@@ -1,7 +1,7 @@
-"""Layout choices of the list-occlusion kernel, and what the host's
-enqueue adds to the short kernels' times, on the card.
+"""Layout choices of the list-occlusion and neighbor kernels, and what
+the host's enqueue adds to the short kernels' times, on the card.
 
-    python -m rustsasa_tpu_torch.scripts.layout_probe [--enqueue]
+    python -m rustsasa_tpu_torch.scripts.layout_probe [--enqueue | --neighbor]
 
 Builds csrc/list_occlusion.cu as it is and with one layout choice changed
 by a text substitution that must apply (CUTS), and times each build in
@@ -14,6 +14,15 @@ barrier (nobar) and without the loads after the first stage (noload).
 
 Every other build computes the same outputs; the script checks that each
 equals the plain version before timing it.
+
+The neighbor probe (alone with --neighbor) builds csrc/neighbor_cells.cu
+the same way and times each build alone in a CUDA graph, in turns, on
+1jz8's inputs as the list path makes them (N = 32,768, its first K):
+as it is (16 rows a CTA, three CTAs an SM), with 8 rows a CTA (six CTAs
+an SM), uncapped (two CTAs an SM at the registers the kernel takes), and,
+timed only, without the write-out (nostore: the search and the scan),
+without the scan's steps (nosteps: the search and the write-out of fill)
+and without any row's work (noscan: the write-out of fill alone).
 
 The enqueue probe (alone with --enqueue; it calls only the public
 wrappers, so it runs on any tree of the port) times the list kernel at
@@ -60,12 +69,26 @@ CUTS = {
         ("noload", [("    if (st + 1 < n_stages) {\n      stage_rows(",
                      "    if (false) {\n      stage_rows(")]),
     ),
+    "neighbor_cells": (
+        ("as_is", []),
+        ("rows8", [("constexpr int kRows = 16;", "constexpr int kRows = 8;"),
+                   ("constexpr int kMinCtas = 3;",
+                    "constexpr int kMinCtas = 6;")]),
+        ("uncapped", [("constexpr int kMinCtas = 3;",
+                       "constexpr int kMinCtas = 1;")]),
+        ("nostore", [("for (int it = threadIdx.x; it < items;",
+                      "for (int it = threadIdx.x; it < 0;")]),
+        ("nosteps", [("  for (int t = 0; t < total; t += 32) {",
+                      "  for (int t = 0; t < 0; t += 32) {")]),
+        ("noscan", [("  if (real) {\n    const float4 ci",
+                     "  if (false) {\n    const float4 ci")]),
+    ),
 }
 # Blocks of points the list kernel's builds are timed at (the plan's
 # count for the sphere, and more, each CTA then adding its counts).
 LIST_BLOCKS = (1, 2)
 # Builds that only time a part: their outputs are wrong and not checked.
-TIMING_ONLY = ("nobar", "noload")
+TIMING_ONLY = ("nobar", "noload", "nostore", "nosteps", "noscan")
 # GPU clock cycles (~0.2 ms) the enqueue probe spins the stream before its
 # start event: longer than the host takes to enqueue a call.
 SPIN_CYCLES = 400_000
@@ -171,6 +194,50 @@ def run(device, *, reps: int = 20) -> dict[str, float]:
     return _time_builds("list_occlusion", listed, check_list, device, reps)
 
 
+def run_neighbor(device, *, reps: int = 20) -> dict[str, float]:
+    """{build: mean ms in a CUDA graph, the lower of two turns} of the
+    neighbor kernel's builds on 1jz8's inputs."""
+    device = torch.device(device)
+    packed, gid, k = _study.list_batch(LIST_STRUCTURE)
+    packed, gid = (torch.from_numpy(a).to(device) for a in (packed, gid))
+    b, n = gid.shape
+    m = b * n
+    keys, max_r, _h = _kernels.cell_keys(packed, gid, PROBE)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    inputs = (packed, gid, keys, max_r, sorted_keys, perm,
+              packed.reshape(m, 4).index_select(0, perm),
+              gid.reshape(m).index_select(0, perm))
+    want = neighbors.neighbor_records_reference(packed, gid, probe=PROBE,
+                                                k=k)
+    fns = _kernels.build_sources(
+        "layout_probe", _kernels.cut_sources("neighbor_cells",
+                                             CUTS["neighbor_cells"]),
+        "neighbor_cells_launch", _kernels._SIGNATURES["neighbor_cells"])
+    m4 = m + (-m % 4)
+
+    def call(fn):
+        planes = torch.empty((4, k, m4), dtype=torch.float32, device=device)
+        counts = torch.empty(m, dtype=torch.int32, device=device)
+        max_count = torch.empty((), dtype=torch.int32, device=device)
+        rc = fn(*(t.data_ptr() for t in inputs), planes.data_ptr(),
+                counts.data_ptr(), max_count.data_ptr(), b, n, k, m4, PROBE,
+                2.0 * PROBE, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"neighbor_cells_launch: cudaError {rc}")
+        return planes, counts, max_count
+
+    for tag, fn in fns.items():
+        if tag not in TIMING_ONLY:
+            bad = _study.records_differ(call(fn), want)
+            if bad:
+                raise AssertionError(f"neighbor_cells {tag}: {bad}")
+    ms = {}
+    for tag in list(fns) + list(fns)[::-1]:
+        t = _study.graph_ms(lambda fn=fns[tag]: call(fn), reps)
+        ms[tag] = min(ms.get(tag, t), t)
+    return ms
+
+
 def enqueue_probe(fn, device, reps):
     """(best ms as `_study.timed` reads it, best ms with the host's
     enqueue hidden behind a spin, host us a call enqueued back to back)
@@ -218,6 +285,12 @@ def main(argv=None) -> int:
         return 1
     device = torch.device("cuda", 0)
     name = _study.device_name(device)
+    if "--neighbor" in argv:
+        ms = run_neighbor(device)
+        print(f"layout_probe neighbor_cells on {name}: "
+              + ", ".join(f"{tag} {v:.4f} ms" for tag, v in ms.items()),
+              flush=True)
+        return 0
     if "--enqueue" not in argv:
         ms = run(device)
         print(f"layout_probe list_occlusion on {name}: "

@@ -28,3 +28,24 @@ def test_summary_gives_each_tree_in_turn_order():
     assert lines[0] == ("stages_05m.dequant_ms: A [2.0, 4.0] B [1.0, 1.0]; "
                         "medians 3 -> 1")
     assert lines[-1] == "on card, 700.00 W, 8 host cores"
+
+
+def test_list_turn_script_compiles():
+    compile(ab_main_path.LIST_TURN_SCRIPT, "list_turn_script", "exec")
+
+
+def test_list_summary_gives_each_list_figure():
+    def rec(scale):
+        out = {group: {} for group, _key in ab_main_path.LIST_FIGURES}
+        for i, (group, key) in enumerate(ab_main_path.LIST_FIGURES):
+            out[group][key] = scale * (i + 1)
+        out.update(gpu_name="card", power_limit="700.00 W", cpu_count=8)
+        return out
+
+    turns = [("A", rec(3.0)), ("B", rec(1.0)), ("B", rec(1.0)),
+             ("A", rec(3.0))]
+    lines = ab_main_path.summary(turns, ab_main_path.LIST_FIGURES)
+    assert len(lines) == len(ab_main_path.LIST_FIGURES) + 1
+    assert lines[0] == ("phase.graph_ms: A [3.0, 3.0] B [1.0, 1.0]; "
+                        "medians 3 -> 1")
+    assert lines[-1] == "on card, 700.00 W, 8 host cores"

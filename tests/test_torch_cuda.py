@@ -257,6 +257,7 @@ def test_list_path_engine_cuda_equals_cpu(cuda):
     got = eng.compute(structures)
     assert (_kernels.launch_counts["list_occlusion"]
             == _kernels.launch_counts["neighbor_cells"]
+            == _kernels.launch_counts["cell_keys"]
             == eng.routes.counts["list"])
     assert _kernels.launch_counts["fused_count"] == 0
     want = engine.BatchedSasaEngine(params, device="cpu").compute(structures)
@@ -744,6 +745,7 @@ def test_sharded_list_step_equals_unsharded(cuda):
     torch.cuda.synchronize()
     assert _kernels.launch_counts["list_occlusion"] == 2
     assert _kernels.launch_counts["neighbor_cells"] == 2
+    assert _kernels.launch_counts["cell_keys"] == 2
     whole, whole_mc = neighbors._sasa_batched(
         *(torch.from_numpy(a).to(cuda) for a in (packed, gid, sphere)),
         k=64, n_points=100, probe=1.4)
@@ -882,16 +884,69 @@ def test_neighbor_cells_byte_equal_plain(cuda, neighbor_cases, name):
     packed, gid, k = neighbor_cases[name]
     packed, gid = torch.from_numpy(packed).to(cuda), torch.from_numpy(gid).to(
         cuda)
-    before = _kernels.launch_counts["neighbor_cells"]
+    before = dict(_kernels.launch_counts)
     got = neighbors.neighbor_records(packed, gid, probe=1.4, k=k)
     torch.cuda.synchronize()
-    assert _kernels.launch_counts["neighbor_cells"] == before + 1
+    for name_ in ("cell_keys", "neighbor_cells"):
+        assert _kernels.launch_counts[name_] == before[name_] + 1
     want = neighbors.neighbor_records_reference(packed, gid, probe=1.4, k=k)
     assert _study.records_differ(got, want) == []
     sphere = engine._sphere_device(100, cuda)
     sasa = [neighbors.records_sasa(rec, packed, gid, sphere, probe=1.4,
                                    n_points=100) for rec in (got, want)]
     assert torch.equal(sasa[0], sasa[1])
+
+
+@pytest.mark.parametrize("name", (*_study.neighbor_case_names(), "1jz8"))
+def test_cell_keys_bit_equal_cell_grid(cuda, neighbor_cases, name):
+    """The binning kernel's keys, max_r and cell edges bit-equal to the
+    plain binning's, one launch."""
+    if name == "1jz8":
+        packed, gid, _k = _largest_list_case()
+    else:
+        packed, gid, _k = neighbor_cases[name]
+    packed, gid = (torch.from_numpy(a).to(cuda) for a in (packed, gid))
+    before = _kernels.launch_counts["cell_keys"]
+    keys, max_r, h = _kernels.cell_keys(packed, gid, 1.4)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts["cell_keys"] == before + 1
+    want = neighbors.cell_grid(packed.cpu(), gid.cpu(), 1.4)
+    assert torch.equal(keys.cpu(), want.keys)
+    assert torch.equal(max_r.cpu().view(torch.int32),
+                       want.max_r.view(torch.int32))
+    assert torch.equal(h.cpu().view(torch.int64), want.h.view(torch.int64))
+
+
+def _largest_list_case():
+    """1jz8 packed as the list path packs it, at its first K."""
+    from rustsasa_tpu_torch.scripts import layout_probe
+
+    return _study.list_batch(layout_probe.LIST_STRUCTURE)
+
+
+def test_neighbor_cells_on_the_largest_structure(cuda, monkeypatch):
+    """1jz8 through neighbor_records on the card, with the plain binning
+    and the plain neighbor phase made to raise: one cell_keys and one
+    neighbor_cells launch, records equal to the plain version's (counts,
+    max_count, each row's records, the fill)."""
+    packed, gid, k = (torch.from_numpy(a).to(cuda) if isinstance(
+        a, np.ndarray) else a for a in _largest_list_case())
+    want = neighbors.neighbor_records_reference(packed, gid, probe=1.4, k=k)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the CUDA route took a plain version")
+
+    for name in ("cell_grid", "_neighbor_phase",
+                 "neighbor_records_reference"):
+        monkeypatch.setattr(neighbors, name, refuse)
+    monkeypatch.setattr(torch, "topk", refuse)
+    before = dict(_kernels.launch_counts)
+    got = neighbors.neighbor_records(packed, gid, probe=1.4, k=k)
+    torch.cuda.synchronize()
+    for name in ("cell_keys", "neighbor_cells"):
+        assert _kernels.launch_counts[name] == before[name] + 1
+    assert _study.records_differ(got, want) == []
+    assert int(got[2]) <= k
 
 
 def test_list_batches_launch_one_neighbor_kernel_each(cuda):
@@ -906,6 +961,7 @@ def test_list_batches_launch_one_neighbor_kernel_each(cuda):
     got = eng.compute(structures)
     launches = _kernels.launch_counts
     assert launches["neighbor_cells"] == launches["list_occlusion"] == (
+        launches["cell_keys"]) == (
         eng.routes.counts["list"]) == 4  # three buckets and one re-run
     want = engine.BatchedSasaEngine(device="cpu",
                                     backend="list").compute(structures)
@@ -926,6 +982,7 @@ def test_cuda_list_route_never_takes_the_plain_phase(cuda, monkeypatch):
     monkeypatch.setattr(torch, "topk", refuse)
     monkeypatch.setattr(neighbors, "_neighbor_phase", refuse)
     monkeypatch.setattr(neighbors, "neighbor_records_reference", refuse)
+    monkeypatch.setattr(neighbors, "cell_grid", refuse)
     structures = _structures([60, 500], seed=4)
     _kernels.reset_launch_counts()
     engine.calculate_sasa_internal(*structures[1][:2], backend="list",
@@ -938,7 +995,8 @@ def test_cuda_list_route_never_takes_the_plain_phase(cuda, monkeypatch):
                                                               sphere)
     torch.cuda.synchronize()
     assert _kernels.launch_counts["neighbor_cells"] == (
-        _kernels.launch_counts["list_occlusion"]) == 6
+        _kernels.launch_counts["list_occlusion"]) == (
+        _kernels.launch_counts["cell_keys"]) == 6
 
 
 def test_neighbor_cells_launcher_refuses_bad_inputs(cuda):
@@ -950,13 +1008,17 @@ def test_neighbor_cells_launcher_refuses_bad_inputs(cuda):
         "keys": torch.zeros(b * n, dtype=torch.int64, device=cuda),
         "sorted_keys": torch.zeros(b * n, dtype=torch.int64, device=cuda),
         "perm": torch.zeros(b * n, dtype=torch.int64, device=cuda),
+        "sorted_packed": torch.zeros((b * n, 4), device=cuda),
+        "sorted_gid": torch.zeros(b * n, dtype=torch.int32, device=cuda),
     }
     before = _kernels.launch_counts["neighbor_cells"]
     for name, bad, error in (
             ("packed", args["packed"].cpu(), ValueError),
             ("group_id", args["group_id"].long(), TypeError),
             ("perm", args["perm"][:-1], ValueError),
-            ("max_r", args["max_r"].double(), TypeError)):
+            ("max_r", args["max_r"].double(), TypeError),
+            ("sorted_packed", args["sorted_packed"][:-1], ValueError),
+            ("sorted_gid", args["sorted_gid"].cpu(), ValueError)):
         with pytest.raises(error):
             _kernels.neighbor_cells(**{**args, name: bad}, probe=1.4, k=4)
     with pytest.raises(ValueError):
@@ -964,7 +1026,11 @@ def test_neighbor_cells_launcher_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         _kernels.neighbor_cells(**{k: t.cpu() for k, t in args.items()},
                                 probe=1.4, k=4)
+    with pytest.raises(ValueError, match="is on cpu"):
+        _kernels.cell_keys(args["packed"], args["group_id"].cpu(), 1.4)
     assert _kernels.launch_counts["neighbor_cells"] == before
-    planes, counts = _kernels.neighbor_cells(**args, probe=1.4, k=4)
+    planes, counts, max_count = _kernels.neighbor_cells(**args, probe=1.4,
+                                                        k=4)
     torch.cuda.synchronize()
     assert planes.shape == (4, 4, b * n) and counts.shape == (b * n,)
+    assert max_count.shape == () and int(max_count) == 0

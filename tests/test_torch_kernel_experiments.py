@@ -671,9 +671,10 @@ def test_loop_ceiling_cuts_apply_to_the_kernel_sources():
 
 def test_layout_probe_cuts_apply_to_the_kernel_sources():
     """scripts/layout_probe.py times list_occlusion.cu with other records
-    a thread and points a loop step, and without its barriers or loads;
-    each cut must find its text exactly once, and the first build is the
-    source as it is."""
+    a thread and points a loop step, and without its barriers or loads,
+    and neighbor_cells.cu with other rows a CTA and register caps, and
+    without its stores, steps or scan; each cut must find its text
+    exactly once, and the first build is the source as it is."""
     from rustsasa_tpu_torch.scripts import layout_probe
 
     for name, cuts in layout_probe.CUTS.items():

@@ -1,25 +1,28 @@
 """The list path's neighbor phase in the port, on the CPU.
 
 On the card `neighbors.neighbor_records` bins a [B, N] batch into cells
-(`cell_grid`, a stable sort of the keys) and launches
-`ops/csrc/neighbor_cells.cu`; on the CPU it takes the plain version, the
-dense expansion and top-k of `_neighbor_phase` structure by structure.
-Here:
+(`ops/csrc/neighbor_cells.cu`'s `cell_keys`), sorts the keys stably,
+gathers the atoms into sorted order and launches the file's cell-list
+kernel; on the CPU it takes the plain version, the dense expansion and
+top-k of `_neighbor_phase` structure by structure.  Here:
 
   * the explicit fused multiply-add chain of the cross term against
     `torch.matmul` and the JAX package's HIGHEST dot, bit for bit;
-  * a CPU model of the kernel's scan, fed the keys, sort and cell edge
-    the launcher passes it, against the plain version on the seeded
-    cases of `scripts/_study.neighbor_cases` (far offsets, a long thin
-    structure, pairs at the cutoff, an overflowing ball): every plain
-    candidate lies in one of its row's 27 cells, and the model's counts
-    and kept records (the K nearest where a row overflows) are the plain
-    version's;
+  * `cell_grid` (the plain version of `cell_keys`) against a NumPy model
+    of the kernel's f64 operations in its order, bit for bit, on the
+    seeded cases of `scripts/_study.neighbor_cases` and 1jz8;
+  * a CPU model of the kernel's warp scan, fed the keys, sort, sorted
+    atoms and radii the launcher passes it, against the plain version
+    on the seeded cases (far offsets, a long thin structure, pairs at
+    the cutoff, an overflowing ball): every plain candidate lies in one
+    of its row's 27 cells, and the model's counts and kept records (the
+    K nearest where a row overflows) are the plain version's, each in
+    the slot of its visit order;
   * the cell edge's bound, the padding keys, the record comparison the
-    card checks use, and every argument check of the launcher, which
-    runs before the device check and so on CPU tensors.
+    card checks use, and every argument check of the two launchers,
+    which runs before the device check and so on CPU tensors.
 
-The kernel itself is held to the plain version on the card
+The kernels themselves are held to the plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
@@ -79,11 +82,14 @@ def _decode(keys):
 
 def _kernel_model(packed, gid, k):
     """csrc/neighbor_cells.cu's rows, computed on the CPU from the keys,
-    sort and radii the launcher passes the kernel: each real row visits
-    the 27 cells around its own in the kernel's order (dx, then dy, each
-    column z-1..z+1 from one search of the sorted keys), takes the
-    plain version's candidate test, and on overflow keeps the K smallest
-    (d2 bits, index).  Returns ((planes, counts, max_count) in
+    sort, sorted atoms and radii the launcher passes the kernel: each
+    real row visits the nine cell columns around its own in the kernel's
+    order (dx, then dy, each column z-1..z+1 one range of the sorted
+    keys), laid end to end; tests each visited atom of the sorted
+    gather as the plain version does; gives each candidate the slot of
+    its place among the row's candidates in that order (the warp's
+    ballot prefix), and on overflow keeps the K smallest (d2 bits,
+    index), in visit order.  Returns ((planes, counts, max_count) in
     neighbor_records' form, every row's plain candidates all visited, the
     atoms each row visited)."""
     b, n = gid.shape
@@ -91,6 +97,8 @@ def _kernel_model(packed, gid, k):
     kk = min(k, n)
     grid = neighbors.cell_grid(packed, gid, PROBE)
     sorted_keys, perm = torch.sort(grid.keys, stable=True)
+    spacked = packed.reshape(m, 4)[perm]
+    sgid = gid.reshape(m)[perm]
     planes = torch.zeros((4, kk, m + (-m % 4)), dtype=torch.float32)
     planes[3] = neighbors._NEG_BIG
     counts = torch.zeros(m, dtype=torch.int32)
@@ -99,13 +107,15 @@ def _kernel_model(packed, gid, k):
     _s, cx, cy, cz = _decode(grid.keys)
     for s in range(b):
         coords, radii, g = packed[s, :, :3], packed[s, :, 3], gid[s]
-        d2, cand = neighbors._candidates(coords, radii, g, coords, g,
-                                         grid.max_r[s], PROBE)
+        _d2, cand = neighbors._candidates(coords, radii, g, coords, g,
+                                          grid.max_r[s], PROBE)
+        cut = (radii + grid.max_r[s]) + 2.0 * PROBE
+        thr = cut * cut + neighbors._CUTOFF_SLACK
         for i in range(n):
             row = s * n + i
             if g[i] < 0:
                 continue
-            visited = []
+            ranges = []
             for dx in (-1, 0, 1):
                 for dy in (-1, 0, 1):
                     x, y = int(cx[row]) + dx, int(cy[row]) + dy
@@ -115,27 +125,30 @@ def _kernel_model(packed, gid, k):
                     col = (s << 54) | (x << 36) | (y << 18)
                     lo = max(int(cz[row]) - 1, 0)
                     hi = min(int(cz[row]) + 1, neighbors.CELL_MAX)
-                    a = int(torch.searchsorted(sorted_keys, col | lo))
-                    z = int(torch.searchsorted(sorted_keys, col | hi,
-                                               right=True))
-                    visited += (perm[a:z] - s * n).tolist()
-            visits[row] = len(visited)
-            js = [j for j in visited if cand[i, j]]
+                    ranges.append(torch.arange(
+                        int(torch.searchsorted(sorted_keys, col | lo)),
+                        int(torch.searchsorted(sorted_keys, col | hi,
+                                               right=True))))
+            ps = torch.cat(ranges)
+            visits[row] = ps.numel()
+            d2 = neighbors._pair_d2(coords[i][None], spacked[ps, :3])
+            ok = (sgid[ps] != g[i]) & (d2 <= thr[i])
+            ps, d2 = ps[ok], d2[ok]
+            js = (perm[ps] - s * n).tolist()
             covered &= set(js) == set(torch.nonzero(cand[i]).flatten()
                                       .tolist())
             counts[row] = len(js)
             if len(js) > kk:
-                order = sorted(js, key=lambda j: (
-                    int(d2[i, j].view(torch.int32)), j))
-                keep = set(order[:kk])
-                js = [j for j in js if j in keep]
-            if not js:
+                order = sorted(range(len(js)), key=lambda t: (
+                    int(d2[t].view(torch.int32)), js[t]))
+                ps = ps[sorted(order[:kk])]
+            if not ps.numel():
                 continue
             v, limit = neighbors._records(
-                coords[i:i + 1], radii[i:i + 1], coords[js][None],
-                radii[js][None], PROBE)
-            planes[:3, :len(js), row] = v[0].T
-            planes[3, :len(js), row] = limit[0]
+                coords[i:i + 1], radii[i:i + 1], spacked[ps, :3][None],
+                spacked[ps, 3][None], PROBE)
+            planes[:3, :ps.numel(), row] = v[0].T
+            planes[3, :ps.numel(), row] = limit[0]
     return (planes, counts, counts.max()), covered, visits
 
 
@@ -154,6 +167,57 @@ def test_kernel_model_equals_plain(cases, name):
     assert int(want[2]) > 0
     if name == "ball":
         assert int(want[2]) > want[0].shape[1]  # rows overflow K
+
+
+def _cell_keys_model(packed, gid, probe):
+    """csrc/neighbor_cells.cu's cell_keys in NumPy, one f64 operation at
+    a time in the kernel's order -> (keys [B*N], max_r [B] f32, h [B])."""
+    b, n = gid.shape
+    keys = np.full(b * n, neighbors.PAD_KEY, np.int64)
+    max_r = np.zeros(b, np.float32)
+    h = np.zeros(b)
+    for s in range(b):
+        real = np.flatnonzero(gid[s] >= 0)
+        c32 = packed[s, real, :3]
+        if real.size:
+            max_r[s] = max(np.float32(0.0), packed[s, real, 3].max())
+            lo, hi = (a.astype(np.float64) for a in (c32.min(0), c32.max(0)))
+        else:
+            lo = hi = np.zeros(3)
+        c = c32.astype(np.float64)
+        r2 = ((c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1]) + c[:, 2] * c[:, 2])
+        r2 = max(0.0, r2.max()) if real.size else 0.0
+        span = max(hi[0] - lo[0], hi[1] - lo[1], hi[2] - lo[2])
+        cut = 2.0 * np.float64(max_r[s]) + 2.0 * probe
+        thr = cut * cut + 1e-3
+        edge = np.sqrt((thr + 2.0 ** -19 * (r2 + thr)) * (1.0 + 2.0 ** -20))
+        h[s] = max(edge, span / float(neighbors.CELL_MAX - 1))
+        cell = np.clip(np.floor((c - lo) / h[s]), 0,
+                       neighbors.CELL_MAX).astype(np.int64)
+        keys[s * n + real] = ((s << 54) | (cell[:, 0] << 36)
+                              | (cell[:, 1] << 18) | cell[:, 2])
+    return keys, max_r, h
+
+
+@pytest.mark.parametrize("name", (*_study.neighbor_case_names(OFFSETS),
+                                  "1jz8"))
+def test_cell_grid_equals_the_cell_keys_model(cases, name):
+    """The plain binning takes the kernel's f64 operations in its order:
+    keys, max_r and h bit-equal to the model of cell_keys."""
+    if name == "1jz8":
+        from rustsasa_tpu_torch.scripts import layout_probe
+
+        packed, gid = (torch.from_numpy(a) for a in _study.list_batch(
+            layout_probe.LIST_STRUCTURE)[:2])
+    else:
+        packed, gid, _k = cases[name]
+    grid = neighbors.cell_grid(packed, gid, PROBE)
+    keys, max_r, h = _cell_keys_model(packed.numpy(), gid.numpy(), PROBE)
+    np.testing.assert_array_equal(grid.keys.numpy(), keys)
+    np.testing.assert_array_equal(grid.max_r.numpy().view(np.int32),
+                                  max_r.view(np.int32))
+    np.testing.assert_array_equal(grid.h.numpy().view(np.int64),
+                                  h.view(np.int64))
 
 
 @pytest.mark.parametrize("name", _study.neighbor_case_names(OFFSETS))
@@ -229,6 +293,7 @@ def test_neighbor_records_take_the_plain_version_on_the_cpu(cases,
         raise AssertionError("the CPU route launched the kernel")
 
     monkeypatch.setattr(_kernels, "neighbor_cells", launch)
+    monkeypatch.setattr(_kernels, "cell_keys", launch)
     got = neighbors.neighbor_records(packed, gid, probe=PROBE, k=k)
     want = neighbors.neighbor_records_reference(packed, gid, probe=PROBE,
                                                 k=k)
@@ -294,6 +359,8 @@ def _launch_args(b=2, n=8, **over):
         "keys": torch.zeros(b * n, dtype=torch.int64),
         "sorted_keys": torch.zeros(b * n, dtype=torch.int64),
         "perm": torch.zeros(b * n, dtype=torch.int64),
+        "sorted_packed": torch.zeros((b * n, 4)),
+        "sorted_gid": torch.zeros(b * n, dtype=torch.int32),
     }
     args.update(over)
     return args
@@ -319,10 +386,62 @@ def _launch_args(b=2, n=8, **over):
     ({"packed": torch.zeros(2 * 8 * 4 + 1)[1:].view(2, 8, 4)}, 4,
      ValueError, "16-byte"),
     ({"max_r": torch.zeros(2, device="meta")}, 4, ValueError, "is on meta"),
+    ({"sorted_packed": torch.zeros((16, 4), dtype=torch.float64)}, 4,
+     TypeError, "sorted_packed has dtype"),
+    ({"sorted_packed": torch.zeros((16, 3))}, 4, ValueError,
+     "sorted_packed shape"),
+    ({"sorted_packed": torch.zeros(16 * 4 + 1)[1:].view(16, 4)}, 4,
+     ValueError, "sorted_packed must start on a 16-byte"),
+    ({"sorted_gid": torch.zeros(16, dtype=torch.int64)}, 4, TypeError,
+     "sorted_gid has dtype"),
+    ({"sorted_gid": torch.zeros(15, dtype=torch.int32)}, 4, ValueError,
+     "sorted_gid shape"),
+    ({"sorted_gid": torch.zeros(16, dtype=torch.int32, device="meta")}, 4,
+     ValueError, "is on meta"),
 ])
 def test_launcher_checks_before_any_launch(over, k, error, match):
     with pytest.raises(error, match=match):
         _kernels.neighbor_cells(**_launch_args(**over), probe=PROBE, k=k)
+
+
+@pytest.mark.parametrize("packed, gid, error, match", [
+    (torch.zeros((2, 8, 4), dtype=torch.float64),
+     torch.zeros((2, 8), dtype=torch.int32), TypeError, "packed has dtype"),
+    (torch.zeros((2, 8, 4)), torch.zeros((2, 8), dtype=torch.int64),
+     TypeError, "group_id has dtype"),
+    (torch.zeros((2, 8, 3)), torch.zeros((2, 8), dtype=torch.int32),
+     ValueError, "packed shape"),
+    (torch.zeros((2, 8, 4)), torch.zeros(16, dtype=torch.int32), ValueError,
+     "expected 2-D"),
+    (torch.zeros((8, 2, 4)).transpose(0, 1),
+     torch.zeros((2, 8), dtype=torch.int32), ValueError, "contiguous"),
+    (torch.zeros(2 * 8 * 4 + 1)[1:].view(2, 8, 4),
+     torch.zeros((2, 8), dtype=torch.int32), ValueError, "16-byte"),
+    (torch.zeros((2, 8, 4)), torch.zeros((2, 8), dtype=torch.int32,
+                                         device="meta"),
+     ValueError, "is on meta"),
+    (torch.zeros((0, 8, 4)), torch.zeros((0, 8), dtype=torch.int32),
+     ValueError, "structures"),
+    (torch.zeros((2, 0, 4)), torch.zeros((2, 0), dtype=torch.int32),
+     ValueError, "structures"),
+    (torch.zeros((_kernels.MAX_CELL_BATCH + 1, 1, 4)),
+     torch.zeros((_kernels.MAX_CELL_BATCH + 1, 1), dtype=torch.int32),
+     ValueError, "structures"),
+])
+def test_cell_keys_checks_before_any_launch(packed, gid, error, match):
+    before = dict(_kernels.launch_counts)
+    with pytest.raises(error, match=match):
+        _kernels.cell_keys(packed, gid, PROBE)
+    assert _kernels.launch_counts == before
+
+
+def test_cell_keys_needs_cuda_tensors():
+    packed = torch.zeros((2, 8, 4))
+    gid = torch.zeros((2, 8), dtype=torch.int32)
+    before = dict(_kernels.launch_counts)
+    with pytest.raises(ValueError, match="cell_keys needs CUDA tensors"):
+        _kernels.cell_keys(packed, gid, PROBE)
+    assert _kernels.launch_counts == before
 
 
 def test_launcher_batch_limits():

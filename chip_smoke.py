@@ -92,7 +92,10 @@ runs fifteen phases, each of which must pass:
      2,097,152 slots, kernels only, timed against the count kernel, whose
      launches are the three kernels' launch counts; each kernel's bound
      on the work its inputs need (kernel 1's: fused_kernel.reach_work of
-     its chunk) beside the old one on every admitted margin;
+     its chunk) beside the old one on every admitted margin; the
+     saturation kernel (kernel 1's layout, 4 CTAs a tile)
+     with its ratio to the count kernel, its share of that bound, ptxas
+     registers and spills;
   9. count-kernel studies II: on the host-cull f32 chunk of phase 8's
      structures the loop micro-variants (micro_count: prod, split2, g16,
      g24, nosmem) and the reach-test kernel (reach_count: base,
@@ -103,7 +106,9 @@ runs fifteen phases, each of which must pass:
      slot, bf16, bf16p and max-plus with their count difference reported;
      then the three studies' run() at 2,097,152 slots, kernels only, whose
      launches are the three kernels' launch counts; the bounds recounted
-     as in phase 8;
+     as in phase 8 (micro_count, on kernel 1's layout: each variant's
+     ratio to the count kernel and share of that bound, nosmem's of its
+     own work, and prod's ptxas registers and spills);
  10. kernel experiments: the 22 variants of scripts/kernel_experiments.py
      on its synthetic data (64 tiles x 1,408 resident j-rows), on its ones
      and on seeded random j-data, each against its plain version:
@@ -257,6 +262,10 @@ LIST_KERNELS = ("list_occlusion", "cell_keys", "neighbor_cells")
 # a 4-slot ring of 5 x 128 floats, 8 mbarriers, 32 atoms (20 bytes each)
 # and the j-list row.
 K1_SMEM = 4 * 4 * 5 * 128 + 8 * 8 + 20 * 32 + 4 * 132
+# csrc/saturation_count.cu's before the sphere: K1_SMEM, the live
+# entries' j-list positions and checks, 8 passes' stops and the
+# valid-pass bits (16 bytes).
+SAT_SMEM = K1_SMEM + 2 * 128 + 4 * 8 + 16
 PROBE = 1.4
 # H100 SXM: FP32 instruction issue peak (132 SMs x 128 lanes x 1.98 GHz;
 # none of the kernels' margin instructions is a fused multiply-add) and
@@ -1323,7 +1332,7 @@ def _kernel_vs_plain(name, kernel, plain, prod, real, equal_to_prod=True):
     return ms, plain_ms, max_err, got
 
 
-def phase_count_studies(corpus_dir, device):
+def phase_count_studies(corpus_dir, device, build_logs):
     """Phase 8: the count-kernel studies.  Each study kernel against its
     plain version and fused_count on a corpus chunk, then both studies'
     run() at full size, kernels only, with the launches of those runs.
@@ -1389,17 +1398,21 @@ def phase_count_studies(corpus_dir, device):
     recount_bound(records["nibble_count"], "[studies]", planes, jlist, sphere,
                   work)
 
-    # Host-cull f32: saturation checked every 1, 2 and 4 entries.
+    # Host-cull f32: saturation checked every 1, 2 and 4 entries, on
+    # kernel 1's layout and point split.
     planes5, jlist5, real5, _atoms, _tiles, failed = _study.host_cull_chunk(
         triples, device, CHECK_CHUNK_SLOTS)
     if failed:
         raise AssertionError(f"{failed} host j-lists overflowed")
-    entries = passes * int(jlist5[:, 0].sum())
-    margins5 = int(_study.streamed_groups(jlist5).sum()) * lane_margins
+    lpasses, lk = _kernels.lane_passes(p)
+    entries = lpasses * int(jlist5[:, 0].sum())
+    margins5 = (int(_study.streamed_groups(jlist5).sum()) * 8 * 128 // 2
+                * lpasses * _kernels.COUNT_LANES * lk)
     prod5_ms, prod5 = cuda_ms(lambda: fk.fused_counts(planes5, jlist5, sphere),
                               10)
     log(f"[studies] host-cull f32 chunk: {entries} j-list entries over "
-        f"{passes} point passes; fused_count {prod5_ms:.3f} ms")
+        f"{lpasses} point pass(es); fused_count {prod5_ms:.3f} ms")
+    work5 = fk.reach_work(planes5, jlist5, sphere)
     for ce in r4.CHECKS:
         ms, plain_ms, err, (_, streamed) = _kernel_vs_plain(
             f"saturation_count (check_every={ce})",
@@ -1408,8 +1421,11 @@ def phase_count_studies(corpus_dir, device):
             lambda ce=ce: r4.saturation_counts_reference(
                 planes5, jlist5, sphere, check_every=ce),
             prod5, real5)
+        sat_bound = kernel1_bound(work5, planes5.shape[1], sphere)[0]
         log(f"[studies]   skipped {entries - int(streamed.sum())} of "
-            f"{entries} entries")
+            f"{entries} entries; {ms / prod5_ms:.3f}x fused_count on the "
+            f"same chunk; {sat_bound[0] / ms:.3f} of the bound on the work "
+            f"its inputs need")
         if ce == 1:
             # The margins of the entries it streamed (all on this corpus).
             work = margins5 * int(streamed.sum()) // max(entries, 1)
@@ -1419,7 +1435,15 @@ def phase_count_studies(corpus_dir, device):
                        count_bound(work, 7, m5, p, extra_out=4 * m5 // 128)),
                 check_every=1)
             recount_bound(records["saturation_count"], "[studies]", planes5,
-                          jlist5, sphere)
+                          jlist5, sphere, work5)
+            redesigned_log(
+                "[studies]", build_logs["saturation_count"],
+                f"saturation_count (check_every=1, L={_kernels.COUNT_LANES}, "
+                f"K={lk}, {lpasses} pass(es), 4 CTAs a tile)",
+                ms, (records["saturation_count"]["bound_ms"],
+                     records["saturation_count"]["bound_by"]),
+                fk.needed_instructions(work5, int((sphere[:, 3] > 0).sum())),
+                f"ILi{lk}E", SAT_SMEM + 16 * lpasses * _kernels.COUNT_LANES * lk)
 
     # Full size: the studies' own entry, kernels only.
     t0 = time.perf_counter()
@@ -1445,12 +1469,15 @@ def phase_count_studies(corpus_dir, device):
         f"{pair['variants']['prod']['j_atoms_per_atom']:.1f}, pair64 "
         f"{pair['variants']['pair64']['j_atoms_per_atom']:.1f}")
     prod_sat = sat["variants"]["prod"]["ms"]
+    sat_bound = bound(sat["instr"], 0)[0]
     for ce in r4.CHECKS:
         v = sat["variants"][f"sat{ce}"]
         log(f"[studies] saturation_count check_every={ce} {v['ms']:.3f} ms vs "
             f"fused_count {prod_sat:.3f} ms on the host-cull chunk "
             f"({v['ms'] / prod_sat:.3f}x); skipped "
-            f"{100 * v['skipped']:.3f} % of entries")
+            f"{100 * v['skipped']:.3f} % of entries; "
+            f"{sat_bound / v['ms']:.3f} of the {sat_bound:.4f} ms bound on "
+            f"the work its inputs need")
     for result in (pair, sat):
         for name, v in result["variants"].items():
             if v["max_dcount"] != 0:
@@ -1499,6 +1526,9 @@ def phase_count_studies_ii(corpus_dir, device, build_logs):
         f"{groups['nosmem'] / max(groups['prod'], 1):.3f}x the admitted ones")
     records = {}
     work = fk.reach_work(planes, jl, sphere)
+    (need_ms, _by), need_instr = kernel1_bound(work, m, sphere)
+    lpasses, lk = _kernels.lane_passes(p)
+    lpoints = lpasses * _kernels.COUNT_LANES * lk
     for variant in r4m.VARIANTS:
         ms, plain_ms, err, _ = _kernel_vs_plain(
             f"micro_count ({variant})",
@@ -1506,13 +1536,26 @@ def phase_count_studies_ii(corpus_dir, device, build_logs):
             lambda v=variant: r4m.micro_counts_reference(planes, jl, sphere,
                                                          variant=v),
             prod, real)
+        own = count_bound(groups[variant] * 8 * 128 * lpoints, 7, m, p)
+        held = own[0] if variant == "nosmem" else need_ms
+        log(f"[studies-ii]   {ms / prod_ms:.3f}x fused_count on the same "
+            f"chunk; {held / ms:.3f} of the bound on "
+            + ("its own work (every row of every live entry)"
+               if variant == "nosmem" else "the work its inputs need"))
         if variant == r4m.VARIANTS[0]:
             records["micro_count"] = dict(record(
-                "micro_count", None, err, ms, plain_ms, prod_ms,
-                count_bound(groups[variant] * 8 * 128 * points, 7, m, p)),
+                "micro_count", None, err, ms, plain_ms, prod_ms, own),
                 variant=variant)
             recount_bound(records["micro_count"], "[studies-ii]", planes, jl,
                           sphere, work)
+            redesigned_log(
+                "[studies-ii]", build_logs["micro_count"],
+                f"micro_count (prod, L={_kernels.COUNT_LANES}, K={lk}, "
+                f"{lpasses} pass(es))", ms,
+                (records["micro_count"]["bound_ms"],
+                 records["micro_count"]["bound_by"]), need_instr,
+                f"ILi{lk}ELi0E",
+                K1_SMEM + 16 * lpasses * _kernels.COUNT_LANES * lk)
     for variant in r3v.VARIANTS:
         ms, plain_ms, err, (_, executed) = _kernel_vs_plain(
             f"reach_count ({variant})",
@@ -1583,6 +1626,15 @@ def phase_count_studies_ii(corpus_dir, device, build_logs):
     launches = dict(_kernels.launch_counts)
     log(f"[studies-ii] during r3_maxplus.run(): {clocks.summary()}")
     r4m.report(micro, device, "[studies-ii] r4_microkernel")
+    k1_full = micro["variants"]["k1"]["ms"]
+    for name in r4m.VARIANTS:
+        v = micro["variants"][name]
+        own = bound(v["instr"], 0)[0]
+        log(f"[studies-ii] micro_count ({name}) at 2M {v['ms']:.3f} ms, "
+            f"{v['ms'] / k1_full:.3f}x fused_count, {own / v['ms']:.3f} of "
+            f"the {own:.4f} ms bound on "
+            + ("its own work" if name == "nosmem"
+               else "the work its inputs need"))
     r3v.report(reach, device, "[studies-ii] r3_kernel_variants")
     r3m.report(maxplus, device, "[studies-ii] r3_maxplus")
     log(f"[studies-ii] launches in the three runs: {launches}")
@@ -2282,7 +2334,7 @@ def main() -> int:
     for rec in list_records:
         rec["launches"] = list_launches[rec["name"]]
     phase_host_cull(device, WORK)
-    studies = phase_count_studies(corpus_dir, device)
+    studies = phase_count_studies(corpus_dir, device, build_logs)
     studies_ii = phase_count_studies_ii(corpus_dir, device, build_logs)
     experiments = phase_kernel_experiments(device, build_logs)
     phase_cli(smi)

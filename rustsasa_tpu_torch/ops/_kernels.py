@@ -39,12 +39,18 @@ NVCC_FLAGS = (
 )
 MAX_P_PAD = 2048
 # Sphere points per thread and slices per CTA of the count kernels
-# (csrc/count_tile.cuh kMaxK, kSlices; fused_count.cu has no slices).
+# (csrc/count_tile.cuh kMaxK, kSlices; the kernels on kernel 1's layout,
+# csrc/reach_ring.cuh, have no slices).
 MAX_K = 16
 SLICES = 4
-# Lanes an i-atom gets in csrc/fused_count.cu (kLanes); a lane holds up
-# to MAX_K sphere points in a pass.
+# Lanes an i-atom gets in csrc/reach_ring.cuh's layout (kLanes: kernel 1,
+# saturation_count.cu, micro_count.cu); a lane holds up to MAX_K sphere
+# points in a pass.
 COUNT_LANES = 16
+# Words a tile of csrc/saturation_count.cu shares its check through
+# (kSyncWords: each of up to 8 passes' saturated warps and largest first
+# saturated check, and the tile's finished CTAs).
+SATURATION_SYNC_WORDS = 17
 # Variant codes of csrc/micro_count.cu and csrc/reach_count.cu, in order.
 MICRO_VARIANTS = ("prod", "split2", "g16", "g24", "nosmem")
 REACH_VARIANTS = ("base", "nogroupcond", "jskip", "group4", "nocond", "bf16",
@@ -96,7 +102,7 @@ _SIGNATURES = {
     "list_occlusion": [_VOIDP] * 9 + [_INT] * 6 + [_VOIDP],
     "pair64_count": [_VOIDP] * 5 + [_INT] * 2 + [_VOIDP],
     "nibble_count": [_VOIDP] * 6 + [_INT] * 2 + [_VOIDP],
-    "saturation_count": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
+    "saturation_count": [_VOIDP] * 6 + [_INT] * 3 + [_VOIDP],
     "micro_count": [_VOIDP] * 4 + [_INT] * 3 + [_VOIDP],
     "reach_count": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
     "maxplus_count": [_VOIDP] * 4 + [_INT] * 2 + [_VOIDP],
@@ -176,9 +182,10 @@ def point_passes(p: int) -> tuple[int, int]:
 
 
 def lane_passes(p: int) -> tuple[int, int]:
-    """(passes, K) of csrc/fused_count.cu for a P-point sphere: the
-    fewest passes of COUNT_LANES x MAX_K points, then the smallest K
-    points a lane covering P.  Lane q of an atom holds points
+    """(passes, K) of the kernels on csrc/reach_ring.cuh's layout
+    (fused_count.cu, saturation_count.cu, micro_count.cu) for a P-point
+    sphere: the fewest passes of COUNT_LANES x MAX_K points, then the
+    smallest K points a lane covering P.  Lane q of an atom holds points
     [(pass*COUNT_LANES + q)*K, (pass*COUNT_LANES + q + 1)*K) in pass
     `pass`."""
     passes = -(-p // (COUNT_LANES * MAX_K))
@@ -337,6 +344,13 @@ def _count_inputs(name, planes, sphere, jplanes):
     return device, m, p
 
 
+def _aligned(name, planes):
+    """Kernel 1's layout reads each tile's 512-byte plane rows (a row
+    stride of M) by bulk copies, which need 16-byte alignment."""
+    if planes.data_ptr() % 16:
+        raise ValueError(f"{name}: planes must start on a 16-byte boundary")
+
+
 def _launch(name, device, *args):
     """Launch kernel `name` with pointer/int `args` on the current stream
     of `device`; raise if the launch was refused, count it if not."""
@@ -368,10 +382,7 @@ def fused_count(planes, jlist, sphere, *, rows: bool = False):
     """
     name = "fused_count_rows" if rows else "fused_count"
     device, m, p = _count_inputs(name, planes, sphere, {"jlist": jlist})
-    # Rows 0..4 of planes are read with a row stride of M, each tile's
-    # 512-byte rows by bulk copies, which need 16-byte alignment.
-    if planes.data_ptr() % 16:
-        raise ValueError(f"{name}: planes must start on a 16-byte boundary")
+    _aligned(name, planes)
     out = torch.empty(m, dtype=torch.int32, device=device)
     if not rows:
         _launch(name, device, planes.data_ptr(), jlist.data_ptr(),
@@ -419,20 +430,26 @@ def saturation_count(planes, jlist, sphere, check_every: int):
     """Launch the tile-saturation count kernel -> (counts [M] i32,
     streamed [M/128] i32).
 
-    As fused_count, but after every check_every-th entry a CTA whose
-    points of the current pass are all occluded for all 128 atoms leaves
-    that pass's entry loop; streamed[tile] sums the entries each pass
-    went through.
+    fused_count's inputs (planes 16-byte aligned) and its layout, four
+    CTAs a tile; after every check_every-th j-list entry a tile whose
+    points of the current pass (lane_passes' split) are all occluded for
+    all 128 atoms leaves that pass's entry loop; streamed[tile] sums the
+    entries each pass went through.  Counts equal
+    fused_kernel.fused_counts_reference's at every slot.  The tile's
+    CTAs share their check through SATURATION_SYNC_WORDS zeroed words.
     """
     device, m, p = _count_inputs("saturation_count", planes, sphere,
                                  {"jlist": jlist})
     if check_every < 1:
         raise ValueError(f"check_every {check_every} < 1")
+    _aligned("saturation_count", planes)
     out = torch.empty(m, dtype=torch.int32, device=device)
     streamed = torch.empty(m // 128, dtype=torch.int32, device=device)
+    sync = torch.zeros((m // 128, SATURATION_SYNC_WORDS), dtype=torch.int32,
+                       device=device)
     _launch("saturation_count", device, planes.data_ptr(), jlist.data_ptr(),
-            sphere.data_ptr(), out.data_ptr(), streamed.data_ptr(), m, p,
-            check_every)
+            sphere.data_ptr(), out.data_ptr(), streamed.data_ptr(),
+            sync.data_ptr(), m, p, check_every)
     return out, streamed
 
 
@@ -448,12 +465,15 @@ def variant_code(name, variant, variants):
 def micro_count(planes, jlist, sphere, variant: str):
     """Launch the loop-variant count kernel -> [M] i32.
 
-    As fused_count, with the loop over admitted groups reshaped by
-    `variant` (one of MICRO_VARIANTS); every variant gives the same counts.
+    fused_count's inputs (planes 16-byte aligned) and its layout, with the
+    loop over a chunk's kept rows reshaped by `variant` (one of
+    MICRO_VARIANTS; nosmem streams every row instead); every variant
+    gives fused_kernel.fused_counts_reference's counts at every slot.
     """
     code = variant_code("micro_count", variant, MICRO_VARIANTS)
     device, m, p = _count_inputs("micro_count", planes, sphere,
                                  {"jlist": jlist})
+    _aligned("micro_count", planes)
     out = torch.empty(m, dtype=torch.int32, device=device)
     _launch("micro_count", device, planes.data_ptr(), jlist.data_ptr(),
             sphere.data_ptr(), out.data_ptr(), m, p, code)

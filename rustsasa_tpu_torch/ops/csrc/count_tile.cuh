@@ -3,13 +3,14 @@
 // micro_count.cu, reach_count.cu, maxplus_count.cu), for NVIDIA Hopper
 // (sm_90a).
 //
-// The variants share the layout below and change only which j-groups a
-// thread streams, or when a CTA stops (maxplus_count.cu takes its own
-// thread layout and shares only the constants, IAtom, load_i_atom,
-// stage_sphere and RUSTSASA_SWITCH_K; fused_count.cu takes its own too
-// and shares the arithmetic, IAtom, load_i_atom, load_points,
-// count_accessible, row_v, row_margins and the reach-skip helpers at the
-// end):
+// pair64_count.cu, nibble_count.cu and reach_count.cu share the layout
+// below and change only which j-groups a thread streams.  fused_count.cu,
+// saturation_count.cu and micro_count.cu take kernel 1's reach-skip
+// layout (reach_ring.cuh) and share the arithmetic, IAtom, load_i_atom,
+// load_points, count_accessible, row_v, row_lim, row_margins and the
+// reach-skip helpers at the end; maxplus_count.cu takes its own thread
+// layout and shares only the constants, IAtom, load_i_atom, stage_sphere
+// and RUSTSASA_SWITCH_K:
 //   * one CTA per 128-atom i-tile; 512 threads = 128 i-atoms x 4 point
 //     slices, a warp being 32 consecutive i-atoms of one slice (thread
 //     tid owns atom tid % 128 of slice tid / 128; pair64_count.cu places
@@ -226,7 +227,8 @@ __device__ __forceinline__ uint32_t reach_rows(const uint32_t* hit, int s) {
          hit[3 * kSlices + s];
 }
 
-// ---- fused_count.cu's reach skip (the variants do not use these) ----
+// ---- the reach skip of kernel 1's layout (fused_count.cu keep_pair;
+// saturation_count.cu and micro_count.cu keep_row) ----
 //
 // A j-row may be left out of an i-atom's max only where all its rounded
 // margins are <= 0, so that the count does not move.  keep_pair is that
@@ -265,6 +267,46 @@ __device__ __forceinline__ bool keep_pair(float4 a, float ag, float jx,
   const bool skip_far = far_ok && far && a.w >= 1e-6f &&
                         __fmul_rn(kRadiusRatio, jr) >= a.w;
   return !(ag == 0.0f || jg == 0.0f || jg == ag || skip_far);
+}
+
+// Smallest v2 at which keep_row skips a row for an i-atom with r_i < 1e-6.
+constexpr float kTinyReach2 = 0x1p-30f;
+
+// keep_pair for the study kernels on kernel 1's layout
+// (saturation_count.cu, micro_count.cu), whose counts stay the
+// reference's at padding slots too, and whose tile-saturation check sees
+// padding atoms' margins: the i-atom's gid drops no row.  Rows are
+// dropped where gid_j == 0 or gid_j == gid_i (lim is -1e30 there) and,
+// where far_ok, by distance: for r_i >= 1e-6 as keep_pair (whose
+// derivation holds whatever the gids), and for r_i < 1e-6 (padding has
+// r_eff 0) where
+//     v2 >= 2 r_j^2 (rounded) and v2 >= 2^-30.
+// Derivation of the second, u = 2^-24: inv2r = 0.5 / 1e-6 rounds to
+// 5e5 and r2 = r_i^2 >= 0.  With a = fl(r_j^2) <= v2 / 2, fl(a - v2) <=
+// -v2 / 2, subtracting r2 and rounding keep it there, and lim <=
+// -5e5 (v2 / 2)(1 - u) < -2.4999e5 v2.  The dot is at most |s| |V|
+// (1 + u)^3 in size, |s| <= 1 + 9.51u (far_ok) and |V|^2 <= v2 / (1 -
+// 3.01u) (fused_count.cu's header), so |dot| <= 1.00001 sqrt(v2).  A
+// rounded margin keeps the sign of lim - dot, so it is <= 0 once
+// 2.4999e5 v2 >= 1.00001 sqrt(v2), i.e. v2 >= 1.61e-11: 2^-30 = 9.3e-10
+// holds with room.
+__device__ __forceinline__ bool keep_row(float4 a, float ag, float jx,
+                                         float jy, float jz, float jr,
+                                         float jg, bool far_ok) {
+  const float vx = __fsub_rn(a.x, jx);
+  const float vy = __fsub_rn(a.y, jy);
+  const float vz = __fsub_rn(a.z, jz);
+  const float v2 = __fadd_rn(__fadd_rn(__fmul_rn(vx, vx), __fmul_rn(vy, vy)),
+                             __fmul_rn(vz, vz));
+  bool far;
+  if (a.w >= 1e-6f) {
+    const float reach = __fadd_rn(a.w, jr);
+    far = v2 > __fmul_rn(__fmul_rn(reach, reach), kReachSlack) &&
+          __fmul_rn(kRadiusRatio, jr) >= a.w;
+  } else {
+    far = v2 >= __fmul_rn(2.0f, __fmul_rn(jr, jr)) && v2 >= kTinyReach2;
+  }
+  return !(jg == 0.0f || jg == ag || (far_ok && far));
 }
 
 // row_lim with the gid test replaced by `keep` (keep_pair of this atom and

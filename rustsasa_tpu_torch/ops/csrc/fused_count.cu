@@ -84,127 +84,14 @@
 // each warp streamed (the kRows instantiation); the main path runs
 // fused_count_launch.
 
-#include "count_tile.cuh"
+#include "reach_ring.cuh"
 
 namespace {
 
 using namespace rustsasa;
 
-constexpr int kLanes = 16;                         // lanes an i-atom
-constexpr int kCtaAtoms = 32;                      // i-atoms a CTA
-constexpr int kQuarters = kAtomTile / kCtaAtoms;   // CTAs an i-tile
-constexpr int kRing = 4;                           // j-tile slots
-constexpr int kTileFloats = kRecords * kAtomTile;  // one slot
-constexpr uint32_t kPlaneBytes = 4 * kAtomTile;
-
-// Shared memory: the ring, its 2 x kRing mbarriers, the CTA's atoms
-// (x, y, z, r) and gids, the compacted j-list (and its length), then the
-// sphere.
-constexpr int kRingBytes = 4 * kRing * kTileFloats;
-constexpr int kAtomsOffset = kRingBytes + 16 * kRing;
-constexpr int kEntsOffset = kAtomsOffset + 20 * kCtaAtoms;
-constexpr int kSphereOffset = kEntsOffset + 4 * (kJlistRows + 4);
-static_assert(kAtomsOffset % 16 == 0 && kSphereOffset % 16 == 0,
-              "float4 arrays need 16-byte alignment");
-
-// CTAs a SM the register budget should leave room for: ~4K registers for
-// a thread's points and maxima, ~36 for the rest.
-constexpr int min_ctas(int k) {
-  return 65536 / (32 * kLanes * (4 * k + 36)) < 1
-             ? 1
-             : 65536 / (32 * kLanes * (4 * k + 36));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n\t.reg .b64 st;\n\t"
-      "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(smem_u32(bar))
-      : "memory");
-}
-
-// True once the phase of parity `parity` has completed; does not block.
-__device__ __forceinline__ bool bar_test(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n\t.reg .pred p;\n\t"
-      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-      "selp.u32 %0, 1, 0, p;\n\t}"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0u;
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (done == 0u);
-}
-
-// j-tile jt's five 512-byte plane rows into `slot`, completing on `bar`.
-__device__ __forceinline__ void fill_slot(float* slot, uint64_t* bar,
-                                          const float* __restrict__ planes,
-                                          int64_t mm, int jt) {
-  asm volatile(
-      "{\n\t.reg .b64 st;\n\t"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}" ::"r"(
-          smem_u32(bar)),
-      "r"(kRecords * kPlaneBytes)
-      : "memory");
-  const float* src = planes + static_cast<int64_t>(jt) * kAtomTile;
-#pragma unroll
-  for (int k = 0; k < kRecords; ++k) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(slot + k * kAtomTile)),
-        "l"(src + k * mm), "r"(kPlaneBytes), "r"(smem_u32(bar))
-        : "memory");
-  }
-}
-
-// The producer (lane 0 of warp 0), before its warp consumes load g of
-// the `total` (pass-major) loads: issues the loads after `next` up to
-// g + kRing - 1 whose slot every warp has released, waiting only for
-// load g itself.  Returns the next load to issue.
-__device__ __forceinline__ int produce(int g, int next, int total,
-                                       float* ring, uint64_t* full,
-                                       uint64_t* empty,
-                                       const uint32_t* ents, int n_live,
-                                       const float* __restrict__ planes,
-                                       int64_t mm) {
-  while (next < total && next < g + kRing) {
-    const int s = next % kRing;
-    if (next >= kRing) {
-      const uint32_t parity = (next / kRing - 1) & 1;
-      if (next == g) {
-        bar_wait(&empty[s], parity);
-      } else if (!bar_test(&empty[s], parity)) {
-        break;
-      }
-    }
-    fill_slot(ring + s * kTileFloats, &full[s], planes, mm,
-              static_cast<int>(ents[next % n_live] & 0xFFFFu));
-    ++next;
-  }
-  return next;
-}
+// csrc/reach_ring.cuh's layout; the sphere follows the ring's buffers.
+constexpr int kSphereOffset = kRingSmemEnd;
 
 template <int K, bool kRows>
 __global__ void __launch_bounds__(32 * kLanes, min_ctas(K))
@@ -215,17 +102,8 @@ fused_count_kernel(const float* __restrict__ planes,   // [8, m]
                    int32_t* __restrict__ rows,         // [m/128 * 4L]
                    int m, int p, int passes) {
   constexpr int L = kLanes;
-  constexpr int kWarps = L;
-  constexpr int kWarpAtoms = 32 / L;
-  constexpr uint32_t kFull = 0xFFFFFFFFu;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* ring = reinterpret_cast<float*>(smem);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRingBytes);
-  uint64_t* empty = full + kRing;
-  float4* atoms = reinterpret_cast<float4*>(smem + kAtomsOffset);
-  float* agid = reinterpret_cast<float*>(atoms + kCtaAtoms);
-  uint32_t* ents = reinterpret_cast<uint32_t*>(smem + kEntsOffset);
-  int* n_live_sh = reinterpret_cast<int*>(ents + kJlistRows);
+  const RingSmem sm = ring_smem(smem);
   float4* sph = reinterpret_cast<float4*>(smem + kSphereOffset);
 
   const int tid = threadIdx.x;
@@ -244,42 +122,14 @@ fused_count_kernel(const float* __restrict__ planes,   // [8, m]
   // atoms and the zero-padded sphere, whose point norms decide far_ok.
   if (warp == 0) {
     const int32_t* row = jlist + static_cast<int64_t>(tile) * kJlistRows;
-    const int n_entries = min(max(row[0], 0), kJlistRows - 1);
-    int n = 0;
-    for (int e0 = 0; e0 < n_entries; e0 += 32) {
-      const int e = e0 + lane;
-      const uint32_t ent =
-          e < n_entries ? static_cast<uint32_t>(row[1 + e]) : 0u;
-      const bool live = (ent >> 16) != 0u &&
-                        static_cast<int>(ent & 0xFFFFu) < n_tiles;
-      const uint32_t b = __ballot_sync(kFull, live);
-      if (live) ents[n + __popc(b & ((1u << lane) - 1u))] = ent;
-      n += __popc(b);
-    }
-    if (lane == 0) {
-      *n_live_sh = n;
-      for (int s = 0; s < kRing; ++s) {
-        bar_init(&full[s], 1);
-        bar_init(&empty[s], kWarps);
-      }
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    }
+    stage_entries<false, false>(sm, nullptr, row,
+                                min(max(row[0], 0), kJlistRows - 1), n_tiles,
+                                lane);
   }
-  if (tid < kCtaAtoms) {
-    const int64_t i = atom0 + tid;
-    atoms[tid] = make_float4(planes[i], planes[mm + i], planes[2 * mm + i],
-                             planes[3 * mm + i]);
-    agid[tid] = planes[4 * mm + i];
-  }
-  bool sphere_ok = true;
-  for (int k = tid; k < n_cover; k += 32 * L) {
-    const float4 s = k < p ? sphere[k] : make_float4(0.f, 0.f, 0.f, 0.f);
-    sph[k] = s;
-    if (s.w > 0.0f && !(point_norm2(s) <= kUnitNorm2)) sphere_ok = false;
-  }
-  const bool far_ok = __syncthreads_and(sphere_ok) != 0;
-  const int n_live = *n_live_sh;
+  stage_atoms(sm, planes, mm, atom0, tid);
+  const bool far_ok =
+      __syncthreads_and(stage_sphere_norms(sph, sphere, p, n_cover, tid)) != 0;
+  const int n_live = *sm.n_live;
   const int total = passes * n_live;
   const int cta_atom = warp * kWarpAtoms + a_local;
   const IAtom at = load_i_atom(planes, mm, atom0 + cta_atom);
@@ -295,53 +145,31 @@ fused_count_kernel(const float* __restrict__ planes,   // [8, m]
     for (int e = 0; e < n_live; ++e, ++g) {
       const int s = g % kRing;
       if (tid == 0) {
-        next = produce(g, next, total, ring, full, empty, ents, n_live,
-                       planes, mm);
+        next = produce<false>(g, next, total, sm, n_live, planes, mm,
+                              nullptr);
       }
       __syncwarp();
-      bar_wait(&full[s], (g / kRing) & 1);
-      const float* jrec = ring + s * kTileFloats;
-      const uint32_t mask = ents[e] >> 16;
+      bar_wait(&sm.full[s], (g / kRing) & 1);
+      const float* jrec = sm.slots + s * kTileFloats;
+      const uint32_t mask = sm.ents[e] >> 16;
 #pragma unroll 1
       for (int c = 0; c < kAtomTile / 32; ++c) {
         const uint32_t gm = (mask >> (4 * c)) & 0xFu;
         if (gm == 0u) continue;  // uniform over the warp
-        const int r = c * 32 + lane;
-        uint32_t keep = 0u;
-        if ((gm >> (lane >> 3)) & 1u) {
-          const float jx = jrec[r];
-          const float jy = jrec[kAtomTile + r];
-          const float jz = jrec[2 * kAtomTile + r];
-          const float jr = jrec[3 * kAtomTile + r];
-          const float jg = jrec[4 * kAtomTile + r];
-#pragma unroll
-          for (int a = 0; a < kWarpAtoms; ++a) {
-            const int ca = warp * kWarpAtoms + a;
-            keep |= static_cast<uint32_t>(keep_pair(
-                        atoms[ca], agid[ca], jx, jy, jz, jr, jg, far_ok))
-                    << a;
-          }
-        }
-        uint32_t u = __ballot_sync(kFull, keep != 0u);
+        const uint32_t keep =
+            chunk_keep<false>(jrec, c, gm, sm, warp, lane, far_ok);
+        const uint32_t u = __ballot_sync(kFullWarp, keep != 0u);
         if (kRows) streamed += __popc(u);
-        while (u != 0u) {  // uniform over the warp
-          const int b = __ffs(u) - 1;
-          u &= u - 1u;
-          const bool mine = (__shfl_sync(kFull, keep, b) >> a_local) & 1u;
-          float vx, vy, vz;
-          const float lim =
-              row_lim_kept(jrec, c * 32 + b, at, mine, vx, vy, vz);
-          row_margins<K>(vx, vy, vz, lim, sx, sy, sz, occ);
-        }
+        stream_kept<K>(u, keep, jrec, c, a_local, at, sx, sy, sz, occ);
       }
       __syncwarp();
-      if (lane == 0) bar_arrive(&empty[s]);
+      if (lane == 0) bar_arrive(&sm.empty[s]);
     }
     accessible += count_accessible<K>(sph, p0, occ);
   }
 #pragma unroll
   for (int off = L / 2; off > 0; off >>= 1) {
-    accessible += __shfl_xor_sync(kFull, accessible, off);
+    accessible += __shfl_xor_sync(kFullWarp, accessible, off);
   }
   if (q == 0) out[atom0 + cta_atom] = accessible;
   if (kRows && lane == 0) rows[blockIdx.x * kWarps + warp] = streamed;

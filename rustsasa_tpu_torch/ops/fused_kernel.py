@@ -839,6 +839,23 @@ def reach_keep(v2, ri, rj, gi, gj, far_ok: bool):
     return ~(drop | (reach_far(v2, ri, rj) & far_ok))
 
 
+# keep_row's distance skip for an i-atom with r_i < 1e-6 (count_tile.cuh
+# kTinyReach2): v2 >= 2 r_j^2 and v2 >= TINY_REACH2.
+TINY_REACH2 = torch.tensor(2.0 ** -30, dtype=torch.float32)
+
+
+def reach_keep_row(v2, ri, rj, gi, gj, far_ok: bool):
+    """keep_row of the studies on kernel 1's layout (csrc/count_tile.cuh)
+    -> bool: false where gid_j == 0 or gid_j == gid_i, and, where far_ok,
+    where reach_far (r_i >= 1e-6) or, for r_i < 1e-6 (padding), v2 >= 2
+    r_j^2 and v2 >= TINY_REACH2.  Unlike reach_keep, an i-atom of gid 0
+    keeps its rows, so every count stays the reference's."""
+    dev = v2.device
+    tiny_far = (v2 >= 2.0 * (rj * rj)) & (v2 >= TINY_REACH2.to(dev))
+    far = torch.where(ri >= _MIN_R.to(dev), reach_far(v2, ri, rj), tiny_far)
+    return ~((gj == 0.0) | (gj == gi) | (far & far_ok))
+
+
 def _warp_any(keep):
     """keep [..., ATOM_TILE] ORed over each warp's WARP_ATOMS atoms and
     broadcast back to them."""

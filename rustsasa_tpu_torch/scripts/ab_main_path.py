@@ -1,7 +1,7 @@
 """The main path's figures on two checkouts, timed in turns on one card.
 
     python -m rustsasa_tpu_torch.scripts.ab_main_path PARENT_ROOT \\
-        [--turn main|list_1jz8] [--out FILE]
+        [--turn main|studies|list_1jz8] [--out FILE]
 
 Compares a change to the banded chunk's device stages with its parent in
 one call on one card: the host's speed moves the corpus figures between
@@ -45,6 +45,18 @@ functions every tree has:
   sasa        `neighbors.records_sasa` on the phase's records at P = 104
               (100 points), back to back, and the SASA's sum, which the
               trees must share.
+
+With --turn studies each turn times the count-kernel studies rebuilt on
+kernel 1's layout (STUDY_TURN_SCRIPT), through functions every tree
+has:
+
+  k1_05m      kernel 1 (`fused_counts`) on the q13 check chunk, as
+              stages_05m.kernel_ms;
+  sat_05m, sat_2m, micro_05m, micro_2m
+              `r4_saturation.run` and `r4_microkernel.run` (kernels only,
+              their best-of ms a variant, kernel 1 included) on the
+              host-cull f32 chunk of the <= 32-tile corpus structures at
+              524,288 and 2,097,152 slots (chip_smoke.py phases 8-9).
 
 Prints each turn's JSON line and a summary beside the card's name and
 power limit, and writes them to --out.  Needs a CUDA device and the bench corpus (built under
@@ -234,13 +246,65 @@ LIST_FIGURES = (
 )
 
 
+# Run in a tree's root with its package: argv = work_dir, reps, slots.
+STUDY_TURN_SCRIPT = r'''
+import json, os, sys
+import torch
+from rustsasa_tpu_torch import bench
+from rustsasa_tpu_torch.ops import engine, fused_kernel as fk
+from rustsasa_tpu_torch.scripts import _study, r4_microkernel, r4_saturation
+
+work, reps, slots = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+dev = torch.device("cuda", 0)
+sphere = engine._sphere_device(100, dev)
+corpus = os.path.join(work, "corpus")
+bench.build_corpus(corpus)
+out = {"tree": os.getcwd(), **_study.where(dev)}
+
+triples = _study.load_corpus(corpus, slots=slots)
+wa, wb, pal, tp, tm, _ = fk.pack_structures_q13(triples, 1.4)
+max_nt = max(-(-t[0].shape[0] // 128) for t in triples)
+w = next(b for b in fk.W_BUCKETS if b >= max_nt)
+wire = fk.to_device((wa, wb, pal, tp, tm), dev)
+planes, qvalid = fk.dequant_q13(*wire[:4])
+jlist = fk.build_jlist_banded(planes, qvalid, wire[4], w=w)
+fk.fused_counts(planes, jlist, sphere)
+torch.cuda.synchronize()
+start = torch.cuda.Event(enable_timing=True)
+stop = torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(reps):
+    fk.fused_counts(planes, jlist, sphere)
+stop.record()
+torch.cuda.synchronize()
+out["k1_05m"] = {"ms": start.elapsed_time(stop) / reps}
+del wire, planes, qvalid, jlist
+for tag, n in (("05m", slots), ("2m", _study.M_PAD)):
+    chunk = _study.load_corpus(corpus, slots=n, max_tiles=32)
+    for name, study in (("sat", r4_saturation), ("micro", r4_microkernel)):
+        res = study.run(chunk, dev, slots=n)
+        out[name + "_" + tag] = {k: v["ms"] for k, v in res["variants"].items()}
+        print("%s_%s %s" % (name, tag, out[name + "_" + tag]), file=sys.stderr,
+              flush=True)
+print(json.dumps(out), flush=True)
+'''
+STUDY_FIGURES = (
+    ("k1_05m", "ms"),
+    *((f"sat_{tag}", v) for tag in ("05m", "2m")
+      for v in ("prod", "sat1", "sat2", "sat4")),
+    *((f"micro_{tag}", v) for tag in ("05m", "2m")
+      for v in ("k1", "prod", "split2", "g16", "g24", "nosmem")),
+)
+
+
 def turn(root: str, kind: str = "main") -> dict:
     """One turn of `kind` in `root`: its turn script's JSON record."""
     work = os.path.join(root, "build", "ab_main_path")
     os.makedirs(work, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=root)
-    argv = ([TURN_SCRIPT, work, str(REPS), str(CHECK_SLOTS)]
-            if kind == "main" else [LIST_TURN_SCRIPT, str(REPS)])
+    argv = {"main": [TURN_SCRIPT, work, str(REPS), str(CHECK_SLOTS)],
+            "studies": [STUDY_TURN_SCRIPT, work, str(REPS), str(CHECK_SLOTS)],
+            "list_1jz8": [LIST_TURN_SCRIPT, str(REPS)]}[kind]
     proc = subprocess.run(
         [sys.executable, "-c", *argv], cwd=root, env=env,
         stdout=subprocess.PIPE, text=True, timeout=1800, check=True)
@@ -280,7 +344,8 @@ def summary(turns, figures=FIGURES) -> list[str]:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("parent", help="root of the tree to compare with (A)")
-    p.add_argument("--turn", choices=("main", "list_1jz8"), default="main")
+    p.add_argument("--turn", choices=("main", "studies", "list_1jz8"),
+                   default="main")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     roots = {"A": os.path.abspath(args.parent), "B": ROOT}
@@ -289,7 +354,8 @@ def main(argv=None) -> int:
         rec = turn(roots[tag], args.turn)
         print(f"{tag} {json.dumps(rec)}", flush=True)
         turns.append((tag, rec))
-    lines = summary(turns, FIGURES if args.turn == "main" else LIST_FIGURES)
+    lines = summary(turns, {"main": FIGURES, "studies": STUDY_FIGURES,
+                            "list_1jz8": LIST_FIGURES}[args.turn])
     for line in lines:
         print(line, flush=True)
     if args.out:

@@ -33,32 +33,38 @@ from . import _study
 CHECKS = (1, 2, 4)
 
 
-def saturation_counts_reference(planes, jlist, sphere, *, check_every: int):
+def saturation_counts_reference(planes, jlist, sphere, *, check_every: int,
+                                reach_skip: bool = False):
     """Plain-torch version of saturation_counts -> (counts [M] i32,
     streamed [T] i32).
 
     Entry by entry, every tile's running max margins over its admitted
     j-atoms (kernel 1's arithmetic; valid points start at -1e30, pad
     points at +1); after entry e with e % check_every == check_every - 1,
-    each point pass of the kernel's split (_kernels.point_passes) whose
-    margins are all > 0 over the tile's 128 atoms stops there.  The
-    margins keep being taken after a pass stops: they can only grow, so
-    the counts are those of the kernel, which skips them, and of
-    fused_counts_reference.  Work is done in blocks of at most
-    REFERENCE_BLOCK_ELEMS[device] (j, i, point) margins.
+    each point pass of the kernel's split (_kernels.lane_passes: pass q
+    holds points [q*16*K, (q+1)*16*K)) whose margins are all > 0 over the
+    tile's 128 atoms stops there.  The margins keep being taken after a
+    pass stops: they can only grow, so the counts are those of the
+    kernel, which skips them, and of fused_counts_reference.  With
+    reach_skip, the plain model of the kernel's skip: each warp of
+    fused_kernel.WARP_ATOMS atoms takes only the rows one of them keeps
+    (fused_kernel.reach_keep_row), lim -1e30 for an atom that does not;
+    the counts and `streamed` must not move.  Work is done in blocks of
+    at most REFERENCE_BLOCK_ELEMS[device] (j, i, point) margins.
     """
     if check_every < 1:
         raise ValueError(f"check_every {check_every} < 1")
     m = planes.shape[1]
     t = m // ATOM_TILE
     dev = planes.device
-    passes, k = _kernels.point_passes(sphere.shape[0])
-    n_cover = passes * _kernels.SLICES * k
+    passes, k = _kernels.lane_passes(sphere.shape[0])
+    n_cover = passes * _kernels.COUNT_LANES * k
     pts = torch.zeros((n_cover, 4), dtype=torch.float32, device=dev)
     pts[:sphere.shape[0]] = sphere
     sx, sy, sz = pts[:, 0], pts[:, 1], pts[:, 2]
     point_valid = pts[:, 3] > 0.0
     init = torch.where(point_valid, _NEG_BIG, 1.0)
+    far_ok = reach_skip and fk.sphere_far_ok(sphere)
 
     n_ent = jlist[:, 0].to(torch.int64).clamp(0, JLIST_CAP)
     ent = jlist[:, 1:].to(torch.int64) & 0xFFFFFFFF
@@ -100,12 +106,20 @@ def saturation_counts_reference(planes, jlist, sphere, *, check_every: int):
                 vz = zi - zk
                 v2 = (vx * vx + vy * vy) + vz * vz
                 lim = ((rk * rk - v2) - r2i) * inv2ri
-                lim = torch.where(
-                    (gk == gi) | (gk == 0.0) | ~ok[:, :, None], _NEG_BIG, lim
-                )
+                if reach_skip:
+                    keep = (fk.reach_keep_row(v2, ri, rk, gi, gk, far_ok)
+                            & ok[:, :, None])
+                    rows = fk._warp_any(keep)
+                    lim = torch.where(keep, lim, _NEG_BIG)
+                else:
+                    lim = torch.where((gk == gi) | (gk == 0.0)
+                                      | ~ok[:, :, None], _NEG_BIG, lim)
                 vx, vy, vz, lim = (a[..., None] for a in (vx, vy, vz, lim))
-                dots = sx * vx + (sy * vy + sz * vz)  # [B, J, A, P]
-                occ = torch.maximum(occ, (lim - dots).amax(dim=1))
+                margins = lim - (sx * vx + (sy * vy + sz * vz))  # [B, J, A, P]
+                if reach_skip:
+                    margins = torch.where(rows[..., None], margins,
+                                          float("-inf"))
+                occ = torch.maximum(occ, margins.amax(dim=1))
             if e % check_every == check_every - 1:
                 sat = (occ.reshape(b, ATOM_TILE, passes, -1) > 0.0).all(
                     dim=3).all(dim=1)  # [B, passes]
@@ -167,9 +181,9 @@ def run(triples, device, *, slots: int = _study.M_PAD, reps: int = 4,
         triples, device, slots
     )
     sphere = engine._sphere_device(_study.N_POINTS, device)
-    passes, k = _kernels.point_passes(sphere.shape[0])
+    passes, k = _kernels.lane_passes(sphere.shape[0])
     entries = passes * int(jl[:, 0].clamp(0, JLIST_CAP).sum())
-    points = passes * _kernels.SLICES * k
+    points = passes * _kernels.COUNT_LANES * k
     margins = (int(_study.streamed_groups(jl).sum()) * J_GROUP * ATOM_TILE // 2
                * points)
 

@@ -4,6 +4,9 @@
 compiled and its summary checked on made-up turns.
 """
 
+import pytest
+
+pytest.importorskip("torch")
 from rustsasa_tpu_torch.scripts import ab_main_path
 
 
@@ -49,3 +52,20 @@ def test_list_summary_gives_each_list_figure():
     assert lines[0] == ("phase.graph_ms: A [3.0, 3.0] B [1.0, 1.0]; "
                         "medians 3 -> 1")
     assert lines[-1] == "on card, 700.00 W, 8 host cores"
+
+
+def test_study_turn_script_compiles_and_summarizes():
+    compile(ab_main_path.STUDY_TURN_SCRIPT, "study_turn_script", "exec")
+
+    def rec(scale):
+        out = {group: {} for group, _key in ab_main_path.STUDY_FIGURES}
+        for i, (group, key) in enumerate(ab_main_path.STUDY_FIGURES):
+            out[group][key] = scale * (i + 1)
+        out.update(gpu_name="card", power_limit="700.00 W", cpu_count=8)
+        return out
+
+    turns = [("A", rec(2.0)), ("B", rec(1.0))]
+    lines = ab_main_path.summary(turns, ab_main_path.STUDY_FIGURES)
+    assert len(lines) == len(ab_main_path.STUDY_FIGURES) + 1
+    assert lines[0] == "k1_05m.ms: A [2.0] B [1.0]; medians 2 -> 1"
+    assert lines[2] == "sat_05m.sat1: A [6.0] B [3.0]; medians 6 -> 3"

@@ -16,6 +16,7 @@ import os
 import jax.numpy as jnp  # noqa: F401  (JAX on the CPU before torch runs)
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from rustsasa_tpu import SASAOptions as RefOptions

@@ -14,6 +14,7 @@ to these plain versions on the card (tests/test_torch_cuda.py).
 import jax
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from rustsasa_tpu.ops import fused_kernel as ref

@@ -13,6 +13,7 @@ import shutil
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 import rustsasa_tpu.batch as ref_batch

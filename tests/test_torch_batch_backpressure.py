@@ -9,6 +9,7 @@ files that fail must release their permits.
 """
 
 import pytest
+pytest.importorskip("torch")
 import torch
 
 import rustsasa_tpu_torch.batch as batch

@@ -9,6 +9,7 @@ import os
 import shutil
 
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from conftest import REPO_ROOT

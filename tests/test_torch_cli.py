@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from rustsasa_tpu_torch.api import SASAOptions

@@ -18,6 +18,7 @@ import os
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from rustsasa_tpu.ops import fused_kernel as ref

@@ -10,6 +10,7 @@ import pathlib
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
@@ -354,7 +355,7 @@ def test_saturation_byte_equal_plain(cuda, n_points):
     planes5, jlist, _offsets, failed = fk.pack_structures(structures, 1.4, 100)
     assert failed == []
     sphere = engine._sphere_device(n_points, cuda)
-    passes, _k = _kernels.point_passes(sphere.shape[0])
+    passes, _k = _kernels.lane_passes(sphere.shape[0])
     for wire in ((planes5, jlist), r4_saturation.buried_block_wire()):
         planes, jl = fk.to_device(wire, cuda)
         prod = fk.fused_counts(planes, jl, sphere)
@@ -378,6 +379,47 @@ def test_saturation_byte_equal_plain(cuda, n_points):
     assert torch.equal(streamed[1:], passes * jl[1:, 0])
 
 
+def _saturation_equal_plain(planes, jl, sphere, checks=(1, 2, 4)):
+    """The saturation kernel's counts and entries streamed byte-equal to
+    the plain version's at every check interval -> the last streamed."""
+    for check_every in checks:
+        got, streamed = _launched(
+            "saturation_count",
+            lambda: r4_saturation.saturation_counts(
+                planes, jl, sphere, check_every=check_every))
+        want, want_streamed = r4_saturation.saturation_counts_reference(
+            planes, jl, sphere, check_every=check_every)
+        assert torch.equal(got, want), check_every
+        assert torch.equal(streamed, want_streamed), check_every
+    return streamed
+
+
+def test_saturation_edge_chunks(cuda):
+    """A one-tile chunk (one cluster of four CTAs), tiles with no entry and
+    with dead entries only, and a pass with no valid point (saturated
+    before its first entry, so it stops at its first check)."""
+    sphere = engine._sphere_device(100, cuda)
+    planes5, jlist, _offsets, failed = fk.pack_structures(
+        _structures([90], seed=31, spread=12.0), 1.4, 100)
+    assert failed == [] and jlist.shape[0] == 1
+    planes, jl = fk.to_device((planes5, jlist), cuda)
+    _saturation_equal_plain(planes, jl, sphere)
+    planes, jl = fk.to_device(r4_saturation.buried_block_wire(), cuda)
+    jl[1, 0] = 0  # no entry
+    jl[2, 1:] &= 0xFFFF  # every entry dead (no group bit)
+    streamed = _saturation_equal_plain(planes, jl, sphere)
+    assert streamed[1:].tolist() == [0, 7]
+    planes, jl = fk.to_device(r4_saturation.buried_block_wire(), cuda)
+    sphere = engine._sphere_device(960, cuda).clone()
+    passes, k = _kernels.lane_passes(sphere.shape[0])
+    sphere[16 * k:2 * 16 * k, 3] = 0.0  # pass 1: pad points only
+    for check_every, streamed in zip((1, 2, 4), (
+            [3 * 3 + 1, 3 * 7 + 1, 3 * 7 + 1], [3 * 4 + 2, 3 * 7 + 2, 3 * 7 + 2],
+            [3 * 4 + 4, 3 * 7 + 4, 3 * 7 + 4])):
+        got = _saturation_equal_plain(planes, jl, sphere, (check_every,))
+        assert got.tolist() == streamed, check_every
+
+
 def test_count_study_wrappers_check_inputs(cuda):
     planes = torch.zeros((8, 256), device=cuda)
     sphere = torch.zeros((104, 4), device=cuda)
@@ -397,6 +439,12 @@ def test_count_study_wrappers_check_inputs(cuda):
         _kernels.pair64_count(planes[:, :200].contiguous(), jl, jl, sphere)
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.saturation_count(planes.cpu(), jl.cpu(), sphere.cpu(), 1)
+    # Kernel 1's layout copies plane rows in bulk: 16-byte aligned.
+    shifted = torch.zeros(8 * 256 + 1, device=cuda)[1:].view(8, 256)
+    with pytest.raises(ValueError, match="16-byte"):
+        _kernels.saturation_count(shifted, jl, sphere, 1)
+    with pytest.raises(ValueError, match="16-byte"):
+        _kernels.micro_count(shifted, jl, sphere, "prod")
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ import shutil
 import pytest
 
 import rustsasa_tpu.native as ref_native
+pytest.importorskip("torch")
 import rustsasa_tpu_torch.native as port_native
 from conftest import REFERENCE_DATA, REPO_ROOT
 from rustsasa_tpu_torch._host_build import build_shared_library

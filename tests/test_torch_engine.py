@@ -9,6 +9,7 @@ results must be identical arrays.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 import rustsasa_tpu.ops.engine as ref_engine

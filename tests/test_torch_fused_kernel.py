@@ -14,6 +14,7 @@ import inspect
 import jax
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from rustsasa_tpu.ops import fused_kernel as ref

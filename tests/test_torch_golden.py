@@ -12,6 +12,7 @@ tests/units.rs), with the same tolerances:
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from rustsasa_tpu_torch import (

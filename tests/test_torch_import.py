@@ -8,6 +8,8 @@ import sys
 
 import pytest
 
+pytest.importorskip("torch")
+
 from conftest import REPO_ROOT
 
 PORT_DIR = REPO_ROOT / "rustsasa_tpu_torch"

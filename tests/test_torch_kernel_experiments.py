@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu

@@ -22,6 +22,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 import rustsasa_tpu.ops.engine as ref_engine

@@ -13,8 +13,11 @@ import threading
 import time
 
 import numpy as np
+import pytest
 
 from conftest import REPO_ROOT
+
+pytest.importorskip("torch")
 from rustsasa_tpu_torch._host_build import build_shared_library
 
 HELPER = REPO_ROOT / "rustsasa_tpu_torch" / "_host_build.py"

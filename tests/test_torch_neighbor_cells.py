@@ -30,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from rustsasa_tpu_torch.ops import _kernels, neighbors

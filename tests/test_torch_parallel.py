@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 import __graft_entry__ as ref_graft

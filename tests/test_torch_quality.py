@@ -19,6 +19,7 @@ import sys
 
 import jax.numpy as jnp  # noqa: F401  (JAX on the CPU before torch runs)
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from conftest import REPO_ROOT

@@ -18,6 +18,7 @@ import importlib.util
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 from jax.experimental.pallas import tpu as pltpu
 

@@ -15,6 +15,7 @@ import importlib.util
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
@@ -97,7 +98,8 @@ def test_streamed_groups_per_variant():
     jlist[1, 0] = 1
     jlist[1, 1] = (0x3 << 16) | 9
     groups = r4_microkernel.streamed_groups(port.to_device((jlist,), "cpu")[0])
-    assert groups == {"prod": 6, "split2": 6, "g16": 8, "g24": 9,
+    # The reach-skip variants test the admitted groups' rows, kernel 1's.
+    assert groups == {"prod": 6, "split2": 6, "g16": 6, "g24": 6,
                       "nosmem": 48}
 
 
@@ -130,3 +132,32 @@ def test_run_on_cpu_equals_k1():
     assert variants["prod"]["groups"] == variants["split2"]["groups"] == k1
     assert k1 <= variants["g16"]["groups"] <= variants["nosmem"]["groups"]
     assert variants["g24"]["groups"] >= k1
+
+
+def test_kept_order_of_each_loop_shape():
+    rows = [3, 5, 9]
+    assert r4_microkernel._kept_order(rows, "prod") == [(3, 0), (5, 0),
+                                                         (9, 0)]
+    assert r4_microkernel._kept_order(rows, "split2") == [(3, 0), (5, 1),
+                                                           (9, 0)]
+    assert r4_microkernel._kept_order(rows, "g16") == [(3, 0), (5, 0),
+                                                        (9, 0), (9, 0)]
+    assert r4_microkernel._kept_order(rows, "g24") == [(3, 0), (5, 0),
+                                                        (9, 0)]
+    assert r4_microkernel._kept_order(rows[:2], "g24") == [(3, 0), (5, 0),
+                                                            (5, 0)]
+    assert r4_microkernel._kept_order([], "g16") == []
+
+
+# The kernel's loop over each chunk's kept rows (split2's alternation,
+# g16's and g24's repeated tail) and nosmem's gated rows, modelled in
+# plain torch, give the plain version's counts at every slot.
+@pytest.mark.parametrize("variant", r4_microkernel.VARIANTS)
+def test_loop_order_model_equals_plain(variant):
+    sphere = torch.from_numpy(_sphere_packed(100))
+    for planes, jlist in (_host_cull_wire(), r4_saturation.buried_block_wire()):
+        p, j = port.to_device((planes, jlist), "cpu")
+        got = r4_microkernel.micro_counts_kept_reference(p, j, sphere,
+                                                         variant=variant)
+        assert torch.equal(got, r4_microkernel.micro_counts_reference(
+            p, j, sphere, variant=variant))

@@ -15,6 +15,7 @@ import importlib.util
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
@@ -23,7 +24,7 @@ from rustsasa_tpu.ops import fused_kernel as ref
 from rustsasa_tpu.ops.engine import _sphere_packed
 from rustsasa_tpu_torch.ops import _kernels
 from rustsasa_tpu_torch.ops import fused_kernel as port
-from rustsasa_tpu_torch.scripts import r4_saturation
+from rustsasa_tpu_torch.scripts import _study, r4_saturation
 
 PROBE = 1.4
 RADII = np.array([1.4, 1.55, 1.6, 1.7, 1.8, 1.9, 2.0], np.float32)
@@ -93,16 +94,16 @@ def test_counts_byte_equal_script(script, check_every):
         np.testing.assert_array_equal(
             got.numpy(), port.fused_counts_reference(p, j, packed).numpy()
         )
-        assert bool((streamed <= 2 * j[:, 0]).all())  # 2 point passes
+        assert bool((streamed <= j[:, 0]).all())  # 1 point pass
 
 
-# P = 104 (2 passes of K = 13) and 960 (15 passes of K = 16).
+# P = 104 (one pass of K = 7 a lane) and 960 (4 passes of K = 15).
 @pytest.mark.parametrize("n_points", [100, 960])
 def test_skip_fires_on_buried_block(n_points):
     p, j = port.to_device(r4_saturation.buried_block_wire(), "cpu")
     packed = torch.from_numpy(_sphere_packed(n_points))
-    passes, _k = _kernels.point_passes(packed.shape[0])
-    assert passes == (2 if n_points == 100 else 15)
+    passes, _k = _kernels.lane_passes(packed.shape[0])
+    assert passes == (1 if n_points == 100 else 4)
     prod = port.fused_counts_reference(p, j, packed)
     assert int(prod[:128].max()) == 0  # the block is buried
     # Tile 0 saturates after its third entry: checked every entry it stops
@@ -138,3 +139,54 @@ def test_run_on_cpu_equals_prod():
     assert result["entries"] > 0 and result["margins"] > 0
     for v in result["variants"].values():
         assert v["max_dcount"] == 0 and 0.0 <= v["skipped"] < 1.0
+
+
+def _tangent_wire(n_points):
+    planes, jlist, _real = _study.tangent_chunk(n_points, 300, n_points)
+    return torch.from_numpy(planes), torch.from_numpy(jlist)
+
+
+# The kernel's skip (fused_kernel.reach_keep_row, rows ORed over a warp)
+# drops only rows whose rounded margins are all <= 0, so neither the
+# counts nor the entries streamed may move: on the buried block (whose
+# padding atoms sit at its centre, inside the lattice), a host-cull chunk
+# and near-tangent pairs.
+@pytest.mark.parametrize("wire,n_points,checks", [
+    ("buried", 100, (1, 2, 4)), ("buried", 300, (1,)),
+    ("host_cull", 100, (1, 2, 4)), ("tangent", 100, (1, 4)),
+])
+def test_reach_skip_moves_no_count_nor_stop(wire, n_points, checks):
+    packed = torch.from_numpy(_sphere_packed(n_points))
+    if wire == "tangent":
+        p, j = _tangent_wire(n_points)
+    else:
+        p, j = port.to_device(r4_saturation.buried_block_wire()
+                              if wire == "buried" else _host_cull_wire(),
+                              "cpu")
+    for check_every in checks:
+        full = r4_saturation.saturation_counts_reference(
+            p, j, packed, check_every=check_every)
+        kept = r4_saturation.saturation_counts_reference(
+            p, j, packed, check_every=check_every, reach_skip=True)
+        assert torch.equal(kept[0], full[0])
+        assert torch.equal(kept[1], full[1])
+    if wire == "buried":
+        # Padding atoms at the block's centre are occluded: their margins
+        # count, and the skip keeps their rows.
+        assert int(full[0][p[4] == 0.0].max()) < packed.shape[0]
+
+
+def test_a_pass_without_valid_points_stops_at_its_first_check():
+    # P = 304 in 2 passes of 160 points; pass 1 has no valid point, so it
+    # is saturated before its first entry and stops at the first checked
+    # entry: 1, 2 or 4 of the 7; pass 0 streams as before.
+    p, j = port.to_device(r4_saturation.buried_block_wire(), "cpu")
+    packed = torch.from_numpy(_sphere_packed(300))
+    passes, k = _kernels.lane_passes(packed.shape[0])
+    assert (passes, k) == (2, 10)
+    packed[160:, 3] = 0.0
+    for check_every, stop in ((1, 3), (2, 4), (4, 4)):
+        _counts, streamed = r4_saturation.saturation_counts_reference(
+            p, j, packed, check_every=check_every)
+        assert streamed.tolist() == [stop + check_every, 7 + check_every,
+                                     7 + check_every]

@@ -16,6 +16,7 @@ import importlib.util
 import jax
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 from jax.experimental.pallas import tpu as pltpu
 

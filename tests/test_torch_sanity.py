@@ -11,6 +11,7 @@ import math
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from rustsasa_tpu_torch import calculate_sasa_internal

@@ -18,6 +18,7 @@ import gzip
 import jax.numpy as jnp  # noqa: F401  (JAX on the CPU before torch runs)
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 import torch
 
 from rustsasa_tpu.api import SASAOptions as RefOptions

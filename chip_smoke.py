@@ -93,9 +93,10 @@ runs fifteen phases, each of which must pass:
      launches are the three kernels' launch counts; each kernel's bound
      on the work its inputs need (kernel 1's: fused_kernel.reach_work of
      its chunk) beside the old one on every admitted margin; the
-     saturation kernel (kernel 1's layout, 4 CTAs a tile)
-     with its ratio to the count kernel, its share of that bound, ptxas
-     registers and spills;
+     saturation and nibble kernels (kernel 1's layout, 4 CTAs a tile)
+     with their ratio to the count kernel, share of that bound, ptxas
+     registers and spills; nibble's reach chunks a live entry (packed,
+     four groups a chunk) against the count kernel's;
   9. count-kernel studies II: on the host-cull f32 chunk of phase 8's
      structures the loop micro-variants (micro_count: prod, split2, g16,
      g24, nosmem) and the reach-test kernel (reach_count: base,
@@ -104,11 +105,13 @@ runs fifteen phases, each of which must pass:
      plain version for every variant (reach_count: counts and j-rows
      executed), the f32 variants equal to the count kernel at every real
      slot, bf16, bf16p and max-plus with their count difference reported;
-     then the three studies' run() at 2,097,152 slots, kernels only, whose
-     launches are the three kernels' launch counts; the bounds recounted
-     as in phase 8 (micro_count, on kernel 1's layout: each variant's
+     every reach variant also on the buried lattice block; then the three
+     studies' run() at 2,097,152 slots, kernels only, whose launches are
+     the three kernels' launch counts; the bounds recounted as in phase 8
+     (micro_count and reach_count, on kernel 1's layout: each variant's
      ratio to the count kernel and share of that bound, nosmem's of its
-     own work, and prod's ptxas registers and spills);
+     own work; prod's and base's ptxas registers and spills, and
+     reach_count's rule kernel timed alone);
  10. kernel experiments: the 22 variants of scripts/kernel_experiments.py
      on its synthetic data (64 tiles x 1,408 resident j-rows), on its ones
      and on seeded random j-data, each against its plain version:
@@ -266,6 +269,11 @@ K1_SMEM = 4 * 4 * 5 * 128 + 8 * 8 + 20 * 32 + 4 * 132
 # entries' j-list positions and checks, 8 passes' stops and the
 # valid-pass bits (16 bytes).
 SAT_SMEM = K1_SMEM + 2 * 128 + 4 * 8 + 16
+# csrc/reach_count.cu's and nibble_count.cu's before the sphere: K1_SMEM,
+# the live entries' j-list positions, then their rule words (uint4) or
+# nibble words (uint2).
+REACH_SMEM = K1_SMEM + 128 + 16 * 128
+NIBBLE_SMEM = K1_SMEM + 128 + 8 * 128
 PROBE = 1.4
 # H100 SXM: FP32 instruction issue peak (132 SMs x 128 lanes x 1.98 GHz;
 # none of the kernels' margin instructions is a fused multiply-add) and
@@ -1332,6 +1340,56 @@ def _kernel_vs_plain(name, kernel, plain, prod, real, equal_to_prod=True):
     return ms, plain_ms, max_err, got
 
 
+def nibble_packing(planes, jlist, lists, sphere, prod, real, device):
+    """Whether packing four admitted groups into a reach chunk pays:
+    nibble_count.cu built with kernel 1's keep_pair in place of keep_row
+    (a timing-only cut build: it drops padding atoms' rows as kernel 1
+    does, so only the packing differs from fused_count), its counts equal
+    fused_count's at the real slots, then fused_count, the cut build and
+    nibble_count timed in two rounds of turns on the banded chunk; logs
+    the medians."""
+    import statistics
+
+    import torch
+
+    from rustsasa_tpu_torch.ops import _kernels, fused_kernel as fk
+    from rustsasa_tpu_torch.scripts import r5_pair64 as r5
+
+    fns = _kernels.build_sources(
+        "nibble_packing", _kernels.cut_sources("nibble_count", [(
+            "keep_pair", [("rows_keep<kKeepRow>(", "rows_keep<kKeepPair>(")],
+        )]), "nibble_count_launch", _kernels._SIGNATURES["nibble_count"])
+    m, p = planes.shape[1], sphere.shape[0]
+    out = torch.empty(m, dtype=torch.int32, device=device)
+
+    def cut():
+        rc = fns["keep_pair"](
+            planes.data_ptr(), *(t.data_ptr() for t in lists),
+            sphere.data_ptr(), out.data_ptr(), m, p,
+            torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"nibble_count_launch (keep_pair): {rc}")
+        return out
+
+    if not torch.equal(cut()[real], prod[real]):
+        raise AssertionError("nibble_count with keep_pair differs from "
+                             "fused_count at real slots")
+    calls = {"fused_count": lambda: fk.fused_counts(planes, jlist, sphere),
+             "nibble_keep_pair": cut,
+             "nibble_count": lambda: r5.nibble_counts(planes, *lists, sphere)}
+    times = {name: [] for name in calls}
+    for _ in range(2):
+        for name, fn in calls.items():
+            times[name].append(cuda_ms(fn, 10)[0])
+    med = {name: statistics.median(v) for name, v in times.items()}
+    log("[studies] packing, in turns (medians of two rounds, ms): "
+        + ", ".join(f"{k} {v:.4f} ({v / med['fused_count']:.3f}x)"
+                    for k, v in med.items())
+        + "; nibble_keep_pair is nibble_count.cu with kernel 1's keep_pair "
+        "(a timing-only cut build): only the packing differs from "
+        "fused_count")
+
+
 def phase_count_studies(corpus_dir, device, build_logs):
     """Phase 8: the count-kernel studies.  Each study kernel against its
     plain version and fused_count on a corpus chunk, then both studies'
@@ -1397,6 +1455,25 @@ def phase_count_studies(corpus_dir, device, build_logs):
                          sphere)
     recount_bound(records["nibble_count"], "[studies]", planes, jlist, sphere,
                   work)
+    lpasses, lk = _kernels.lane_passes(p)
+    chunks = {name: r5.reach_chunks(lst, nibble=name == "nibble")
+              for name, lst in (("nibble", jl), ("prod", jlist))}
+    log(f"[studies] nibble_count {ms / prod_ms:.3f}x fused_count on the same "
+        f"chunk; reach chunks a live entry: nibble "
+        f"{chunks['nibble'][0] / max(chunks['nibble'][1], 1):.4f} (packed), "
+        f"fused_count {chunks['prod'][0] / max(chunks['prod'][1], 1):.4f} "
+        f"({chunks['nibble'][0]} of {chunks['prod'][0]} chunks, "
+        f"{chunks['prod'][1]} live entries)")
+    redesigned_log(
+        "[studies]", build_logs["nibble_count"],
+        f"nibble_count (L={_kernels.COUNT_LANES}, K={lk}, {lpasses} "
+        f"pass(es), four groups a chunk)", ms,
+        (records["nibble_count"]["bound_ms"],
+         records["nibble_count"]["bound_by"]),
+        fk.needed_instructions(work, int((sphere[:, 3] > 0).sum())),
+        f"nibble_count_kernelILi{lk}E",
+        NIBBLE_SMEM + 16 * lpasses * _kernels.COUNT_LANES * lk)
+    nibble_packing(planes, jlist, (jl, w1, w2), sphere, prod, real, device)
 
     # Host-cull f32: saturation checked every 1, 2 and 4 entries, on
     # kernel 1's layout and point split.
@@ -1404,7 +1481,6 @@ def phase_count_studies(corpus_dir, device, build_logs):
         triples, device, CHECK_CHUNK_SLOTS)
     if failed:
         raise AssertionError(f"{failed} host j-lists overflowed")
-    lpasses, lk = _kernels.lane_passes(p)
     entries = lpasses * int(jlist5[:, 0].sum())
     margins5 = (int(_study.streamed_groups(jlist5).sum()) * 8 * 128 // 2
                 * lpasses * _kernels.COUNT_LANES * lk)
@@ -1463,6 +1539,11 @@ def phase_count_studies(corpus_dir, device, build_logs):
         log(f"[studies] {name} {variant['ms']:.3f} ms vs fused_count "
             f"{prod_full:.3f} ms on the banded chunk "
             f"({variant['ms'] / prod_full:.3f}x)")
+    per_entry = pair["variants"]["nibble"]["chunks_per_entry"]
+    log(f"[studies] full size: reach chunks a live entry, nibble "
+        f"{per_entry['nibble']:.4f} (packed), fused_count "
+        f"{per_entry['prod']:.4f} "
+        f"({per_entry['nibble'] / per_entry['prod']:.4f} of its chunks)")
     log(f"[studies] builders vs build_jlist_banded: " + ", ".join(
         f"{k} {v['ms']:.3f} ms" for k, v in pair["builders"].items()))
     log(f"[studies] streamed j-atoms/atom: prod "
@@ -1495,16 +1576,20 @@ def phase_count_studies(corpus_dir, device, build_logs):
 
 def phase_count_studies_ii(corpus_dir, device, build_logs):
     """Phase 9: the count-kernel studies II.  The loop micro-variants and
-    the reach-test kernel on a host-cull f32 corpus chunk, the max-plus
-    kernel on the banded q16 chunk of the same structures, each against
+    the reach-test kernel on a host-cull f32 corpus chunk (reach_count on
+    the buried lattice block too), the max-plus kernel on the banded q16
+    chunk of the same structures, each against
     its plain version for every variant and against fused_count; then the
     three studies' run() at full size, kernels only, with the launches of
     those runs.  Returns the three kernels' records."""
+    import torch
+
     from rustsasa_tpu_torch.ops import _kernels, engine, fused_kernel as fk
     from rustsasa_tpu_torch.scripts import _study
     from rustsasa_tpu_torch.scripts import r3_kernel_variants as r3v
     from rustsasa_tpu_torch.scripts import r3_maxplus as r3m
     from rustsasa_tpu_torch.scripts import r4_microkernel as r4m
+    from rustsasa_tpu_torch.scripts import r4_saturation as r4
 
     t_phase = time.perf_counter()
     sphere = engine._sphere_device(100, device)
@@ -1556,6 +1641,8 @@ def phase_count_studies_ii(corpus_dir, device, build_logs):
                  records["micro_count"]["bound_by"]), need_instr,
                 f"ILi{lk}ELi0E",
                 K1_SMEM + 16 * lpasses * _kernels.COUNT_LANES * lk)
+    lattice, lattice_jl = fk.to_device(r4.buried_block_wire(), device)
+    lattice_prod = fk.fused_counts(lattice, lattice_jl, sphere)
     for variant in r3v.VARIANTS:
         ms, plain_ms, err, (_, executed) = _kernel_vs_plain(
             f"reach_count ({variant})",
@@ -1564,9 +1651,19 @@ def phase_count_studies_ii(corpus_dir, device, build_logs):
                                                          variant=v),
             prod, real, equal_to_prod=variant in r3v.F32_VARIANTS)
         rows = int(executed.sum()) // passes
-        log(f"[studies-ii]   {rows / max(int((jl[:, 0] > 0).sum()), 1):.1f} "
+        log(f"[studies-ii]   {ms / prod_ms:.3f}x fused_count on the same "
+            f"chunk; {need_ms / ms:.3f} of the bound on the work its inputs "
+            f"need; {rows / max(int((jl[:, 0] > 0).sum()), 1):.1f} "
             f"j-atoms/atom executed, fused_count streams "
             f"{groups['prod'] * 8 / max(int((jl[:, 0] > 0).sum()), 1):.1f}")
+        _kernel_vs_plain(
+            f"reach_count ({variant}) on the buried lattice block",
+            lambda v=variant: r3v.reach_counts(lattice, lattice_jl, sphere,
+                                               variant=v),
+            lambda v=variant: r3v.reach_counts_reference(
+                lattice, lattice_jl, sphere, variant=v),
+            lattice_prod, lattice[4] > 0.0,
+            equal_to_prod=variant in r3v.F32_VARIANTS)
         if variant == r3v.VARIANTS[0]:
             records["reach_count"] = dict(record(
                 "reach_count", None, err, ms, plain_ms, prod_ms,
@@ -1575,6 +1672,21 @@ def phase_count_studies_ii(corpus_dir, device, build_logs):
                 variant=variant)
             recount_bound(records["reach_count"], "[studies-ii]", planes, jl,
                           sphere, work)
+            # The rule kernel alone (the launch's first kernel).
+            rule_ms, (_, rule_executed) = cuda_ms(
+                lambda: _kernels.reach_rule(planes, jl, sphere, variant), 10)
+            if not torch.equal(rule_executed, executed):
+                raise AssertionError("reach_rule's executed differs")
+            log(f"[studies-ii]   reach_count's rule kernel alone "
+                f"{rule_ms:.4f} ms of its {ms:.3f} ms")
+            redesigned_log(
+                "[studies-ii]", build_logs["reach_count"],
+                f"reach_count (base, L={_kernels.COUNT_LANES}, K={lk}, "
+                f"{lpasses} pass(es), rule kernel + count kernel)", ms,
+                (records["reach_count"]["bound_ms"],
+                 records["reach_count"]["bound_by"]), need_instr,
+                f"reach_count_kernelILi{lk}ELi0E",
+                REACH_SMEM + 16 * lpasses * _kernels.COUNT_LANES * lk)
 
     planes_q, qvalid, tmeta, real_q, _atoms, _tiles = _study.banded_chunk(
         triples, device, CHECK_CHUNK_SLOTS)
@@ -1636,6 +1748,14 @@ def phase_count_studies_ii(corpus_dir, device, build_logs):
             + ("its own work" if name == "nosmem"
                else "the work its inputs need"))
     r3v.report(reach, device, "[studies-ii] r3_kernel_variants")
+    k1_reach = reach["variants"]["k1"]["ms"]
+    for name in r3v.VARIANTS:
+        v = reach["variants"][name]
+        log(f"[studies-ii] reach_count ({name}) at 2M {v['ms']:.3f} ms, "
+            f"{v['ms'] / k1_reach:.3f}x fused_count, "
+            f"{bound(v['instr'], 0)[0] / v['ms']:.3f} of the "
+            f"{bound(v['instr'], 0)[0]:.4f} ms bound on the work its inputs "
+            f"need")
     r3m.report(maxplus, device, "[studies-ii] r3_maxplus")
     log(f"[studies-ii] launches in the three runs: {launches}")
     for result, exact in ((micro, r4m.VARIANTS), (reach, r3v.F32_VARIANTS)):

@@ -44,8 +44,8 @@ MAX_P_PAD = 2048
 MAX_K = 16
 SLICES = 4
 # Lanes an i-atom gets in csrc/reach_ring.cuh's layout (kLanes: kernel 1,
-# saturation_count.cu, micro_count.cu); a lane holds up to MAX_K sphere
-# points in a pass.
+# saturation_count.cu, micro_count.cu, reach_count.cu, nibble_count.cu); a
+# lane holds up to MAX_K sphere points in a pass.
 COUNT_LANES = 16
 # Words a tile of csrc/saturation_count.cu shares its check through
 # (kSyncWords: each of up to 8 passes' saturated warps and largest first
@@ -83,9 +83,9 @@ launch_counts = {
     "fused_count": 0, "fused_count_rows": 0, "list_occlusion": 0,
     "pair64_count": 0,
     "nibble_count": 0, "saturation_count": 0, "micro_count": 0,
-    "reach_count": 0, "maxplus_count": 0, "ke_stream": 0, "ke_maxplus": 0,
-    "ke_bf16": 0, "ke_mxu": 0, "dequant_boxes": 0, "band_jlist": 0,
-    "cell_keys": 0, "neighbor_cells": 0,
+    "reach_count": 0, "reach_rule": 0, "maxplus_count": 0, "ke_stream": 0,
+    "ke_maxplus": 0, "ke_bf16": 0, "ke_mxu": 0, "dequant_boxes": 0,
+    "band_jlist": 0, "cell_keys": 0, "neighbor_cells": 0,
 }
 _count_lock = threading.Lock()
 _build_lock = threading.Lock()
@@ -104,7 +104,8 @@ _SIGNATURES = {
     "nibble_count": [_VOIDP] * 6 + [_INT] * 2 + [_VOIDP],
     "saturation_count": [_VOIDP] * 6 + [_INT] * 3 + [_VOIDP],
     "micro_count": [_VOIDP] * 4 + [_INT] * 3 + [_VOIDP],
-    "reach_count": [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP],
+    "reach_count": [_VOIDP] * 6 + [_INT] * 3 + [_VOIDP],
+    "reach_rule": [_VOIDP] * 4 + [_INT] * 3 + [_VOIDP],
     "maxplus_count": [_VOIDP] * 4 + [_INT] * 2 + [_VOIDP],
     **{name: [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP] for name in KE_VARIANTS},
     "dequant_boxes": [_INT] + [_VOIDP] * 12 + [_INT, _VOIDP],
@@ -116,6 +117,7 @@ _SIGNATURES = {
 # its own; every source builds to one library.
 _SOURCE_OF = {"dequant_boxes": "band_cull", "band_jlist": "band_cull",
               "fused_count_rows": "fused_count",
+              "reach_rule": "reach_count",
               "cell_keys": "neighbor_cells"}
 SOURCES = tuple(dict.fromkeys(_SOURCE_OF.get(n, n) for n in _SIGNATURES))
 # dequant_boxes' wire codes (csrc/band_cull.cu Wire).
@@ -413,12 +415,15 @@ def pair64_count(planes, jlist_a, jmask_b, sphere):
 def nibble_count(planes, jl, w1, w2, sphere):
     """Launch the nibble-list count kernel -> [M] i32.
 
-    As fused_count, but an entry is (gcount << 16) | j and its admitted
-    group ids are the first gcount 4-bit nibbles of w1 (0-7) and w2
-    (8-15) in the same cells.
+    As fused_count (planes 16-byte aligned, kernel 1's layout), but an
+    entry is (gcount << 16) | j and its admitted group ids are the first
+    gcount 4-bit nibbles of w1 (0-7) and w2 (8-15) in the same cells,
+    four of them a reach-test chunk.  Counts equal
+    r5_pair64.nibble_counts_reference's at every slot.
     """
     device, m, p = _count_inputs("nibble_count", planes, sphere,
                                  {"jl": jl, "w1": w1, "w2": w2})
+    _aligned("nibble_count", planes)
     out = torch.empty(m, dtype=torch.int32, device=device)
     _launch("nibble_count", device, planes.data_ptr(), jl.data_ptr(),
             w1.data_ptr(), w2.data_ptr(), sphere.data_ptr(), out.data_ptr(),
@@ -481,22 +486,44 @@ def micro_count(planes, jlist, sphere, variant: str):
 
 
 def reach_count(planes, jlist, sphere, variant: str):
-    """Launch the reach-test count kernel -> (counts [M] i32, executed
+    """Launch the reach-test count kernels -> (counts [M] i32, executed
     [M/128] i32).
 
     Every live entry's j-tile (entry & 0xFFFF; mask bits ignored) is
     streamed under the reach test of `variant` (one of REACH_VARIANTS);
-    executed[tile] sums the j-rows streamed over all point passes.
+    executed[tile] sums the rule's j-rows over the entries, times
+    point_passes' passes.  One launch (counted once) runs the rule kernel,
+    which writes each entry's rows into scratch words, then the count
+    kernel on kernel 1's layout (planes 16-byte aligned).  Counts equal
+    r3_kernel_variants.reach_counts_reference's at every slot.
     """
     code = variant_code("reach_count", variant, REACH_VARIANTS)
     device, m, p = _count_inputs("reach_count", planes, sphere,
                                  {"jlist": jlist})
+    _aligned("reach_count", planes)
     out = torch.empty(m, dtype=torch.int32, device=device)
     executed = torch.empty(m // 128, dtype=torch.int32, device=device)
+    rule = torch.empty((m // 128, 128, 4), dtype=torch.int32, device=device)
     _launch("reach_count", device, planes.data_ptr(), jlist.data_ptr(),
-            sphere.data_ptr(), out.data_ptr(), executed.data_ptr(), m, p,
-            code)
+            sphere.data_ptr(), out.data_ptr(), executed.data_ptr(),
+            rule.data_ptr(), m, p, code)
     return out, executed
+
+
+def reach_rule(planes, jlist, sphere, variant: str):
+    """Launch reach_count's first kernel alone -> (rule [M/128, 128, 4]
+    i32, executed [M/128] i32): each live entry's rule rows as four
+    32-row words at its j-list position (other cells unwritten), and
+    reach_count's executed.  For timing the rule kernel apart
+    (chip_smoke.py); counted as "reach_rule"."""
+    code = variant_code("reach_rule", variant, REACH_VARIANTS)
+    device, m, p = _count_inputs("reach_rule", planes, sphere,
+                                 {"jlist": jlist})
+    executed = torch.empty(m // 128, dtype=torch.int32, device=device)
+    rule = torch.empty((m // 128, 128, 4), dtype=torch.int32, device=device)
+    _launch("reach_rule", device, planes.data_ptr(), jlist.data_ptr(),
+            executed.data_ptr(), rule.data_ptr(), m, p, code)
+    return rule, executed
 
 
 def maxplus_count(planes, jlist, sphere):

@@ -3,10 +3,10 @@
 // micro_count.cu, reach_count.cu, maxplus_count.cu), for NVIDIA Hopper
 // (sm_90a).
 //
-// pair64_count.cu, nibble_count.cu and reach_count.cu share the layout
-// below and change only which j-groups a thread streams.  fused_count.cu,
-// saturation_count.cu and micro_count.cu take kernel 1's reach-skip
-// layout (reach_ring.cuh) and share the arithmetic, IAtom, load_i_atom,
+// pair64_count.cu shares the layout below and changes only which j-groups
+// a thread streams.  fused_count.cu, saturation_count.cu, micro_count.cu,
+// reach_count.cu and nibble_count.cu take kernel 1's reach-skip layout
+// (reach_ring.cuh) and share the arithmetic, IAtom, load_i_atom,
 // load_points, count_accessible, row_v, row_lim, row_margins and the
 // reach-skip helpers at the end; maxplus_count.cu takes its own thread
 // layout and shares only the constants, IAtom, load_i_atom, stage_sphere
@@ -191,44 +191,9 @@ __device__ __forceinline__ void stream_group(const float* jrec, int g,
   }
 }
 
-// Reach test of the reference scripts: v2 - (r_i + r_j)^2 < 0, i.e. the
-// r_eff spheres of atom `at` and j-row jj overlap.
-__device__ __forceinline__ bool in_reach(const float* jrec, int jj,
-                                         const IAtom& at) {
-  float vx, vy, vz;
-  const float v2 = row_v(jrec, jj, at, vx, vy, vz);
-  const float reach = __fadd_rn(at.r, jrec[3 * kAtomTile + jj]);
-  return __fsub_rn(v2, __fmul_rn(reach, reach)) < 0.0f;
-}
-
-// The rows of the staged j-tile that some of the tile's 128 atoms reach,
-// published CTA-uniformly.  Thread (a, slice) tests its atom against rows
-// [32*slice, 32*slice + 32); each warp ORs its 32 atoms' answers per row
-// (__any_sync) and stores the 32 row bits in hit[(a / 32) * 4 + slice].
-// After a barrier, reach_rows(hit, s) ORs the four warps of slice s: bit
-// r set iff row 32*s + r is in reach of some atom of the tile.
-constexpr int kReachWords = kSlices * kAtomTile / 32;  // hit[] length
-
-__device__ __forceinline__ void publish_reach(uint32_t* hit,
-                                              const float* jrec,
-                                              const IAtom& at, int a,
-                                              int slice) {
-  uint32_t bits = 0u;
-#pragma unroll 4
-  for (int r = 0; r < 32; ++r) {
-    const bool h = in_reach(jrec, slice * 32 + r, at);
-    bits |= static_cast<uint32_t>(__any_sync(0xFFFFFFFFu, h)) << r;
-  }
-  if ((a & 31) == 0) hit[(a / 32) * kSlices + slice] = bits;
-}
-
-__device__ __forceinline__ uint32_t reach_rows(const uint32_t* hit, int s) {
-  return hit[s] | hit[kSlices + s] | hit[2 * kSlices + s] |
-         hit[3 * kSlices + s];
-}
-
 // ---- the reach skip of kernel 1's layout (fused_count.cu keep_pair;
-// saturation_count.cu and micro_count.cu keep_row) ----
+// saturation_count.cu, micro_count.cu, reach_count.cu and
+// nibble_count.cu keep_row) ----
 //
 // A j-row may be left out of an i-atom's max only where all its rounded
 // margins are <= 0, so that the count does not move.  keep_pair is that
@@ -273,7 +238,8 @@ __device__ __forceinline__ bool keep_pair(float4 a, float ag, float jx,
 constexpr float kTinyReach2 = 0x1p-30f;
 
 // keep_pair for the study kernels on kernel 1's layout
-// (saturation_count.cu, micro_count.cu), whose counts stay the
+// (saturation_count.cu, micro_count.cu, reach_count.cu,
+// nibble_count.cu), whose counts stay the
 // reference's at padding slots too, and whose tile-saturation check sees
 // padding atoms' margins: the i-atom's gid drops no row.  Rows are
 // dropped where gid_j == 0 or gid_j == gid_i (lim is -1e30 there) and,
@@ -290,9 +256,33 @@ constexpr float kTinyReach2 = 0x1p-30f;
 // rounded margin keeps the sign of lim - dot, so it is <= 0 once
 // 2.4999e5 v2 >= 1.00001 sqrt(v2), i.e. v2 >= 1.61e-11: 2^-30 = 9.3e-10
 // holds with room.
+//
+// With slack = kBf16Slack, keep_row serves margins computed in bf16
+// (reach_count.cu row_margins_bf16, both variants), whose dot rounds v,
+// each product and each sum to bf16 (eps = 2^-8), and in bf16p the limit
+// and the margin too.  A rounded margin keeps the sign of its last
+// subtraction, so it is <= 0 where bf(lim') <= dot' (bf16p; bf16 needs
+// only lim' <= dot').  With s' = bf(s), b = bf(V), each product and the
+// two sums rounded once: |dot'| <= (1 + eps)^5 sum_k |s_k| |V_k| <=
+// 1.0197 sigma D, and for lim' < 0, bf(lim') <= (1 - eps) lim'.  So the
+// margins are <= 0 once (1 - eps)(-lim') >= 1.0197 sigma D, and with
+// -lim' >= (D^2 + r_i^2 - r_j^2) / (2 r_i) (less the u terms of
+// fused_count.cu's header, 1e-7 relative) that holds, for r_i = 1, where
+//     (1 - eps) D^2 - 2.0394 D + (1 - eps)(1 - rho^2) >= 0,  rho = r_j/r_i,
+// i.e. past the larger root D*: at the guard's worst ratio rho = 1/8,
+// D* = 1.2759 = 1.134 R (R = r_i + r_j); 1.085 R at rho = 1/4, 1.024 R
+// at rho = 1, less above.  kBf16Slack = 1.25^2 asks v2 > 1.5625 R^2
+// (rounded as kReachSlack's test, u terms far inside the 10 % of room):
+// at rho = 1/8 and D = 1.25 R the left side is 0.082 > 0, and it grows
+// with D past D*.  For r_i < 1e-6 the bound above scales the same way:
+// lim' <= -2.4999e5 v2, (1 - eps) of it against |dot'| <= 1.0198
+// sqrt(v2) holds once v2 >= 1.7e-11, inside the 2^-30 floor.
+constexpr float kBf16Slack = 1.5625f;
+
 __device__ __forceinline__ bool keep_row(float4 a, float ag, float jx,
                                          float jy, float jz, float jr,
-                                         float jg, bool far_ok) {
+                                         float jg, bool far_ok,
+                                         float slack = kReachSlack) {
   const float vx = __fsub_rn(a.x, jx);
   const float vy = __fsub_rn(a.y, jy);
   const float vz = __fsub_rn(a.z, jz);
@@ -301,7 +291,7 @@ __device__ __forceinline__ bool keep_row(float4 a, float ag, float jx,
   bool far;
   if (a.w >= 1e-6f) {
     const float reach = __fadd_rn(a.w, jr);
-    far = v2 > __fmul_rn(__fmul_rn(reach, reach), kReachSlack) &&
+    far = v2 > __fmul_rn(__fmul_rn(reach, reach), slack) &&
           __fmul_rn(kRadiusRatio, jr) >= a.w;
   } else {
     far = v2 >= __fmul_rn(2.0f, __fmul_rn(jr, jr)) && v2 >= kTinyReach2;

@@ -160,7 +160,8 @@ fused_count_kernel(const float* __restrict__ planes,   // [8, m]
             chunk_keep<false>(jrec, c, gm, sm, warp, lane, far_ok);
         const uint32_t u = __ballot_sync(kFullWarp, keep != 0u);
         if (kRows) streamed += __popc(u);
-        stream_kept<K>(u, keep, jrec, c, a_local, at, sx, sy, sz, occ);
+        stream_rows<K>(u, keep, jrec, ChunkRows{c}, a_local, at, sx, sy, sz,
+                       occ);
       }
       __syncwarp();
       if (lane == 0) bar_arrive(&sm.empty[s]);

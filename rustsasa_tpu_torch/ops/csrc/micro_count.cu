@@ -55,14 +55,14 @@ __device__ __forceinline__ void stream_variant(
     const IAtom& at, const float (&sx)[K], const float (&sy)[K],
     const float (&sz)[K], float (&occ)[K], float (&occ2)[K]) {
   if constexpr (V == kProd) {
-    stream_kept<K>(u, keep, jrec, c, a_local, at, sx, sy, sz, occ);
+    stream_rows<K>(u, keep, jrec, ChunkRows{c}, a_local, at, sx, sy, sz, occ);
   } else {
     while (u != 0u) {  // uniform over the warp
       const int b1 = __ffs(u) - 1;
       u &= u - 1u;
       float vx1, vy1, vz1;
       const float lim1 =
-          kept_lim(jrec, c, b1, keep, a_local, at, vx1, vy1, vz1);
+          rows_lim(jrec, ChunkRows{c}, b1, keep, a_local, at, vx1, vy1, vz1);
       if constexpr (V == kSplit2) {
         row_margins<K>(vx1, vy1, vz1, lim1, sx, sy, sz, occ);
         if (u == 0u) break;
@@ -70,7 +70,7 @@ __device__ __forceinline__ void stream_variant(
         u &= u - 1u;
         float vx2, vy2, vz2;
         const float lim2 =
-            kept_lim(jrec, c, b2, keep, a_local, at, vx2, vy2, vz2);
+            rows_lim(jrec, ChunkRows{c}, b2, keep, a_local, at, vx2, vy2, vz2);
         row_margins<K>(vx2, vy2, vz2, lim2, sx, sy, sz, occ2);
       } else {
         int b2 = b1;
@@ -80,7 +80,7 @@ __device__ __forceinline__ void stream_variant(
         }
         float vx2, vy2, vz2;
         const float lim2 =
-            kept_lim(jrec, c, b2, keep, a_local, at, vx2, vy2, vz2);
+            rows_lim(jrec, ChunkRows{c}, b2, keep, a_local, at, vx2, vy2, vz2);
         row_margins<K>(vx1, vy1, vz1, lim1, sx, sy, sz, occ);
         row_margins<K>(vx2, vy2, vz2, lim2, sx, sy, sz, occ);
         if constexpr (V == kG24) {
@@ -90,8 +90,8 @@ __device__ __forceinline__ void stream_variant(
             u &= u - 1u;
           }
           float vx3, vy3, vz3;
-          const float lim3 =
-              kept_lim(jrec, c, b3, keep, a_local, at, vx3, vy3, vz3);
+          const float lim3 = rows_lim(jrec, ChunkRows{c}, b3, keep, a_local,
+                                      at, vx3, vy3, vz3);
           row_margins<K>(vx3, vy3, vz3, lim3, sx, sy, sz, occ);
         }
       }

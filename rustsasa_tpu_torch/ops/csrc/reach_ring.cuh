@@ -1,7 +1,7 @@
 // The count kernel's reach-skip layout for NVIDIA Hopper (sm_90a), shared
 // by fused_count.cu (kernel 1, whose header describes the design and
-// derives keep_pair) and the studies rebuilt on it, saturation_count.cu
-// and micro_count.cu:
+// derives keep_pair) and the studies rebuilt on it, saturation_count.cu,
+// micro_count.cu, reach_count.cu and nibble_count.cu:
 //   * a CTA is 32 i-atoms of a 128-atom i-tile (kQuarters CTAs a tile),
 //     an atom kLanes = 16 lanes, each holding K sphere points and their
 //     running maxima in registers; a warp is kWarpAtoms = 2 atoms;
@@ -14,7 +14,10 @@
 //     passes * n_live is live entry g % n_live of pass g / n_live;
 //   * for each admitted 32-row chunk of a j-tile, lane l tests row l
 //     against the warp's atoms (chunk_keep), a ballot gives the rows some
-//     atom keeps, and the warp streams only those (stream_kept).
+//     atom keeps, and the warp streams only those (stream_rows).  The
+//     chunk's rows are a map from lane to row (ChunkRows: kernel 1's 32
+//     consecutive rows; OctetRows: a row base for each 8-lane octet, so
+//     that four admitted 8-row groups fill one chunk).
 #pragma once
 
 #include "count_tile.cuh"
@@ -232,17 +235,37 @@ __device__ __forceinline__ bool stage_sphere_norms(
   return sphere_ok;
 }
 
-// Bit a of lane l's result: whether atom a of the warp keeps row c * 32 +
-// l of the staged j-tile (keep_pair, or with kExact keep_row), false
-// where the row's group bit in gm (chunk c's four bits) is clear.
-template <bool kExact>
-__device__ __forceinline__ uint32_t chunk_keep(const float* jrec, int c,
-                                               uint32_t gm,
-                                               const RingSmem& sm, int warp,
-                                               int lane, bool far_ok) {
-  const int r = c * 32 + lane;
+// Lane l of a chunk tests and streams row c * 32 + l of the staged tile.
+struct ChunkRows {
+  int c;
+  __device__ __forceinline__ int row(int lane) const { return c * 32 + lane; }
+};
+
+// Lanes 8o..8o+7 of a chunk take rows 8g..8g+7 of group g = (groups >>
+// 4o) & 0xF: four 8-row groups, named by their 4-bit ids, in one chunk.
+struct OctetRows {
+  uint32_t groups;
+  __device__ __forceinline__ int row(int lane) const {
+    return kJGroup * static_cast<int>((groups >> (4 * (lane >> 3))) & 0xFu) +
+           (lane & (kJGroup - 1));
+  }
+};
+
+// The keep test a chunk runs: keep_pair (kernel 1), keep_row, or keep_row
+// with the slack of bf16 margins (count_tile.cuh).
+enum KeepTest { kKeepPair = 0, kKeepRow, kKeepRowBf16 };
+
+// Bit a of lane l's result: whether atom a of the warp keeps row
+// rows.row(l) of the staged j-tile (by test kTest), false where the lane
+// is not `active`.
+template <int kTest, typename Rows>
+__device__ __forceinline__ uint32_t rows_keep(const float* jrec, Rows rows,
+                                              bool active, const RingSmem& sm,
+                                              int warp, int lane,
+                                              bool far_ok) {
+  const int r = rows.row(lane);
   uint32_t keep = 0u;
-  if ((gm >> (lane >> 3)) & 1u) {
+  if (active) {
     const float jx = jrec[r];
     const float jy = jrec[kAtomTile + r];
     const float jz = jrec[2 * kAtomTile + r];
@@ -252,31 +275,46 @@ __device__ __forceinline__ uint32_t chunk_keep(const float* jrec, int c,
     for (int a = 0; a < kWarpAtoms; ++a) {
       const int ca = warp * kWarpAtoms + a;
       const bool k =
-          kExact ? keep_row(sm.atoms[ca], sm.agid[ca], jx, jy, jz, jr, jg,
-                            far_ok)
-                 : keep_pair(sm.atoms[ca], sm.agid[ca], jx, jy, jz, jr, jg,
-                             far_ok);
+          kTest == kKeepPair
+              ? keep_pair(sm.atoms[ca], sm.agid[ca], jx, jy, jz, jr, jg,
+                          far_ok)
+              : keep_row(sm.atoms[ca], sm.agid[ca], jx, jy, jz, jr, jg,
+                         far_ok,
+                         kTest == kKeepRowBf16 ? kBf16Slack : kReachSlack);
       keep |= static_cast<uint32_t>(k) << a;
     }
   }
   return keep;
 }
 
-// Row b of chunk c for this lane's atom (bit a_local of lane b's keep):
+// rows_keep over chunk c, lane l active where the row's group bit in gm
+// (chunk c's four bits) is set: keep_pair, or with kExact keep_row.
+template <bool kExact>
+__device__ __forceinline__ uint32_t chunk_keep(const float* jrec, int c,
+                                               uint32_t gm,
+                                               const RingSmem& sm, int warp,
+                                               int lane, bool far_ok) {
+  return rows_keep<kExact ? kKeepRow : kKeepPair>(
+      jrec, ChunkRows{c}, ((gm >> (lane >> 3)) & 1u) != 0u, sm, warp, lane,
+      far_ok);
+}
+
+// Row rows.row(b) for this lane's atom (bit a_local of lane b's keep):
 // v, and lim, -1e30 where the atom does not keep the row.
-__device__ __forceinline__ float kept_lim(const float* jrec, int c, int b,
+template <typename Rows>
+__device__ __forceinline__ float rows_lim(const float* jrec, Rows rows, int b,
                                           uint32_t keep, int a_local,
                                           const IAtom& at, float& vx,
                                           float& vy, float& vz) {
   const bool mine = (__shfl_sync(kFullWarp, keep, b) >> a_local) & 1u;
-  return row_lim_kept(jrec, c * 32 + b, at, mine, vx, vy, vz);
+  return row_lim_kept(jrec, rows.row(b), at, mine, vx, vy, vz);
 }
 
-// Streams the rows of chunk c set in the ballot u, one an iteration
+// Streams the rows of a chunk set in the ballot u, one an iteration
 // (uniform over the warp: no divergence).
-template <int K>
-__device__ __forceinline__ void stream_kept(uint32_t u, uint32_t keep,
-                                            const float* jrec, int c,
+template <int K, typename Rows>
+__device__ __forceinline__ void stream_rows(uint32_t u, uint32_t keep,
+                                            const float* jrec, Rows rows,
                                             int a_local, const IAtom& at,
                                             const float (&sx)[K],
                                             const float (&sy)[K],
@@ -286,7 +324,7 @@ __device__ __forceinline__ void stream_kept(uint32_t u, uint32_t keep,
     const int b = __ffs(u) - 1;
     u &= u - 1u;
     float vx, vy, vz;
-    const float lim = kept_lim(jrec, c, b, keep, a_local, at, vx, vy, vz);
+    const float lim = rows_lim(jrec, rows, b, keep, a_local, at, vx, vy, vz);
     row_margins<K>(vx, vy, vz, lim, sx, sy, sz, occ);
   }
 }

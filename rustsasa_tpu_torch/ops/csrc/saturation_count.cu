@@ -228,7 +228,8 @@ saturation_count_kernel(const float* __restrict__ planes,   // [8, m]
           const uint32_t keep =
               chunk_keep<true>(jrec, c, gm, sm, warp, lane, far_ok);
           const uint32_t u = __ballot_sync(kFullWarp, keep != 0u);
-          stream_kept<K>(u, keep, jrec, c, a_local, at, sx, sy, sz, occ);
+          stream_rows<K>(u, keep, jrec, ChunkRows{c}, a_local, at, sx, sy,
+                         sz, occ);
         }
       }
       __syncwarp();

@@ -806,6 +806,9 @@ def _j_chunks(n_j, b, p, dev):
 # kUnitNorm2, kRadiusRatio), as f32 tensors so every comparison and
 # product rounds in f32 as the kernel's do.
 REACH_SLACK = torch.tensor(1.0 + 2.0 ** -14, dtype=torch.float32)
+# keep_row's slack for margins computed in bf16 (count_tile.cuh
+# kBf16Slack: v2 > 1.25^2 (r_i + r_j)^2), reach_count.cu's bf16 variants.
+BF16_SLACK = torch.tensor(1.5625, dtype=torch.float32)
 UNIT_NORM2 = torch.tensor(1.0 + 2.0 ** -20, dtype=torch.float32)
 RADIUS_RATIO = torch.tensor(8.0, dtype=torch.float32)
 _MIN_R = torch.tensor(1e-6, dtype=torch.float32)
@@ -822,13 +825,14 @@ def sphere_far_ok(sphere) -> bool:
     return bool((n2 <= UNIT_NORM2.to(sphere.device)).all())
 
 
-def reach_far(v2, ri, rj):
+def reach_far(v2, ri, rj, slack=REACH_SLACK):
     """The distance part of the kernel's keep_pair on broadcastable f32
     tensors (v2 as fused_counts_reference rounds it) -> bool: v2 > (r_i +
-    r_j)^2 * REACH_SLACK, r_i >= 1e-6 and RADIUS_RATIO * r_j >= r_i."""
+    r_j)^2 * slack (REACH_SLACK, or BF16_SLACK for keep_row's bf16 form),
+    r_i >= 1e-6 and RADIUS_RATIO * r_j >= r_i."""
     dev = v2.device
     reach = ri + rj
-    return ((v2 > (reach * reach) * REACH_SLACK.to(dev))
+    return ((v2 > (reach * reach) * slack.to(dev))
             & (ri >= _MIN_R.to(dev)) & (rj * RADIUS_RATIO.to(dev) >= ri))
 
 
@@ -844,15 +848,17 @@ def reach_keep(v2, ri, rj, gi, gj, far_ok: bool):
 TINY_REACH2 = torch.tensor(2.0 ** -30, dtype=torch.float32)
 
 
-def reach_keep_row(v2, ri, rj, gi, gj, far_ok: bool):
+def reach_keep_row(v2, ri, rj, gi, gj, far_ok: bool, slack=REACH_SLACK):
     """keep_row of the studies on kernel 1's layout (csrc/count_tile.cuh)
     -> bool: false where gid_j == 0 or gid_j == gid_i, and, where far_ok,
-    where reach_far (r_i >= 1e-6) or, for r_i < 1e-6 (padding), v2 >= 2
-    r_j^2 and v2 >= TINY_REACH2.  Unlike reach_keep, an i-atom of gid 0
-    keeps its rows, so every count stays the reference's."""
+    where reach_far(v2, ri, rj, slack) (r_i >= 1e-6) or, for r_i < 1e-6
+    (padding), v2 >= 2 r_j^2 and v2 >= TINY_REACH2.  Unlike reach_keep, an
+    i-atom of gid 0 keeps its rows, so every count stays the reference's.
+    BF16_SLACK gives the form for margins computed in bf16."""
     dev = v2.device
     tiny_far = (v2 >= 2.0 * (rj * rj)) & (v2 >= TINY_REACH2.to(dev))
-    far = torch.where(ri >= _MIN_R.to(dev), reach_far(v2, ri, rj), tiny_far)
+    far = torch.where(ri >= _MIN_R.to(dev), reach_far(v2, ri, rj, slack),
+                      tiny_far)
     return ~((gj == 0.0) | (gj == gi) | (far & far_ok))
 
 

@@ -196,7 +196,7 @@ TANGENT_RATIO = (0.11, 0.16)
 
 
 def tangent_chunk(n_points: int, n_atoms: int = 400, seed: int = 0,
-                  ulps: float = 8.0, far: bool = False):
+                  ulps: float = 8.0, far: bool = False, slack=None):
     """Near-tangent pairs for the count kernel's reach skip, as numpy
     (planes [8, M] f32, jlist [M/128, 128] i32, real [M] bool), M the
     atoms rounded up to whole tiles, every tile's j-list admitting every
@@ -208,7 +208,8 @@ def tangent_chunk(n_points: int, n_atoms: int = 400, seed: int = 0,
     [-ulps, ulps]: j's sphere touches i's at s_k, within a few roundings.
     Radii are on the q13 lattice in TANGENT_R; gids are slot + 1.  With
     far, half the partners sit at the edge of the kernel's distance skip,
-    d = (r_i + r_j) sqrt(fused_kernel.REACH_SLACK)(1 + t 2^-24), the rest
+    d = (r_i + r_j) sqrt(slack)(1 + t 2^-24) (slack: by default
+    fused_kernel.REACH_SLACK; BF16_SLACK for the bf16 skip), the rest
     at d = (r_i + r_j)(1 + t), t uniform in [0, TANGENT_FAR], across
     where the skip starts; the partners' radii as TANGENT_RATIO says, so
     the skip meets its worst radius ratio and pairs just past its guard.
@@ -216,6 +217,7 @@ def tangent_chunk(n_points: int, n_atoms: int = 400, seed: int = 0,
     from ..ops.sphere import sphere_points
 
     rng = np.random.default_rng(seed)
+    edge = fk.REACH_SLACK if slack is None else slack
     pts = sphere_points(n_points).astype(np.float64)
     q_lo, q_hi = (int(r * fk.R_QUANT) for r in TANGENT_R)
     coords, radii = [], []
@@ -238,7 +240,7 @@ def tangent_chunk(n_points: int, n_atoms: int = 400, seed: int = 0,
                           else (TANGENT_RATIO[1], 1.0))
                 rj = round(ri * rng.uniform(lo, hi) * fk.R_QUANT) / fk.R_QUANT
                 if rng.random() < 0.5:  # at the skip's edge
-                    d = (ri + rj) * np.sqrt(float(fk.REACH_SLACK)) * (
+                    d = (ri + rj) * np.sqrt(float(edge)) * (
                         1.0 + rng.uniform(-ulps, ulps) * 2.0 ** -24)
                 else:
                     d = (ri + rj) * (1.0 + rng.uniform(0.0, TANGENT_FAR))

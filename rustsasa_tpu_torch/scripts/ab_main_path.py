@@ -52,11 +52,15 @@ has:
 
   k1_05m      kernel 1 (`fused_counts`) on the q13 check chunk, as
               stages_05m.kernel_ms;
-  sat_05m, sat_2m, micro_05m, micro_2m
-              `r4_saturation.run` and `r4_microkernel.run` (kernels only,
-              their best-of ms a variant, kernel 1 included) on the
-              host-cull f32 chunk of the <= 32-tile corpus structures at
-              524,288 and 2,097,152 slots (chip_smoke.py phases 8-9).
+  sat_05m, sat_2m, micro_05m, micro_2m, reach_05m, reach_2m
+              `r4_saturation.run`, `r4_microkernel.run` and
+              `r3_kernel_variants.run` (kernels only, their best-of ms a
+              variant, kernel 1 included) on the host-cull f32 chunk of
+              the <= 32-tile corpus structures at 524,288 and 2,097,152
+              slots (chip_smoke.py phases 8-9);
+  pair_05m, pair_2m
+              `r5_pair64.run` (prod, nibble and pair64) on the banded q16
+              chunk (w = 32) of the same structures.
 
 Prints each turn's JSON line and a summary beside the card's name and
 power limit, and writes them to --out.  Needs a CUDA device and the bench corpus (built under
@@ -253,6 +257,7 @@ import torch
 from rustsasa_tpu_torch import bench
 from rustsasa_tpu_torch.ops import engine, fused_kernel as fk
 from rustsasa_tpu_torch.scripts import _study, r4_microkernel, r4_saturation
+from rustsasa_tpu_torch.scripts import r3_kernel_variants, r5_pair64
 
 work, reps, slots = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 dev = torch.device("cuda", 0)
@@ -281,7 +286,8 @@ out["k1_05m"] = {"ms": start.elapsed_time(stop) / reps}
 del wire, planes, qvalid, jlist
 for tag, n in (("05m", slots), ("2m", _study.M_PAD)):
     chunk = _study.load_corpus(corpus, slots=n, max_tiles=32)
-    for name, study in (("sat", r4_saturation), ("micro", r4_microkernel)):
+    for name, study in (("sat", r4_saturation), ("micro", r4_microkernel),
+                        ("reach", r3_kernel_variants), ("pair", r5_pair64)):
         res = study.run(chunk, dev, slots=n)
         out[name + "_" + tag] = {k: v["ms"] for k, v in res["variants"].items()}
         print("%s_%s %s" % (name, tag, out[name + "_" + tag]), file=sys.stderr,
@@ -294,6 +300,11 @@ STUDY_FIGURES = (
       for v in ("prod", "sat1", "sat2", "sat4")),
     *((f"micro_{tag}", v) for tag in ("05m", "2m")
       for v in ("k1", "prod", "split2", "g16", "g24", "nosmem")),
+    *((f"reach_{tag}", v) for tag in ("05m", "2m")
+      for v in ("k1", "base", "nogroupcond", "jskip", "group4", "nocond",
+                "bf16", "bf16p")),
+    *((f"pair_{tag}", v) for tag in ("05m", "2m")
+      for v in ("prod", "nibble", "pair64")),
 )
 
 

@@ -7,9 +7,9 @@ Port of the round-3 count-kernel study `scripts/r3_kernel_variants.py`:
 
 packs one host-cull f32 chunk (pack_structures) of up to 2,097,152 slots
 and times kernel 1 (k1, which streams the groups of the host masks)
-against csrc/reach_count.cu, which streams every live entry's whole
-j-tile and lets a reach test on the staged rows, v2 - (r_i + r_j)^2 < 0
-for some atom of the i-tile, decide what to compute:
+against csrc/reach_count.cu, which takes every live entry's whole
+j-tile and lets a reach test on its rows, v2 - (r_i + r_j)^2 < 0 for
+some atom of the i-tile, decide what to compute (the variant's rule):
 
   base         an 8-row group runs when some row of it is in reach;
   nogroupcond  everything runs (no test);
@@ -19,10 +19,14 @@ for some atom of the i-tile, decide what to compute:
   bf16         base with the point-offset dot in bf16;
   bf16p        bf16 with the limit, margin and running max in bf16.
 
-The f32 variants must give kernel 1's counts at every real slot; for
-bf16 and bf16p it reports the largest and mean count difference.  Per
-variant it also reports the j-atoms executed per atom against kernel 1's
-streamed ones (the TPU study: ~36 % fewer executed blocks with jskip).
+On the card a rule kernel writes each entry's rule rows once a tile,
+and the count kernel, on kernel 1's layout, streams the rule's rows that
+its reach skip keeps (keep_row; reach_counts_reference(reach_skip=True)
+is its plain model).  The f32 variants must give kernel 1's counts at
+every real slot; for bf16 and bf16p it reports the largest and mean
+count difference.  Per variant it also reports the j-atoms the rule
+executes per atom against kernel 1's streamed ones (the TPU study: ~36 %
+fewer executed blocks with jskip).
 Without a corpus directory the repository's FreeSASA test structures
 are cycled.
 """
@@ -44,7 +48,8 @@ VARIANTS = _kernels.REACH_VARIANTS
 F32_VARIANTS = ("base", "nogroupcond", "jskip", "group4", "nocond")
 
 
-def reach_counts_reference(planes, jlist, sphere, *, variant: str):
+def reach_counts_reference(planes, jlist, sphere, *, variant: str,
+                           reach_skip: bool = False):
     """Plain-torch version of reach_counts -> (counts [M] i32, executed
     [T] i32).
 
@@ -57,12 +62,19 @@ def reach_counts_reference(planes, jlist, sphere, *, variant: str):
     the sphere to bf16 and every operation of the dot (and in bf16p the
     limit, the margin and the max) as torch's bf16 ops do, except bf16's
     last add, which XLA does in f32 in the script.  executed sums
-    the streamed rows, times the kernel's point passes.  Work is done in
-    blocks of at most REFERENCE_BLOCK_ELEMS[device] (j, i, point) margins.
+    the streamed rows, times the kernel's point passes.  With reach_skip,
+    the plain model of the card's count kernel: each warp of
+    fused_kernel.WARP_ATOMS atoms takes only the rule's rows one of them
+    keeps (fused_kernel.reach_keep_row, with BF16_SLACK for bf16 and
+    bf16p), lim -1e30 for an atom that does not; counts and executed
+    must not move.  Work is done in blocks of at most
+    REFERENCE_BLOCK_ELEMS[device] (j, i, point) margins.
     """
     _kernels.variant_code("reach_counts", variant, VARIANTS)
     group = 4 if variant == "group4" else J_GROUP
     bf16 = variant in ("bf16", "bf16p")
+    slack = fk.BF16_SLACK if bf16 else fk.REACH_SLACK
+    far_ok = reach_skip and fk.sphere_far_ok(sphere)
     m = planes.shape[1]
     t = m // ATOM_TILE
     dev = planes.device
@@ -117,6 +129,13 @@ def reach_counts_reference(planes, jlist, sphere, *, variant: str):
                 streamed = group_hit.repeat_interleave(group, dim=1)
             streamed = streamed & admit[:, None]
             executed[t0:t1] += streamed.sum(dim=1)
+            if reach_skip:
+                keep = (fk.reach_keep_row(v2, ri, rk, gi, gk, far_ok, slack)
+                        & streamed[:, :, None])  # [B, J, A]
+                lim = torch.where(keep, lim, _NEG_BIG)
+                streamed = fk._warp_any(keep)
+            else:
+                streamed = streamed[:, :, None].expand(-1, -1, ATOM_TILE)
             if bf16:
                 vx, vy, vz = (a.to(torch.bfloat16) for a in (vx, vy, vz))
             vx, vy, vz, lim = (a[..., None] for a in (vx, vy, vz, lim))
@@ -131,8 +150,7 @@ def reach_counts_reference(planes, jlist, sphere, *, variant: str):
                 margin = (lim.to(torch.bfloat16) - dots).to(torch.float32)
             else:
                 margin = lim - dots
-            margin = torch.where(streamed[:, :, None, None], margin,
-                                 float("-inf"))
+            margin = torch.where(streamed[..., None], margin, float("-inf"))
             occ = torch.maximum(occ, margin.amax(dim=1))
         acc = (occ <= 0.0) & point_valid
         counts[sl] = acc.sum(dim=-1, dtype=torch.int32).reshape(-1)
@@ -155,11 +173,11 @@ def run(triples, device, *, slots: int = _study.M_PAD, reps: int = 4,
     "variants": {name: {"first_ms", "ms", "matoms_s", "max_dcount",
     "mean_dcount", "j_atoms_per_atom", "margins", "instr"}}} with k1
     (kernel 1) first.  "j_atoms_per_atom" counts the j-atoms streamed per
-    atom and point pass over the tiles with a non-empty j-list;
-    "margins" the (j, i, point) margins a variant evaluates; "instr" the
-    FP32 instructions of its work: 7 a margin, and for k1 (which streams
-    only rows in reach, fused_kernel.reach_work) the instructions these
-    inputs need (_study.k1_instructions).
+    atom and point pass over the tiles with a non-empty j-list (k1: the
+    rows its warps stream; the variants: their rule's rows); "margins"
+    the (j, i, point) margins of those rows; "instr" the FP32
+    instructions these inputs need (_study.k1_instructions): every
+    variant, as kernel 1, streams only rows some atom of a warp keeps.
     """
     device = torch.device(device)
     planes, jl, real, n_atoms, tiles, failed = _study.host_cull_chunk(
@@ -174,6 +192,7 @@ def run(triples, device, *, slots: int = _study.M_PAD, reps: int = 4,
     result, outs = _study.time_variants(cases, real, n_atoms, device, reps)
     busy = max(int((jl[:, 0] > 0).sum()), 1)
     work = fk.reach_work(planes, jl, sphere)
+    needed = fk.needed_instructions(work, int((sphere[:, 3] > 0).sum()))
     for name, v in result.items():
         if name == "k1":
             # A warp's rows are streamed by each of its WARP_ATOMS atoms,
@@ -185,8 +204,7 @@ def run(triples, device, *, slots: int = _study.M_PAD, reps: int = 4,
             j_atoms = int(outs[name][1].sum()) // passes
         v["j_atoms_per_atom"] = j_atoms / busy
         v["margins"] = j_atoms * ATOM_TILE * points
-        v["instr"] = _study.INSTR_PER_MARGIN * v["margins"]
-    result["k1"]["instr"] = _study.k1_instructions(planes, jl, sphere)
+        v["instr"] = needed
     return {
         "structures": len(triples), "atoms": n_atoms, "slots": slots,
         "tiles": tiles, "failed": failed, "variants": result,

@@ -11,7 +11,9 @@ count kernels on it, each of which must give kernel 1's counts exactly:
   prod    build_jlist_banded + the production count kernel (fused_count);
   nibble  build_jlist_nibble: entries (gcount << 16) | j with the admitted
           group ids pre-compacted as 4-bit nibbles in two word planes,
-          counted by csrc/nibble_count.cu (TPU: `_nibble_kernel`);
+          counted by csrc/nibble_count.cu (TPU: `_nibble_kernel`), which
+          packs an entry's groups four to a reach-test chunk on kernel
+          1's layout (nibble_counts_kept_reference is its plain model);
   pair64  build_jlist_banded_2h: a group mask per 64-atom half of the
           i-tile, counted by csrc/pair64_count.cu, where atoms 0-63 stream
           mask A's groups and atoms 64-127 mask B's (TPU: `_pair64_kernel`).
@@ -24,7 +26,8 @@ two study builders, and the production builder as the main path runs it
 Per variant it reports first-call and warm milliseconds, Matoms/s, the
 largest count difference to prod at real slots and the lane-weighted
 j-atoms streamed per atom (the TPU study sized per-half admission at
-911 -> 783).  Without a corpus directory the repository's FreeSASA test
+911 -> 783), and for nibble the 32-row reach chunks a live entry tests,
+packed, against kernel 1's chunks with an admitted group.  Without a corpus directory the repository's FreeSASA test
 structures are cycled.
 """
 
@@ -132,6 +135,91 @@ def nibble_counts_reference(planes, jl, w1, w2, sphere):
     return fk.fused_counts_reference(planes, _nibble_masks(jl, w1, w2), sphere)
 
 
+def nibble_chunk_rows(jl, w1, w2, tile: int, e: int):
+    """The j-rows csrc/nibble_count.cu's lanes test for entry e of tile's
+    nibble list -> [chunks, 32] i64, -1 where a lane is idle: lane l of
+    chunk c takes row 8 g[4c + l // 8] + l % 8 while 4c + l // 8 <
+    gcount (at most 16), g[n] the list's nibble n."""
+    gcount = min((int(jl[tile, 1 + e]) & 0xFFFFFFFF) >> 16, GROUPS_PER_TILE)
+    words = (int(w1[tile, 1 + e]) & 0xFFFFFFFF, int(w2[tile, 1 + e])
+             & 0xFFFFFFFF)
+    groups = [(words[n // 8] >> (4 * (n % 8))) & 0xF for n in range(gcount)]
+    rows = torch.full((-(-gcount // 4), 32), -1, dtype=torch.int64)
+    for lane in range(32):
+        for c in range(rows.shape[0]):
+            n = 4 * c + lane // J_GROUP
+            if n < gcount:
+                rows[c, lane] = J_GROUP * groups[n] + lane % J_GROUP
+    return rows
+
+
+def nibble_counts_kept_reference(planes, jl, w1, w2, sphere):
+    """Plain model of csrc/nibble_count.cu -> counts [M] i32: per tile and
+    live entry (gcount != 0, j-tile in the chunk), the packed chunks of
+    nibble_chunk_rows; in each, a warp of fused_kernel.WARP_ATOMS atoms
+    takes the rows one of its atoms keeps (fused_kernel.reach_keep_row;
+    lim -1e30 for an atom that does not), a row twice where the list
+    names a group twice.  Its counts must equal nibble_counts_reference's
+    at every slot.  A loop per tile and entry: for small chunks."""
+    m = planes.shape[1]
+    t = m // ATOM_TILE
+    dev = planes.device
+    sx, sy, sz = (sphere[:, c] for c in range(3))
+    far_ok = fk.sphere_far_ok(sphere)
+    out = torch.empty(m, dtype=torch.int32, device=dev)
+    for ti in range(t):
+        xi, yi, zi, ri, gi = (planes[row, ti * ATOM_TILE:(ti + 1) * ATOM_TILE]
+                              for row in range(5))
+        r2i = ri * ri
+        inv2ri = torch.full_like(ri, 0.5) / torch.clamp_min(ri, 1e-6)
+        occ = torch.full((ATOM_TILE, sphere.shape[0]), fk._NEG_BIG,
+                         dtype=torch.float32, device=dev)
+        for e in range(min(max(int(jl[ti, 0]), 0), fk.JLIST_CAP)):
+            jt = int(jl[ti, 1 + e]) & 0xFFFF
+            rows = nibble_chunk_rows(jl, w1, w2, ti, e).to(dev)
+            if jt >= t or rows.numel() == 0:
+                continue
+            for chunk in rows:
+                lanes = chunk[chunk >= 0] + jt * ATOM_TILE
+                xk, yk, zk, rk, gk = (planes[row, lanes][:, None]
+                                      for row in range(5))  # [R, 1]
+                vx, vy, vz = xi - xk, yi - yk, zi - zk  # [R, A]
+                v2 = (vx * vx + vy * vy) + vz * vz
+                lim = ((rk * rk - v2) - r2i) * inv2ri
+                keep = fk.reach_keep_row(v2, ri, rk, gi, gk, far_ok)
+                lim = torch.where(keep, lim, fk._NEG_BIG)
+                margins = lim[..., None] - (
+                    sx * vx[..., None]
+                    + (sy * vy[..., None] + sz * vz[..., None]))  # [R, A, P]
+                margins = torch.where(fk._warp_any(keep)[..., None], margins,
+                                      float("-inf"))
+                occ = torch.maximum(occ, margins.amax(dim=0))
+        acc = (occ <= 0.0) & (sphere[:, 3] > 0.0)
+        out[ti * ATOM_TILE:(ti + 1) * ATOM_TILE] = acc.sum(
+            dim=-1, dtype=torch.int32)
+    return out
+
+
+def reach_chunks(jlist, nibble: bool = False) -> tuple[int, int]:
+    """(32-row reach-test chunks, live entries) of a j-list: kernel 1
+    tests each of an entry's four chunks that holds an admitted group
+    (entries (mask << 16) | j); with nibble, csrc/nibble_count.cu packs
+    an entry's gcount groups four to a chunk (entries (gcount << 16) |
+    j).  An entry is live when its groups are not 0 and its j-tile is in
+    the chunk."""
+    t = jlist.shape[0]
+    ent = jlist[:, 1:].to(torch.int64) & 0xFFFFFFFF
+    high = ent >> 16
+    live = ((torch.arange(ent.shape[1], device=ent.device)
+             < jlist[:, 0:1].clamp(0, fk.JLIST_CAP))
+            & ((ent & 0xFFFF) < t) & (high != 0))
+    if nibble:
+        chunks = (high.clamp_max(GROUPS_PER_TILE) + 3) // 4
+    else:
+        chunks = sum(((high >> (4 * c)) & 0xF) != 0 for c in range(4))
+    return int((chunks * live).sum()), int(live.sum())
+
+
 def nibble_counts(planes, jl, w1, w2, sphere):
     """Occlusion counts [M] i32 from build_jlist_nibble's lists; the plain
     version on the CPU, csrc/nibble_count.cu on CUDA."""
@@ -145,13 +233,15 @@ def run(triples, device, *, w: int = W, slots: int = _study.M_PAD,
 
     Returns {"structures", "atoms", "slots", "tiles", "kernel_equal",
     "builders": {name: {"first_ms", "ms"}}, "variants": {name: {"first_ms",
-    "ms",
-    "matoms_s", "max_dcount", "j_atoms_per_atom", "margins", "instr"}}}
-    with variants prod, nibble and pair64.  "j_atoms_per_atom" is the
+    "ms", "matoms_s", "max_dcount", "j_atoms_per_atom", "margins",
+    "instr"}}} with variants prod, nibble and pair64; nibble's also has
+    "chunks_per_entry": {"nibble", "prod"}, the reach-test chunks a live
+    entry runs in each kernel (reach_chunks).  "j_atoms_per_atom" is the
     lane-weighted count of admitted j-atoms per atom over the tiles with
     a non-empty j-list, "margins" their (j, i, point) margins, "instr"
-    the FP32 instructions of the kernel's work: 7 a margin, and for prod
-    (kernel 1, which streams only rows in reach) what these inputs need
+    the FP32 instructions of the kernel's work: 7 a margin for pair64,
+    and for prod and nibble (on kernel 1's layout, which stream only rows
+    some atom of a warp keeps) what these inputs need
     (_study.k1_instructions).
     """
     device = torch.device(device)
@@ -196,7 +286,13 @@ def run(triples, device, *, w: int = W, slots: int = _study.M_PAD,
         variants[name]["margins"] = lane_groups * J_GROUP * ATOM_TILE // 2 * points
         variants[name]["instr"] = _study.INSTR_PER_MARGIN * variants[name][
             "margins"]
-    variants["prod"]["instr"] = _study.k1_instructions(planes, jlist, sphere)
+    variants["prod"]["instr"] = variants["nibble"]["instr"] = (
+        _study.k1_instructions(planes, jlist, sphere))
+    per_entry = {}
+    for name, lst, packed in (("nibble", jl, True), ("prod", jlist, False)):
+        chunks, live = reach_chunks(lst, nibble=packed)
+        per_entry[name] = chunks / max(live, 1)
+    variants["nibble"]["chunks_per_entry"] = per_entry
     return {
         "structures": len(triples), "atoms": n_atoms, "slots": slots,
         "tiles": tiles, "builders": builders, "variants": variants,
@@ -220,6 +316,11 @@ def report(result, device, head: str) -> None:
               f"instr/s  max|dc|={v['max_dcount']}  "
               f"{v['j_atoms_per_atom']:7.1f} j-atoms/atom streamed",
               flush=True)
+    per_entry = result["variants"]["nibble"]["chunks_per_entry"]
+    print(f"reach chunks a live entry: nibble {per_entry['nibble']:.4f} "
+          f"(packed), prod {per_entry['prod']:.4f} ("
+          f"{per_entry['nibble'] / max(per_entry['prod'], 1e-12):.4f} of "
+          f"prod's)", flush=True)
 
 
 def main(argv=None) -> int:

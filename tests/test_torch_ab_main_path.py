@@ -69,3 +69,6 @@ def test_study_turn_script_compiles_and_summarizes():
     assert len(lines) == len(ab_main_path.STUDY_FIGURES) + 1
     assert lines[0] == "k1_05m.ms: A [2.0] B [1.0]; medians 2 -> 1"
     assert lines[2] == "sat_05m.sat1: A [6.0] B [3.0]; medians 6 -> 3"
+    groups = {group for group, _key in ab_main_path.STUDY_FIGURES}
+    assert {"reach_05m", "reach_2m", "pair_05m", "pair_2m"} <= groups
+    assert ("pair_2m", "nibble") in ab_main_path.STUDY_FIGURES

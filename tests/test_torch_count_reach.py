@@ -50,7 +50,7 @@ def _tangent(n_points, seed, n_atoms=400, far=False):
 
 def _exact_keep(v2, ri, rj, gi, gj, far_ok):
     """The reference scripts' reach test, v2 - (r_i + r_j)^2 < 0, with no
-    slack (count_tile.cuh in_reach)."""
+    slack (reach_count.cu atom_reach)."""
     reach = ri + rj
     drop = (gi == 0.0) | (gj == 0.0) | (gj == gi)
     return ((v2 - reach * reach) < 0.0) & ~drop

@@ -445,6 +445,10 @@ def test_count_study_wrappers_check_inputs(cuda):
         _kernels.saturation_count(shifted, jl, sphere, 1)
     with pytest.raises(ValueError, match="16-byte"):
         _kernels.micro_count(shifted, jl, sphere, "prod")
+    with pytest.raises(ValueError, match="16-byte"):
+        _kernels.reach_count(shifted, jl, sphere, "base")
+    with pytest.raises(ValueError, match="16-byte"):
+        _kernels.nibble_count(shifted, jl, jl, jl, sphere)
 
 
 @pytest.fixture(scope="module")
@@ -493,6 +497,157 @@ def test_reach_count_byte_equal_plain(cuda, corpus_triples, n_points):
             assert torch.equal(executed, want_executed), variant
             if variant in r3_kernel_variants.F32_VARIANTS:
                 assert torch.equal(got[real], prod[real]), variant
+
+
+def _as_i32(values):
+    """i64 tensor of 32-bit words -> i32, bit 31 wrapping negative."""
+    return (values - ((values >> 31) & 1) * (1 << 32)).to(torch.int32)
+
+
+def _past_and_full(jl, t, words=None):
+    """Edge j-lists in place: tile 0 with no entry, tile 1 with three more
+    entries on j-tiles at or past the chunk's end (t, t + 7, 0xFFFF), tile
+    2 with 127 entries of all 16 groups over repeated j-tiles.  Entries
+    carry masks ((0xFFFF << 16) | j: negative as int32), or with `words`
+    (the nibble lists' w1, w2) a group count and nibbles.  Returns the
+    positions of the past-the-end entries of tile 1."""
+    dev = jl.device
+    jl[0, 0] = 0
+    n = int(jl[1, 0])
+    assert n + 3 <= fk.JLIST_CAP
+    past = [1 + n, 2 + n, 3 + n]
+    high = (3 << 16) if words else (0xFFFF << 16)
+    jl[1, past] = _as_i32(high | torch.tensor([t, t + 7, 0xFFFF],
+                                              device=dev))
+    jl[1, 0] = n + 3
+    jl[2, 0] = fk.JLIST_CAP
+    tiles = torch.arange(fk.JLIST_CAP, device=dev) % t
+    if words:
+        w1, w2 = words
+        w1[1, past], w2[1, past] = 0x210, 0
+        jl[2, 1:] = _as_i32((16 << 16) | tiles)
+        w1[2, 1:] = _as_i32(torch.full_like(tiles, 0x76543210))
+        w2[2, 1:] = _as_i32(torch.full_like(tiles, 0xFEDCBA98))
+    else:
+        jl[2, 1:] = _as_i32((0xFFFF << 16) | tiles)
+    return past
+
+
+def _reach_edge_chunks(cuda):
+    """(planes, jlist) pairs on the card: a one-tile chunk and a 5-tile
+    host-cull chunk with _past_and_full's edges."""
+    out = []
+    for sizes, seed in (([90], 41), ([150, 330], 42)):
+        planes5, jlist, _offsets, failed = fk.pack_structures(
+            _structures(sizes, seed=seed, spread=14.0), 1.4, 100)
+        assert failed == []
+        out.append(fk.to_device((planes5, jlist), cuda))
+    planes, jl = out[1]
+    assert out[0][1].shape[0] == 1 and jl.shape[0] == 5
+    _past_and_full(jl, jl.shape[0])
+    assert int(jl[2, 1:].min()) < 0
+    return out
+
+
+def _nibble_edge_chunks(cuda):
+    """((planes, (jl, w1, w2)), plain lists) pairs on the card: a one-tile
+    banded q16 chunk's nibble lists, and a 6-tile chunk's with
+    _past_and_full's edges (all 16 groups: w2 negative); the plain
+    version takes the entries past the chunk's end dead (gcount 0), as
+    the kernel does."""
+    out = []
+    for sizes, seed in (([90], 43), ([100, 520], 44)):
+        planes4, tp, tm, _offsets = fk.pack_structures_q16(
+            _structures(sizes, seed=seed, spread=14.0), 1.4)
+        planes4, tp, tm = fk.to_device((planes4, tp, tm), cuda)
+        planes, qvalid = fk.dequant_q16(planes4, tp)
+        lists = r5_pair64.build_jlist_nibble(planes, qvalid, tm, w=16)
+        out.append([planes, lists, lists])
+    planes, (jl, w1, w2), _ = out[1]
+    assert out[0][1][0].shape[0] == 1 and jl.shape[0] == 6
+    jl, w1, w2 = jl.clone(), w1.clone(), w2.clone()
+    past = _past_and_full(jl, jl.shape[0], (w1, w2))
+    assert (w2[2, 1:] < 0).all()
+    dead = jl.clone()
+    dead[1, past] &= 0xFFFF
+    out[1][1:] = (jl, w1, w2), (dead, w1, w2)
+    return out
+
+
+# P = 1, 65, 100, 129, 960 and 2048 pad to 8, 72, 104, 136, 960 and
+# 2048 points: one pass of K = 1, 5, 7 and 9 points a lane, then 4 passes
+# of 15 and 8 of 16 (lane_passes), across the count_tile split that
+# `executed` counts in.
+@pytest.mark.parametrize("n_points", [1, 65, 100, 129, 960, 2048])
+def test_reach_count_edge_chunks(cuda, n_points):
+    sphere = engine._sphere_device(n_points, cuda)
+    for planes, jl in _reach_edge_chunks(cuda):
+        for variant in r3_kernel_variants.VARIANTS:
+            got, executed = _launched(
+                "reach_count", lambda: r3_kernel_variants.reach_counts(
+                    planes, jl, sphere, variant=variant))
+            want, want_executed = r3_kernel_variants.reach_counts_reference(
+                planes, jl, sphere, variant=variant)
+            assert torch.equal(got, want), variant
+            assert torch.equal(executed, want_executed), variant
+    # The tile with no entry executes nothing.
+    assert int(executed[0]) == 0
+
+
+def _rule_words_plain(planes, jl, variant):
+    """{(tile, j-list position): the rule's four 32-row words} of every
+    live entry, in plain torch: row jj of the j-tile is in reach when v2
+    - (r_i + r_j)^2 < 0 for some of the tile's 128 atoms; base-like rules
+    take 8-row groups with a row in reach, nogroupcond every row."""
+    t = jl.shape[0]
+    out = {}
+    for tile in range(t):
+        ci = planes[0:3, tile * 128:(tile + 1) * 128]  # [3, A]
+        ri = planes[3, tile * 128:(tile + 1) * 128]
+        for e in range(min(max(int(jl[tile, 0]), 0), fk.JLIST_CAP)):
+            jt = int(jl[tile, 1 + e]) & 0xFFFF
+            if jt >= t:
+                continue
+            cj = planes[0:3, jt * 128:(jt + 1) * 128]
+            rj = planes[3, jt * 128:(jt + 1) * 128]
+            v = ci[:, None, :] - cj[:, :, None]  # [3, J, A]
+            v2 = (v[0] * v[0] + v[1] * v[1]) + v[2] * v[2]
+            reach = ri[None, :] + rj[:, None]
+            hit = ((v2 - reach * reach) < 0.0).any(dim=1)  # [J]
+            if variant == "nogroupcond":
+                hit = torch.ones_like(hit)
+            elif variant not in ("jskip", "group4"):
+                hit = hit.reshape(16, 8).any(dim=1).repeat_interleave(8)
+            bits = hit.reshape(4, 32).to(torch.int64) << torch.arange(
+                32, device=hit.device)
+            out[tile, e] = _as_i32(bits.sum(dim=1)).tolist()
+    return out
+
+
+@pytest.mark.parametrize("variant", ["base", "nogroupcond", "jskip"])
+def test_reach_rule_words_equal_plain(cuda, variant):
+    sphere = engine._sphere_device(100, cuda)
+    for planes, jl in _reach_edge_chunks(cuda):
+        rule, executed = _launched("reach_rule", lambda: _kernels.reach_rule(
+            planes, jl, sphere, variant))
+        want = _rule_words_plain(planes, jl, variant)
+        assert {key: rule[key].tolist() for key in want} == want
+        _counts, full_executed = r3_kernel_variants.reach_counts(
+            planes, jl, sphere, variant=variant)
+        assert torch.equal(executed, full_executed)
+
+
+@pytest.mark.parametrize("n_points", [1, 65, 100, 129, 960, 2048])
+def test_nibble_count_edge_chunks(cuda, n_points):
+    sphere = engine._sphere_device(n_points, cuda)
+    for planes, lists, plain_lists in _nibble_edge_chunks(cuda):
+        got = _launched("nibble_count", lambda: r5_pair64.nibble_counts(
+            planes, *lists, sphere))
+        want = r5_pair64.nibble_counts_reference(planes, *plain_lists, sphere)
+        assert torch.equal(got, want)
+        prod = fk.fused_counts_reference(
+            planes, r5_pair64._nibble_masks(*plain_lists), sphere)
+        assert torch.equal(got, prod)
 
 
 # n_points 1, 64, 65, 100, 128, 129, 960 and 2048 pad to 8, 64, 72, 104,

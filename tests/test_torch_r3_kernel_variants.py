@@ -10,8 +10,12 @@ reads the raw entry as the j-tile (a masked entry would point its copy
 elsewhere, and interpret mode clamps instead of failing), so it is fed
 the entries' low 16 bits; the port reads entry & 0xFFFF from the original
 j-list.  Counts must be byte-equal, and the j-rows executed must follow
-the script's skip rule, counted here in numpy.  The CUDA kernel is held
-against the same plain version on the card (tests/test_torch_cuda.py).
+the script's skip rule, counted here in numpy.  The plain model of the
+card's count kernel (`reach_counts_reference(reach_skip=True)`: the
+rule's rows that a warp's reach skip keeps) must leave counts and
+`executed` unmoved, near tangency and at the bf16 skip's edge too.  The
+CUDA kernel is held against the same plain version on the card
+(tests/test_torch_cuda.py).
 """
 
 import importlib.util
@@ -27,6 +31,7 @@ from rustsasa_tpu.ops import fused_kernel as ref
 from rustsasa_tpu.ops.engine import _sphere_packed
 from rustsasa_tpu_torch.ops import _kernels
 from rustsasa_tpu_torch.ops import fused_kernel as port
+from rustsasa_tpu_torch.scripts import _study
 from rustsasa_tpu_torch.scripts import r3_kernel_variants as r3v
 
 PROBE = 1.4
@@ -137,12 +142,10 @@ def test_counts_byte_equal_script(script, variant):
         assert 0 < d.max() <= 8 and d.mean() < 0.5
 
 
-def test_padded_rows_at_origin_trip_reach():
-    # A structure centred on one of its atoms: the packer moves that atom
-    # to the origin, where the padding slots of its last tile sit (r = 0,
-    # gid 0), so their rows are in reach.  Moving the padding away changes
-    # what executes, not the atoms' counts (a padding row's limit is
-    # -1e30).
+def _origin_wire():
+    """A structure centred on one of its atoms: the packer moves that
+    atom to the origin, where the padding slots of its last tile sit (r
+    = 0, gid 0), so their rows are in reach -> (planes, jlist, real)."""
     rng = np.random.default_rng(3)
     half = rng.uniform(-12, 12, (70, 3)).astype(np.float32)
     coords = np.concatenate([[[0.0, 0.0, 0.0]], half, -half]) + 60.0
@@ -152,7 +155,13 @@ def test_padded_rows_at_origin_trip_reach():
         structures, PROBE, 100
     )
     assert failed == [] and jlist.shape[0] == 2
-    real = torch.from_numpy(planes[4] > 0.0)
+    return planes, jlist, torch.from_numpy(planes[4] > 0.0)
+
+
+def test_padded_rows_at_origin_trip_reach():
+    # Moving the padding away changes what executes, not the atoms' counts
+    # (a padding row's limit is -1e30).
+    planes, jlist, real = _origin_wire()
     moved = planes.copy()
     moved[0:3, ~real.numpy()] = 1000.0
     packed, _s128 = _sphere()
@@ -174,6 +183,10 @@ def test_variant_and_device_errors():
         r3v.reach_counts(p, j, packed, variant="fp8")
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.reach_count(p, j, packed, "base")
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.reach_rule(p, j, packed, "base")
+    with pytest.raises(ValueError, match="unknown variant"):
+        _kernels.reach_rule(p, j, packed, "fp8")
     with pytest.raises(ValueError, match="unsupported device"):
         r3v.reach_counts(p.to("meta"), j, packed, variant="base")
 
@@ -196,3 +209,59 @@ def test_run_on_cpu():
     assert per_atom["jskip"] == per_atom["group4"]
     assert per_atom["base"] == per_atom["nocond"] == per_atom["bf16"]
     assert all(v["ms"] > 0 and v["margins"] > 0 for v in variants.values())
+
+
+def _skip_wire(wire):
+    """(planes, jlist) on the CPU: the host-cull chunk, padding rows at
+    the origin, or near-tangent pairs and pairs at the f32 skip's edge
+    (radius ratios to 1/9)."""
+    if wire == "host_cull":
+        planes, jlist, _real = _host_cull_wire()
+    elif wire == "origin":
+        planes, jlist, _real = _origin_wire()
+    else:
+        planes, jlist, _real = _study.tangent_chunk(100, 300, 5, far=True)
+    return port.to_device((planes, jlist), "cpu")
+
+
+# The card's count kernel streams the rule's rows that some atom of a warp
+# keeps (keep_row): its model must give the plain version's counts and
+# executed rows at every slot, for every f32 variant.
+@pytest.mark.parametrize("wire", ["host_cull", "origin", "tangent"])
+def test_reach_skip_model_equals_plain_f32(wire):
+    p, j = _skip_wire(wire)
+    packed, _s128 = _sphere()
+    for variant in r3v.F32_VARIANTS:
+        want = r3v.reach_counts_reference(p, j, packed, variant=variant)
+        got = r3v.reach_counts_reference(p, j, packed, variant=variant,
+                                         reach_skip=True)
+        assert torch.equal(got[0], want[0]), variant
+        assert torch.equal(got[1], want[1]), variant
+
+
+@pytest.mark.parametrize("variant", ["bf16", "bf16p"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_skip_model_equals_plain_near_tangency(variant, seed):
+    # Near-tangent pairs and pairs at the bf16 skip's edge (v2 = 1.5625
+    # (r_i + r_j)^2, a few roundings either side), radius ratios r_i /
+    # r_j up to 9: the bf16 slack moves no count.  The f32 slack, which
+    # bf16's rounding of the dot outgrows, flips some on both chunks.
+    packed, _s128 = _sphere()
+    for slack in (port.BF16_SLACK, None):
+        planes, jlist, _real = _study.tangent_chunk(100, 300, seed, far=True,
+                                                    slack=slack)
+        p, j = port.to_device((planes, jlist), "cpu")
+        want = r3v.reach_counts_reference(p, j, packed, variant=variant)
+        got = r3v.reach_counts_reference(p, j, packed, variant=variant,
+                                         reach_skip=True)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+        saved = port.BF16_SLACK
+        try:
+            port.BF16_SLACK = port.REACH_SLACK
+            f32 = r3v.reach_counts_reference(p, j, packed, variant=variant,
+                                             reach_skip=True)
+        finally:
+            port.BF16_SLACK = saved
+        assert bool((f32[0] != want[0]).any())
+

@@ -7,8 +7,11 @@ builders and Pallas kernels (in TPU interpret mode) and through
 comparison is exact.  The kernels are fed the same dequantized planes:
 the script's jitted `pair64_banded` / `nibble_banded` wrappers dequantize
 inline, where XLA-CPU contracts `q * scale + origin` to a fused
-multiply-add.  The CUDA kernels are held against the same plain versions
-on the card (tests/test_torch_cuda.py).
+multiply-add.  The plain model of the card's nibble kernel, which packs
+an entry's groups four to a reach-test chunk
+(`nibble_counts_kept_reference`), must give the plain version's counts
+for every group count.  The CUDA kernels are held against the same
+plain versions on the card (tests/test_torch_cuda.py).
 """
 
 import importlib.util
@@ -157,6 +160,97 @@ def test_counts_reference_byte_equal_pallas(script, kernel):
     assert ((real > 0) & (real < 100)).any() and int(real.max()) <= 100
 
 
+def _nibble_words(groups):
+    """(gcount, w1, w2) of a list of group ids, as int32 words."""
+    w1 = w2 = 0
+    for n, g in enumerate(groups):
+        if n < 8:
+            w1 |= g << (4 * n)
+        else:
+            w2 |= g << (4 * (n - 8))
+    as_i32 = (lambda w: w - (1 << 32) if w >= 1 << 31 else w)
+    return len(groups), as_i32(w1), as_i32(w2)
+
+
+def test_nibble_chunk_rows_pack_four_groups_a_chunk():
+    groups = [1, 3, 4, 9, 14, 15, 2, 15, 0]  # 15 at position 7: w1 < 0
+    gcount, w1, w2 = _nibble_words(groups)
+    assert w1 < 0
+    jl = torch.zeros((1, 128), dtype=torch.int32)
+    jl[0, 0], jl[0, 1] = 1, (gcount << 16) | 0
+    words = [torch.zeros_like(jl), torch.zeros_like(jl)]
+    words[0][0, 1], words[1][0, 1] = w1, w2
+    rows = r5_pair64.nibble_chunk_rows(jl, *words, 0, 0)
+    assert rows.shape == (3, 32)  # ceil(9 / 4) chunks
+    for c in range(3):
+        for o in range(4):
+            n = 4 * c + o
+            want = (8 * groups[n] + torch.arange(8) if n < gcount
+                    else torch.full((8,), -1))
+            assert torch.equal(rows[c, 8 * o:8 * o + 8], want), (c, o)
+
+
+def _nibble_lists(t, seed):
+    """(jl, w1, w2) [t, 128] i32: each tile's 18 entries over the chunk's
+    tiles, with group counts 1-16 of distinct sorted ids, a list naming
+    group 15 at position 7 (w1 < 0), one naming a group twice and one of
+    all 16 groups; gcount 16 of 17 stored (read as 16)."""
+    rng = np.random.default_rng(seed)
+    lists = [sorted(rng.choice(16, n, replace=False).tolist())
+             for n in range(1, 17)]
+    lists[7] = [0, 1, 2, 3, 4, 5, 6, 15]
+    lists += [[5, 5, 9], list(range(16))]
+    jl = np.zeros((t, 128), np.int64)
+    w1 = np.zeros_like(jl)
+    w2 = np.zeros_like(jl)
+    for ti in range(t):
+        jl[ti, 0] = len(lists)
+        for e, groups in enumerate(lists):
+            gcount, a, b = _nibble_words(groups)
+            if e == len(lists) - 1:
+                gcount = 17
+            jl[ti, 1 + e] = (gcount << 16) | ((ti + e) % t)
+            w1[ti, 1 + e], w2[ti, 1 + e] = a, b
+    return tuple(torch.from_numpy(x.astype(np.int32)) for x in (jl, w1, w2))
+
+
+# The card's nibble kernel visits an entry's groups as packed chunks
+# (nibble_chunk_rows) and streams the rows a warp's reach skip keeps: its
+# model gives the plain version's counts at every slot.
+@pytest.mark.parametrize("lists", ["builder", "every_gcount"])
+def test_nibble_packed_model_equals_plain(lists):
+    planes, qvalid, tm, _ = _planes(seed=3)
+    packed, _s128 = _sphere(100)
+    if lists == "builder":
+        jl, w1, w2 = r5_pair64.build_jlist_nibble(
+            planes, qvalid, torch.from_numpy(tm), w=16)
+    else:
+        jl, w1, w2 = _nibble_lists(planes.shape[1] // 128, seed=5)
+        assert (w1 < 0).any()
+    got = r5_pair64.nibble_counts_kept_reference(planes, jl, w1, w2, packed)
+    want = r5_pair64.nibble_counts_reference(planes, jl, w1, w2, packed)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert int(want.max()) > 0 and int(want.min()) < 100
+
+
+def test_reach_chunks_count_packed_and_kernel1_chunks():
+    # Kernel 1's entries: masks of groups {0}, {0, 5}, {0, 4, 8, 12}, all
+    # 16, and one on a tile past the chunk; the nibble list of the same
+    # groups packs them into 1, 1, 1 and 4 chunks.
+    masks = [0x1, 0x21, 0x1111, 0xFFFF, 0x3]
+    jlist = torch.zeros((2, 128), dtype=torch.int64)
+    jlist[0, 0] = len(masks)
+    for e, mask in enumerate(masks):
+        jlist[0, 1 + e] = (mask << 16) | (9 if e == 4 else e % 2)
+    jlist = (jlist - ((jlist >> 31) << 32)).to(torch.int32)
+    assert r5_pair64.reach_chunks(jlist) == (1 + 2 + 4 + 4, 4)
+    jl = torch.zeros((2, 128), dtype=torch.int32)
+    jl[0, 0] = len(masks)
+    for e, mask in enumerate(masks):
+        jl[0, 1 + e] = (bin(mask).count("1") << 16) | (9 if e == 4 else e % 2)
+    assert r5_pair64.reach_chunks(jl, nibble=True) == (1 + 1 + 1 + 4, 4)
+
+
 def test_run_on_cpu_equals_prod():
     result = r5_pair64.run(_structures([90, 300, 500], seed=4), "cpu", w=16,
                            slots=1280, reps=1)
@@ -169,6 +263,9 @@ def test_run_on_cpu_equals_prod():
     prod, pair64 = variants["prod"], variants["pair64"]
     assert variants["nibble"]["margins"] == prod["margins"]
     assert pair64["j_atoms_per_atom"] < prod["j_atoms_per_atom"]
+    per_entry = variants["nibble"]["chunks_per_entry"]
+    assert 1.0 <= per_entry["nibble"] <= per_entry["prod"] <= 4.0
+    assert variants["nibble"]["instr"] == prod["instr"]
     assert set(result["builders"]) == {"banded", "banded_kernel",
                                        "banded_2h", "nibble"}
     assert result["kernel_equal"]

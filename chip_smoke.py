@@ -47,31 +47,38 @@ runs fifteen phases, each of which must pass:
      pass equal the chunks the engine dispatched, dequant_boxes' the
      q13, q16 and host-cull q16 chunks, band_jlist's the q13 and q16
      chunks;
-  5. the list path's kernels vs plain: the binning kernel (cell_keys)
-     bit-equal to neighbors.cell_grid (keys, max_r, cell edges) and the
+  5. the list path's kernels vs plain: the binning and ordering kernels
+     (cell_keys) bit-equal to neighbors.cell_order_reference (keys,
+     max_r, cell edges from cell_grid; sorted keys, perm, sorted packed
+     and sorted gid from a stable torch.sort and its gathers) and the
      neighbor kernel (neighbor_cells.cu) against the plain neighbor phase
      on the seeded cases of `_study.neighbor_cases` (a batch of three
      structures with padding rows and a shared group id, groups of four
      ids, clusters at +-1,000 A, a 4,000 A line, pairs at the cutoff
      within an ulp of d2, the dense ball whose rows overflow K, six
-     structures in N = 8), one launch of each a case: counts, max_count
-     and each row's set of record bit patterns equal, the list SASA at
-     100 points from either byte-equal;
+     structures in N = 8) and `_study.order_cases` (a cell of 300 atoms,
+     40 structures with padding between their atoms, one with no real
+     atom, a +-1e6 A span, 511 structures), one launch of each a case:
+     counts, max_count and each row's set of record bit patterns equal,
+     the list SASA at 100 points from either byte-equal;
      then 1jz8 (the largest test structure): its records as the list
      path makes them (one neighbor launch a run), the list-occlusion
      kernel and its plain version on them at 100 points, byte-equal, both
      timed, with the tiles' neighbor bounds (min, mean, max) and the
      wrapper's host time a call, byte-equal again at 960 and 50,000
      points (several blocks of points a tile, beyond one wave of CTAs);
-     the binning kernel bit-equal to cell_grid on 1jz8, the neighbor
-     kernel, the binning kernel, the sort and the whole phase (cell
-     keys, sort, gather, kernel) warm, in a CUDA graph and as calls back
-     to back, the plain versions (cell_grid; expansion, top-k, its
-     K-major copies) warm, held equal as on the cases, the list SASA at
+     the binning and ordering bit-equal to its plain version on 1jz8,
+     the neighbor kernel, cell_keys (binning and ordering), the chain the
+     ordering replaced (a stable torch.sort and two index_selects) and
+     the whole phase (cell_keys, neighbor_cells) warm, in a CUDA graph
+     and as calls back to back, the plain versions
+     (cell_order_reference; expansion, top-k, its K-major copies) warm,
+     held equal as on the cases, the list SASA at
      P = 104, 960 and 50,000 byte-equal from kernel-made and plain-made
      records, and each kernel's bound (bytes; FP32 operations of the
-     pairs its cells visit, f64 ones of the binning), its share of it,
-     ptxas registers, spills and shared memory;
+     pairs its cells visit, f64 ones of the binning; the bytes the
+     binning and ordering must move), its share of it, ptxas registers,
+     spills and shared memory;
   6. list path: `calculate_sasa_internal(backend="list")` on example.cif
      against the golden array and protein total, and the closed-form cases
      of tests/test_sanity.py at 50,000 points within 0.5 %; the list,
@@ -93,10 +100,11 @@ runs fifteen phases, each of which must pass:
      launches are the three kernels' launch counts; each kernel's bound
      on the work its inputs need (kernel 1's: fused_kernel.reach_work of
      its chunk) beside the old one on every admitted margin; the
-     saturation and nibble kernels (kernel 1's layout, 4 CTAs a tile)
-     with their ratio to the count kernel, share of that bound, ptxas
-     registers and spills; nibble's reach chunks a live entry (packed,
-     four groups a chunk) against the count kernel's;
+     saturation, nibble and pair64 kernels (kernel 1's layout, 4 CTAs a
+     tile) with their ratio to the count kernel, share of that bound,
+     ptxas registers and spills; nibble's reach chunks a live entry
+     (packed, four groups a chunk) and pair64's live entries and reach
+     chunks a CTA (a half's mask each) against the count kernel's;
   9. count-kernel studies II: on the host-cull f32 chunk of phase 8's
      structures the loop micro-variants (micro_count: prod, split2, g16,
      g24, nosmem) and the reach-test kernel (reach_count: base,
@@ -176,8 +184,8 @@ power limit, one JSON line with the fourteen kernel sources' numbers
 (band_cull.cu and neighbor_cells.cu each as its two kernels;
 dequant_boxes, cell_keys and neighbor_cells bound by bytes; cell_keys
 and neighbor_cells timed alone in a CUDA graph, with their times as a
-call and, for neighbor_cells, the sort's and the whole phase's beside
-them) and a
+call, for cell_keys the replaced sort chain's and for neighbor_cells the
+whole phase's beside them) and a
 record of its own for mxu_dots_def (each with its bound: the larger of its FP32
 instructions at this run's work over the 33.5T/s issue peak, for the
 DEFAULT variants also its mma work over the 989 TFLOP/s bf16
@@ -309,9 +317,10 @@ NEIGHBOR_STAGE_CAP = 256
 NEIGHBOR_BYTES_PER_ATOM = 16 + 4 + 8 + 8 + 8 + 16 + 4
 # cell_keys: f64 operations an atom (r2: 3 DMUL, 2 DADD, the max; a key:
 # 3 DSUB, 3 DDIV, 3 floors, 6 clamps) at the FP64 issue rate, half the
-# FP32 one; bytes an atom (packed and gid read, the key written).
+# FP32 one; bytes an atom that must move (packed and gid read; the key,
+# sorted key, perm, sorted packed and sorted gid written).
 CELL_KEYS_F64_PER_ATOM = 21
-CELL_KEYS_BYTES_PER_ATOM = 16 + 4 + 8
+CELL_KEYS_BYTES_PER_ATOM = 16 + 4 + 8 + 8 + 8 + 16 + 4
 
 
 def log(msg: str) -> None:
@@ -908,17 +917,22 @@ def neighbor_vs_plain(got, want):
 
 
 def neighbor_kernel_cases(device):
-    """The neighbor kernel against its plain version on the seeded cases
-    of _study.neighbor_cases (one launch each): counts, max_count and
-    each row's set of record bit patterns equal, and the list path's SASA
-    at 100 points byte-equal from either."""
+    """The binning and ordering kernels and the neighbor kernel against
+    their plain versions on the seeded cases of _study.neighbor_cases and
+    _study.order_cases (K = 16 there; one launch each): the CellOrder
+    bit-equal, counts, max_count and each row's set of record bit
+    patterns equal, and the list path's SASA at 100 points byte-equal
+    from either."""
     import torch
 
     from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
     from rustsasa_tpu_torch.scripts import _study
 
     sphere = engine._sphere_device(100, device)
-    for name, packed, gid, k in _study.neighbor_cases():
+    cases = [*_study.neighbor_cases(),
+             *((name, packed, gid, 16)
+               for name, packed, gid in _study.order_cases())]
+    for name, packed, gid, k in cases:
         packed, gid = (torch.from_numpy(a).to(device) for a in (packed, gid))
         keys_equal = cell_keys_vs_plain(packed, gid)
         before = dict(_kernels.launch_counts)
@@ -933,7 +947,8 @@ def neighbor_kernel_cases(device):
             for rec in (got, want))))
         log(f"[neighbor] {name}: B={gid.shape[0]}, N={gid.shape[1]}, "
             f"K={got[0].shape[1]}, max count {int(got[2])}; cell_keys "
-            f"bit-equal to cell_grid: {keys_equal}; counts, max_count and "
+            f"bit-equal to its plain version (cell_grid, a stable sort, the "
+            f"gathers): {keys_equal}; counts, max_count and "
             f"records equal to plain: {not bad} (max |diff| {err}); SASA "
             f"byte-equal: {equal}; cell_keys and neighbor_cells launches "
             f"{launches}")
@@ -944,19 +959,19 @@ def neighbor_kernel_cases(device):
 
 
 def cell_keys_vs_plain(packed, gid):
-    """Whether the binning kernel's keys, max_r and cell edges are
-    bit-equal to neighbors.cell_grid's (the plain version, on the CPU)."""
+    """Whether the binning and ordering kernels' outputs (keys, max_r,
+    cell edges, sorted keys, perm, sorted packed and sorted gid) are
+    bit-equal to neighbors.cell_order_reference's (cell_grid, a stable
+    torch.sort and the gathers, on the CPU)."""
     import torch
 
     from rustsasa_tpu_torch.ops import _kernels, neighbors
 
-    keys, max_r, h = _kernels.cell_keys(packed, gid, PROBE)
-    want = neighbors.cell_grid(packed.cpu(), gid.cpu(), PROBE)
-    return (torch.equal(keys.cpu(), want.keys)
-            and torch.equal(max_r.cpu().view(torch.int32),
-                            want.max_r.view(torch.int32))
-            and torch.equal(h.cpu().view(torch.int64),
-                            want.h.view(torch.int64)))
+    got = _kernels.cell_keys(packed, gid, PROBE)
+    want = neighbors.cell_order_reference(packed.cpu(), gid.cpu(), PROBE)
+    return all(g.dtype == w.dtype and g.shape == w.shape and torch.equal(
+        g.cpu().view(torch.uint8), w.view(torch.uint8))
+        for g, w in zip(got, want))
 
 
 def phase_list_kernel(device, build_logs):
@@ -1045,29 +1060,30 @@ def phase_list_kernel(device, build_logs):
     listed = record("list_occlusion", None, max_err, kernel_ms, plain_ms,
                     None, work)
 
-    # The neighbor phase on 1jz8: the binning kernel, the sort and the
-    # cell-list kernel each alone and the whole phase (keys, sort, gather,
-    # kernel) warm, in a CUDA graph and as calls back to back; the plain
-    # versions (cell_grid; the expansion and top-k with their K-major
-    # copies).
+    # The neighbor phase on 1jz8: the binning and ordering (cell_keys) and
+    # the cell-list kernel each alone and the whole phase warm, in a CUDA
+    # graph and as calls back to back; the chain the ordering replaced (a
+    # stable torch.sort of the keys and two index_selects); the plain
+    # versions (cell_order_reference; the expansion and top-k with their
+    # K-major copies).
     packed, gid, k = rec["packed"], rec["gid"], rec["k"]
     keys_equal = cell_keys_vs_plain(packed, gid)
-    keys, max_r, h = _kernels.cell_keys(packed, gid, PROBE)
-    sorted_keys, perm = torch.sort(keys, stable=True)
+    order = _kernels.cell_keys(packed, gid, PROBE)
+    keys, max_r, h = order.keys, order.max_r, order.h
     m = gid.numel()
-    sorted_packed = packed.reshape(m, 4).index_select(0, perm)
-    sorted_gid = gid.reshape(m).index_select(0, perm)
 
     def kernel():
-        return _kernels.neighbor_cells(packed, gid, max_r, keys, sorted_keys,
-                                       perm, sorted_packed, sorted_gid,
-                                       probe=PROBE, k=k)
+        return _kernels.neighbor_cells(
+            packed, gid, max_r, keys, order.sorted_keys, order.perm,
+            order.sorted_packed, order.sorted_gid, probe=PROBE, k=k)
 
     def binning():
         return _kernels.cell_keys(packed, gid, PROBE)
 
-    def sort():
-        return torch.sort(keys, stable=True)
+    def sort_chain():
+        sorted_keys, perm = torch.sort(keys, stable=True)
+        return (sorted_keys, packed.reshape(m, 4).index_select(0, perm),
+                gid.reshape(m).index_select(0, perm))
 
     def phase():
         return neighbors.neighbor_records(packed, gid, probe=PROBE, k=k)
@@ -1080,26 +1096,30 @@ def phase_list_kernel(device, build_logs):
     nb_call_ms, _ = cuda_ms(kernel, 20)
     keys_graph_ms = graph_ms(binning, 20)
     keys_call_ms, _ = cuda_ms(binning, 20)
-    sort_graph_ms = graph_ms(sort, 20)
+    sort_graph_ms = graph_ms(sort_chain, 20)
+    sort_call_ms, _ = cuda_ms(sort_chain, 20)
     phase_graph_ms = graph_ms(phase, 20)
     phase_call_ms, mine = cuda_ms(phase, 20)
-    keys_plain_ms, _ = cuda_ms(lambda: neighbors.cell_grid(packed, gid,
-                                                           PROBE), 20)
+    keys_plain_ms, _ = cuda_ms(lambda: neighbors.cell_order_reference(
+        packed, gid, PROBE), 20)
     nb_plain_ms, theirs = cuda_ms(plain, 3)
     v, limit, _c, _m = neighbors._neighbor_phase(packed[0], gid[0],
                                                   probe=PROBE, k=k)
     copy_ms, _ = cuda_ms(lambda: neighbors.k_major(v, limit, n_pad), 20)
     nb_err, bad = neighbor_vs_plain(mine, theirs)
     log(f"[neighbor] {LARGEST[-1]}: kernel {nb_graph_ms:.4f} ms in a graph, "
-        f"{nb_call_ms:.4f} ms a call; cell_keys {keys_graph_ms:.4f} ms in a "
-        f"graph, {keys_call_ms:.4f} ms a call (plain cell_grid on the card "
-        f"{keys_plain_ms:.4f} ms), bit-equal to cell_grid: {keys_equal}; the "
-        f"stable sort {sort_graph_ms:.4f} ms in a graph; the phase (cell "
-        f"keys, sort, gather, kernel) {phase_graph_ms:.4f} ms in a graph, "
+        f"{nb_call_ms:.4f} ms a call; cell_keys (binning and ordering) "
+        f"{keys_graph_ms:.4f} ms in a graph, {keys_call_ms:.4f} ms a call "
+        f"(plain cell_order_reference on the card {keys_plain_ms:.4f} ms), "
+        f"bit-equal to it: {keys_equal}; the chain the ordering replaced "
+        f"(stable torch.sort, two index_selects) {sort_graph_ms:.4f} ms in a "
+        f"graph, {sort_call_ms:.4f} ms a call; the phase (cell_keys, "
+        f"neighbor_cells) {phase_graph_ms:.4f} ms in a graph, "
         f"{phase_call_ms:.4f} ms a call; plain (expansion, top-k, K-major "
         f"copies) {nb_plain_ms:.3f} ms, its copies {copy_ms:.4f} ms; cell "
-        f"edge {float(h[0]):.4f} A; counts, max_count and records equal: "
-        f"{not bad} (max |diff| {nb_err})")
+        f"edge {float(h[0]):.4f} A; "
+        f"counts, max_count and records equal: {not bad} (max |diff| "
+        f"{nb_err})")
     if bad or not keys_equal:
         raise AssertionError(f"neighbor kernels on {LARGEST[-1]}: {bad}, "
                              f"keys equal {keys_equal}")
@@ -1117,7 +1137,7 @@ def phase_list_kernel(device, build_logs):
     # written once (the K x N4 records, counts, max_count); operations:
     # each visited pair's test and each kept record, by this run's cells.
     b = gid.shape[0]
-    visits = int(_study.visited_pairs(keys, sorted_keys).sum())
+    visits = int(_study.visited_pairs(keys, order.sorted_keys).sum())
     kept = int(mine[1].clamp(max=k).sum())
     ops = NEIGHBOR_OPS_PER_PAIR * visits + NEIGHBOR_OPS_PER_RECORD * kept
     nbytes = NEIGHBOR_BYTES_PER_ATOM * m + 4 * b + 16 * k * n_pad + 4 * m + 4
@@ -1133,18 +1153,21 @@ def phase_list_kernel(device, build_logs):
     neighbor = record("neighbor_cells", None, nb_err, nb_graph_ms, nb_plain_ms,
                       None, nb_bound)
     neighbor.update(call_ms=nb_call_ms, phase_graph_ms=phase_graph_ms,
-                    phase_call_ms=phase_call_ms, sort_graph_ms=sort_graph_ms,
-                    copy_ms=copy_ms)
+                    phase_call_ms=phase_call_ms, copy_ms=copy_ms)
     keys_bound = bound(2 * CELL_KEYS_F64_PER_ATOM * m,
                        CELL_KEYS_BYTES_PER_ATOM * m + 12 * b)
-    regs = [v for fn, v in ptxas_entries(build_logs["neighbor_cells"]).items()
-            if "cell_keys_kernel" in fn]
+    regs = {kernel: v for fn, v in ptxas_entries(
+        build_logs["neighbor_cells"]).items()
+        for kernel in ("cell_keys_kernel", "cell_order_kernel")
+        if kernel in fn}
     log(f"[neighbor] cell_keys bound {keys_bound[0]:.5f} ms "
-        f"({keys_bound[1]}), {keys_bound[0] / keys_graph_ms:.3f} of it in a "
-        f"graph; ptxas (registers, spill stores) {regs}")
+        f"({keys_bound[1]}: {CELL_KEYS_BYTES_PER_ATOM * m + 12 * b} bytes), "
+        f"{keys_bound[0] / keys_graph_ms:.3f} of it in a graph; ptxas "
+        f"(registers, spill stores) {regs}")
     binned = record("cell_keys", None, 0.0, keys_graph_ms, keys_plain_ms,
                     None, keys_bound)  # bit-equal, checked above
-    binned.update(call_ms=keys_call_ms)
+    binned.update(call_ms=keys_call_ms, replaced_graph_ms=sort_graph_ms,
+                  replaced_call_ms=sort_call_ms)
     return listed, binned, neighbor
 
 
@@ -1456,6 +1479,30 @@ def phase_count_studies(corpus_dir, device, build_logs):
     recount_bound(records["nibble_count"], "[studies]", planes, jlist, sphere,
                   work)
     lpasses, lk = _kernels.lane_passes(p)
+    pair_ms = records["pair64_count"]["ms"]
+    staged = r5.pair64_staged(jlist, jlist_a, jmask_b)
+    log(f"[studies] pair64_count {pair_ms / prod_ms:.3f}x fused_count on the "
+        f"same chunk; a CTA stages (4 CTAs a tile): pair64 "
+        f"{staged['pair64']['entries']:.3f} live entries and "
+        f"{staged['pair64']['chunks']:.3f} reach chunks, fused_count "
+        f"{staged['prod']['entries']:.3f} and {staged['prod']['chunks']:.3f} "
+        f"({staged['pair64']['entries'] / staged['prod']['entries']:.4f} and "
+        f"{staged['pair64']['chunks'] / staged['prod']['chunks']:.4f} of "
+        f"its)")
+    redesigned_log(
+        "[studies]", build_logs["pair64_count"],
+        f"pair64_count (L={_kernels.COUNT_LANES}, K={lk}, {lpasses} "
+        f"pass(es), a half's entries a CTA)", pair_ms,
+        (records["pair64_count"]["bound_ms"],
+         records["pair64_count"]["bound_by"]),
+        fk.needed_instructions(work, int((sphere[:, 3] > 0).sum())),
+        f"pair64_count_kernelILi{lk}E",
+        K1_SMEM + 16 * lpasses * _kernels.COUNT_LANES * lk)
+    regs = ptxas_entries(build_logs["pair64_count"])
+    log("[studies] pair64_count ptxas (registers, spill stores) by K: "
+        + ", ".join(f"K={kk} {v}" for kk in (1, 7, 16)
+                    for fn, v in regs.items()
+                    if f"pair64_count_kernelILi{kk}E" in fn))
     chunks = {name: r5.reach_chunks(lst, nibble=name == "nibble")
               for name, lst in (("nibble", jl), ("prod", jlist))}
     log(f"[studies] nibble_count {ms / prod_ms:.3f}x fused_count on the same "
@@ -1544,6 +1591,11 @@ def phase_count_studies(corpus_dir, device, build_logs):
         f"{per_entry['nibble']:.4f} (packed), fused_count "
         f"{per_entry['prod']:.4f} "
         f"({per_entry['nibble'] / per_entry['prod']:.4f} of its chunks)")
+    staged = pair["variants"]["pair64"]["per_cta"]
+    log(f"[studies] full size: a CTA stages, pair64 "
+        f"{staged['pair64']['entries']:.3f} live entries and "
+        f"{staged['pair64']['chunks']:.3f} reach chunks, fused_count "
+        f"{staged['prod']['entries']:.3f} and {staged['prod']['chunks']:.3f}")
     log(f"[studies] builders vs build_jlist_banded: " + ", ".join(
         f"{k} {v['ms']:.3f} ms" for k, v in pair["builders"].items()))
     log(f"[studies] streamed j-atoms/atom: prod "

@@ -44,8 +44,8 @@ MAX_P_PAD = 2048
 MAX_K = 16
 SLICES = 4
 # Lanes an i-atom gets in csrc/reach_ring.cuh's layout (kLanes: kernel 1,
-# saturation_count.cu, micro_count.cu, reach_count.cu, nibble_count.cu); a
-# lane holds up to MAX_K sphere points in a pass.
+# saturation_count.cu, micro_count.cu, reach_count.cu, nibble_count.cu,
+# pair64_count.cu); a lane holds up to MAX_K sphere points in a pass.
 COUNT_LANES = 16
 # Words a tile of csrc/saturation_count.cu shares its check through
 # (kSyncWords: each of up to 8 passes' saturated warps and largest first
@@ -110,7 +110,7 @@ _SIGNATURES = {
     **{name: [_VOIDP] * 5 + [_INT] * 3 + [_VOIDP] for name in KE_VARIANTS},
     "dequant_boxes": [_INT] + [_VOIDP] * 12 + [_INT, _VOIDP],
     "band_jlist": [_VOIDP] * 10 + [_INT] * 2 + [_VOIDP],
-    "cell_keys": [_VOIDP] * 5 + [_INT] * 2 + [_DOUBLE, _VOIDP],
+    "cell_keys": [_VOIDP] * 12 + [_INT] * 2 + [_DOUBLE, _VOIDP],
     "neighbor_cells": [_VOIDP] * 11 + [_INT] * 4 + [_FLOAT] * 2 + [_VOIDP],
 }
 # The source (csrc/<source>.cu) of each launch function not named after
@@ -129,6 +129,22 @@ MAX_BAND_SLOTS = 1 << 24
 # Structures a cell_keys or neighbor_cells batch may hold
 # (csrc/neighbor_cells.cu kMaxBatch).
 MAX_CELL_BATCH = 511
+
+
+class CellOrder(NamedTuple):
+    """The cell list of a [B, N] batch: keys [B*N] i64 by atom ((structure
+    << 54) | (cell x << 36) | (cell y << 18) | cell z, PAD_KEY for
+    padding), each structure's largest real radius max_r [B] f32 and cell
+    edge h [B] f64; the keys' stable sort, sorted_keys and perm [B*N] i64
+    (torch.sort(keys, stable=True)'s values and indices); and the atoms in
+    that order, sorted_packed [B*N, 4] f32 and sorted_gid [B*N] i32."""
+    keys: torch.Tensor
+    max_r: torch.Tensor
+    h: torch.Tensor
+    sorted_keys: torch.Tensor
+    perm: torch.Tensor
+    sorted_packed: torch.Tensor
+    sorted_gid: torch.Tensor
 
 
 class Boxes(NamedTuple):
@@ -400,12 +416,15 @@ def fused_count(planes, jlist, sphere, *, rows: bool = False):
 def pair64_count(planes, jlist_a, jmask_b, sphere):
     """Launch the per-half admission count kernel -> [M] i32.
 
-    As fused_count, but lanes 0-63 of a tile stream the groups of the
-    entry's mask A ((mask_a << 16) | j in jlist_a) and lanes 64-127 those
-    of mask B (the low 16 bits of the same cell of jmask_b).
+    As fused_count (planes 16-byte aligned, kernel 1's layout), but atoms
+    0-63 of a tile stream the groups of the entry's mask A ((mask_a << 16)
+    | j in jlist_a) and atoms 64-127 those of mask B (the low 16 bits of
+    the same cell of jmask_b).  Counts equal
+    r5_pair64.pair64_counts_reference's at every slot.
     """
     device, m, p = _count_inputs("pair64_count", planes, sphere,
                                  {"jlist_a": jlist_a, "jmask_b": jmask_b})
+    _aligned("pair64_count", planes)
     out = torch.empty(m, dtype=torch.int32, device=device)
     _launch("pair64_count", device, planes.data_ptr(), jlist_a.data_ptr(),
             jmask_b.data_ptr(), sphere.data_ptr(), out.data_ptr(), m, p)
@@ -800,23 +819,34 @@ def _cell_batch(packed, group_id):
     return device, b, n
 
 
-def cell_keys(packed, group_id, probe: float):
-    """Launch the list path's cell binning -> (keys [B*N] i64 by atom,
-    max_r [B] f32, h [B] f64), bit-equal to neighbors.cell_grid (its
-    keys, max_r and h).
+def cell_keys(packed, group_id, probe: float) -> CellOrder:
+    """Launch the list path's cell binning and ordering -> CellOrder,
+    bit-equal to neighbors.cell_order_reference (cell_grid, a stable
+    torch.sort of its keys and the gathers of packed and group_id).
 
     packed [B, N, 4] f32 (16-byte aligned), group_id [B, N] i32 (-1 =
     padding), contiguous on one CUDA device; 1 <= B <= MAX_CELL_BATCH.
+    One launch count for the two kernels (the binning, then the order);
+    the outputs and their scratch (12 bytes a slot twice, and 16 a
+    structure) are views of three allocations.
     """
     device, b, n = _cell_batch(packed, group_id)
     _on_cuda("cell_keys", device)
-    keys = torch.empty(b * n, dtype=torch.int64, device=device)
+    m = b * n
+    wide = torch.empty(5 * m + b, dtype=torch.int64, device=device)
+    narrow = torch.empty(4 * b + 3 * m, dtype=torch.int32, device=device)
+    sorted_packed = torch.empty((m, 4), dtype=torch.float32, device=device)
+    keys, sorted_keys, perm, tmp_keys = wide[:5 * m].split((m, m, m, 2 * m))
+    grid, sorted_gid, tmp_slots = narrow.split((4 * b, m, 2 * m))
+    h = wide[5 * m:].view(torch.float64)
     max_r = torch.empty(b, dtype=torch.float32, device=device)
-    h = torch.empty(b, dtype=torch.float64, device=device)
     _launch("cell_keys", device, packed.data_ptr(), group_id.data_ptr(),
-            keys.data_ptr(), max_r.data_ptr(), h.data_ptr(), b, n,
-            2.0 * probe)
-    return keys, max_r, h
+            keys.data_ptr(), max_r.data_ptr(), h.data_ptr(),
+            sorted_keys.data_ptr(), perm.data_ptr(), sorted_packed.data_ptr(),
+            sorted_gid.data_ptr(), grid.data_ptr(), tmp_keys.data_ptr(),
+            tmp_slots.data_ptr(), b, n, 2.0 * probe)
+    return CellOrder(keys, max_r, h, sorted_keys, perm, sorted_packed,
+                     sorted_gid)
 
 
 def neighbor_cells(packed, group_id, max_r, keys, sorted_keys, perm,
@@ -829,10 +859,11 @@ def neighbor_cells(packed, group_id, max_r, keys, sorted_keys, perm,
     packed [B, N, 4] f32 and sorted_packed [B*N, 4] f32 (16-byte
     aligned), group_id [B, N] i32 (-1 = padding) and sorted_gid [B*N]
     i32, max_r [B] f32 (each structure's largest real radius), keys
-    [B*N] i64 (cell_keys), sorted_keys and perm [B*N] i64 (a stable sort
-    of the keys), sorted_packed and sorted_gid the atoms in that order
-    (packed and group_id at perm), all contiguous on one CUDA device;
-    1 <= B <= MAX_CELL_BATCH, 1 <= k <= N, M4 = B*N rounded up to 4.
+    [B*N] i64, sorted_keys and perm [B*N] i64 (their stable sort),
+    sorted_packed and sorted_gid the atoms in that order (packed and
+    group_id at perm) - cell_keys' CellOrder - all contiguous on one CUDA
+    device; 1 <= B <= MAX_CELL_BATCH, 1 <= k <= N, M4 = B*N rounded up to
+    4.
     """
     device, b, n = _cell_batch(packed, group_id)
     m = b * n

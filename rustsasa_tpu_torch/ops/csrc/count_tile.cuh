@@ -3,24 +3,15 @@
 // micro_count.cu, reach_count.cu, maxplus_count.cu), for NVIDIA Hopper
 // (sm_90a).
 //
-// pair64_count.cu shares the layout below and changes only which j-groups
-// a thread streams.  fused_count.cu, saturation_count.cu, micro_count.cu,
-// reach_count.cu and nibble_count.cu take kernel 1's reach-skip layout
-// (reach_ring.cuh) and share the arithmetic, IAtom, load_i_atom,
-// load_points, count_accessible, row_v, row_lim, row_margins and the
-// reach-skip helpers at the end; maxplus_count.cu takes its own thread
-// layout and shares only the constants, IAtom, load_i_atom, stage_sphere
-// and RUSTSASA_SWITCH_K:
-//   * one CTA per 128-atom i-tile; 512 threads = 128 i-atoms x 4 point
-//     slices, a warp being 32 consecutive i-atoms of one slice (thread
-//     tid owns atom tid % 128 of slice tid / 128; pair64_count.cu places
-//     the warps otherwise), so atoms 0-63 and 64-127 are whole warps;
-//   * K <= 16 sphere points per thread in registers, a sphere of more
-//     than 4 x 16 points covered in passes (pass q holds points
-//     [q*4*K, (q+1)*4*K), see count_split);
-//   * an admitted j-tile's 5 x 128 records staged in shared memory;
-//   * every operation an explicitly rounded __f*_rn intrinsic in the
-//     reference's order, so counts equal the reference bit for bit.
+// fused_count.cu and the studies but maxplus_count.cu take kernel 1's
+// reach-skip layout (reach_ring.cuh) and share the arithmetic, IAtom,
+// load_i_atom, load_points, count_accessible, row_v, row_lim,
+// row_margins and the reach-skip helpers at the end; maxplus_count.cu
+// takes its own thread layout and shares only the constants, IAtom,
+// load_i_atom, stage_sphere and RUSTSASA_SWITCH_K; reach_count.cu's rule
+// kernel splits points as count_split does.  Every operation is an
+// explicitly rounded __f*_rn intrinsic in the reference's order, so
+// counts equal the reference bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -67,19 +58,6 @@ __device__ __forceinline__ void stage_sphere(float4* sph,
   }
 }
 
-// j-tile jt's records into shared memory, bracketed by the barriers that
-// keep the previous tile until it is consumed and publish this one.
-__device__ __forceinline__ void load_j_tile(float* jrec,
-                                            const float* __restrict__ planes,
-                                            int64_t mm, int jt) {
-  const int64_t jbase = static_cast<int64_t>(jt) * kAtomTile;
-  __syncthreads();
-  for (int q = threadIdx.x; q < kRecords * kAtomTile; q += kThreads) {
-    jrec[q] = planes[(q / kAtomTile) * mm + jbase + (q % kAtomTile)];
-  }
-  __syncthreads();
-}
-
 // Points [p0, p0 + K) of the staged sphere into registers, with running
 // max margins starting at -1e30 for valid points and at pad_init for pad
 // points (valid = 0).
@@ -108,17 +86,6 @@ __device__ __forceinline__ int count_accessible(const float4* sph, int p0,
     n += (occ[k] <= 0.0f && sph[p0 + k].w > 0.0f) ? 1 : 0;
   }
   return n;
-}
-
-// Sums atom a's accessible points over the slices into out[i]; every
-// thread of the CTA calls it once, after its last pass.
-__device__ __forceinline__ void write_count(int* cnt, int a, int slice,
-                                            int accessible,
-                                            int32_t* __restrict__ out,
-                                            int64_t i) {
-  atomicAdd(&cnt[a], accessible);
-  __syncthreads();
-  if (slice == 0) out[i] = cnt[a];
 }
 
 // v = c_i - c_j for j-row jj of the staged tile; returns
@@ -164,36 +131,9 @@ __device__ __forceinline__ void row_margins(float vx, float vy, float vz,
   }
 }
 
-// Max-accumulates the margins of j-row jj of the staged tile into occ.
-template <int K>
-__device__ __forceinline__ void stream_row(const float* jrec, int jj,
-                                           const IAtom& at,
-                                           const float (&sx)[K],
-                                           const float (&sy)[K],
-                                           const float (&sz)[K],
-                                           float (&occ)[K]) {
-  float vx, vy, vz;
-  const float lim = row_lim(jrec, jj, at, vx, vy, vz);
-  row_margins<K>(vx, vy, vz, lim, sx, sy, sz, occ);
-}
-
-// Max-accumulates the margins of the 8 j-atoms of group g into occ.
-template <int K>
-__device__ __forceinline__ void stream_group(const float* jrec, int g,
-                                             const IAtom& at,
-                                             const float (&sx)[K],
-                                             const float (&sy)[K],
-                                             const float (&sz)[K],
-                                             float (&occ)[K]) {
-#pragma unroll
-  for (int r = 0; r < kJGroup; ++r) {
-    stream_row<K>(jrec, g * kJGroup + r, at, sx, sy, sz, occ);
-  }
-}
-
 // ---- the reach skip of kernel 1's layout (fused_count.cu keep_pair;
-// saturation_count.cu, micro_count.cu, reach_count.cu and
-// nibble_count.cu keep_row) ----
+// saturation_count.cu, micro_count.cu, reach_count.cu, nibble_count.cu
+// and pair64_count.cu keep_row) ----
 //
 // A j-row may be left out of an i-atom's max only where all its rounded
 // margins are <= 0, so that the count does not move.  keep_pair is that
@@ -239,7 +179,7 @@ constexpr float kTinyReach2 = 0x1p-30f;
 
 // keep_pair for the study kernels on kernel 1's layout
 // (saturation_count.cu, micro_count.cu, reach_count.cu,
-// nibble_count.cu), whose counts stay the
+// nibble_count.cu, pair64_count.cu), whose counts stay the
 // reference's at padding slots too, and whose tile-saturation check sees
 // padding atoms' margins: the i-atom's gid drops no row.  Rows are
 // dropped where gid_j == 0 or gid_j == gid_i (lim is -1e30 there) and,
@@ -322,12 +262,6 @@ inline bool count_split(int p, int* passes, int* k) {
   *passes = (p + kSlices * kMaxK - 1) / (kSlices * kMaxK);
   *k = (p + kSlices * *passes - 1) / (kSlices * *passes);
   return true;
-}
-
-// Dynamic shared memory: the padded sphere, one j-tile, 128 counters.
-inline size_t count_smem(int passes, int k) {
-  return sizeof(float4) * passes * kSlices * k +
-         sizeof(float) * kRecords * kAtomTile + sizeof(int) * kAtomTile;
 }
 
 }  // namespace rustsasa

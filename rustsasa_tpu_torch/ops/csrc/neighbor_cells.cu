@@ -1,30 +1,68 @@
 // Neighbor phase of the list path for NVIDIA Hopper (sm_90a), plain C
-// interface: the cell binning (cell_keys) and a cell list that writes the
-// occlusion kernel's K-major records (neighbor_cells).
+// interface: the cell binning and ordering (cell_keys) and a cell list
+// that writes the occlusion kernel's K-major records (neighbor_cells).
 //
 // Replaces the XLA device code of the JAX package's list path,
 // rustsasa_tpu/ops/engine.py:138-211 (_neighbor_phase: a full-FP32
 // [rows, N] d^2 expansion, a cutoff mask, lax.top_k of the K nearest and
 // a gather of v and the limits), for a whole [B, N] batch.
 //
-// ops/neighbors.py, neighbor_records, runs on the card:
-//   1. cell_keys: each structure's largest real radius max_r, cell edge h
-//      and lowest corner, then each atom's cell key (structure << 54 |
-//      cell x << 36 | cell y << 18 | cell z; padding INT64_MAX), all in
-//      f64 as neighbors.cell_grid computes them, bit for bit;
-//   2. a stable torch.sort of the keys (bookkeeping the reference's
-//      arithmetic has no counterpart for), and packed and gid gathered
-//      into sorted order (two index_selects): a cell's atoms are then
-//      contiguous float4s;
-//   3. neighbor_cells: the records [4][K][m4] (vx, vy, vz, limit planes,
+// ops/neighbors.py, neighbor_records, launches two functions on the card:
+//   1. cell_keys, two kernels (one launch count):
+//      a. cell_keys_kernel: each structure's largest real radius max_r,
+//         cell edge h and lowest corner, then each atom's cell key
+//         (structure << 54 | cell x << 36 | cell y << 18 | cell z;
+//         padding INT64_MAX), all in f64 as neighbors.cell_grid computes
+//         them, bit for bit, and each structure's real atoms and occupied
+//         cells an axis;
+//      b. cell_order_kernel: the keys' stable sort (sorted keys and perm,
+//         equal to torch.sort(keys, stable=True)'s) with packed and gid
+//         gathered into that order, so a cell's atoms are contiguous
+//         float4s.  The sort is the port's bookkeeping: the reference's
+//         arithmetic has no counterpart for it;
+//   2. neighbor_cells: the records [4][K][m4] (vx, vy, vz, limit planes,
 //      K-major, m4 = B*N rounded up to 4), counts [B*N] and max_count.
 //
-// cell_keys.  One cluster of kCluster CTAs a structure: each CTA reduces
-// an eighth of the structure's atoms (max radius, f32 corners, the f64
-// r2 = (x*x + y*y) + z*z), the CTAs read one another's partials through
-// distributed shared memory, and each computes the edge and its atoms'
-// keys.  Bound: bytes (packed and gid read, keys written); a launch of
-// ~1 MB for the largest test structure.
+// cell_keys_kernel.  One cluster a structure, of one CTA for each 2,048
+// slots up to kCluster = 8 (cluster_ctas; 8 for 1jz8): each CTA reduces
+// its share of the structure's atoms (max radius, f32 corners,
+// the f64 r2 = (x*x + y*y) + z*z, the real atoms), the CTAs read one
+// another's partials through distributed shared memory, and each
+// computes the edge and its atoms' keys.  The structure's occupied cells
+// an axis are n = cell(hi) + 1 from its highest corner hi: cell(c) =
+// floor((c - lo) / h), each step rounded once, is monotone in c, and the
+// lowest corner's cell is 0.
+//
+// cell_order_kernel.  The same clusters, each of the structure's warps
+// (8 a CTA) owning a run of consecutive slots.
+// Within a structure the key orders as the dense cell index d = (cx ny +
+// cy) nz + cz < C = nx ny nz (mixed radix), a padding slot taking d = C,
+// so a stable sort by d is the keys' stable sort.  d needs bits(C) bits,
+// sorted in LSD passes of at most 8 bits (two of 7 for 1jz8's 14), up to
+// 55 bits in 7 passes (2^18 cells an axis; the edge's D2_ERR term keeps
+// h >= 2^-9.5 max |c|, so a batch binned here has at most ~2^10.5 cells
+// an axis and takes at most 4 passes); each pass is stable:
+//   * each warp counts its run's digits (__match_any_sync over 32 slots
+//     a step; the group's lowest lane adds for it) into its own 256 bins
+//     in shared memory;
+//   * a slot's place is the slots of lower digits in the structure, plus
+//     those of its digit in lower warps - the warps before it in its CTA,
+//     then the CTAs before it, whose totals each CTA reads through
+//     distributed shared memory - plus those before it in its own warp
+//     (its lanes below it in the step, the steps before);
+//   * a warp holds kSteps steps of its run in registers, loaded together
+//     (its whole run, from one load a pass, for N <= 32,768); the (key,
+//     slot) pairs go through a device scratch buffer of 2 x B*N pairs
+//     between passes (12 bytes a slot each; L2-resident for 1jz8's 0.4 MB
+//     a buffer), read and written past L1.  Shared memory holds only the
+//     bins, so no N is too large for it.  On 1jz8 a pass takes ~0.013 ms
+//     (scripts/layout_probe.py's cut builds; PERF.md).
+// The last pass writes each slot to its place in the batch: structure
+// s's real atoms start after the real atoms of the structures before it
+// (each CTA sums the first kernel's counts, B <= 511 of them), and every
+// padding slot follows all real ones, in index order, as the stable sort
+// of the whole batch puts them.  Bound: bytes (packed and gid read; keys,
+// sorted keys, perm, sorted packed and sorted gid written: 64 an atom).
 //
 // neighbor_cells.  A CTA owns kRows consecutive rows i (atom slots in index
 // order: a protein's consecutive atoms share cells), one warp a row.
@@ -134,24 +172,33 @@ constexpr int kMinCtas = 3;
 constexpr int kColumns = 9;
 constexpr int kWays = 4;  // parts a search step splits its range into
 
-// cell_keys: CTAs a structure (one cluster) and threads a CTA; the cell
-// edge's slack (neighbors.D2_ERR, 1 + neighbors.H_SLACK).
+// cell_keys: the most CTAs a structure (one cluster), the slots that
+// take one more (cluster_ctas), threads a CTA; the cell edge's slack
+// (neighbors.D2_ERR, 1 + neighbors.H_SLACK).
 constexpr int kCluster = 8;
+constexpr int kClusterSlots = 2048;
 constexpr int kKeyThreads = 256;
+constexpr int kKeyUnroll = 4;  // atoms a thread loads at once
 constexpr double kD2Err = 1.0 / (1 << 19);
 constexpr double kHSlack = 1.0 + 1.0 / (1 << 20);
+// cell_order: warps a CTA (kKeyThreads threads, one run of slots each),
+// the bins of a digit pass (at most 8 bits).
+constexpr int kOrderWarps = kKeyThreads / 32;
+constexpr int kDigitBits = 8;
+constexpr int kBins = 1 << kDigitBits;
+constexpr int kSteps = 16;  // 32-slot steps a warp holds in registers
+static_assert(kBins == kKeyThreads, "a thread a bin");
 
 // ---------------------------------------------------------------- cell_keys
 
 // A part of a structure's real atoms: the largest radius (0 if none),
-// the f32 corners, the largest (x*x + y*y) + z*z in f64, and whether it
-// holds any atom.
+// the f32 corners, the largest (x*x + y*y) + z*z in f64, and how many.
 struct Extent {
   float max_r;
   float lo[3];
   float hi[3];
   double r2;
-  int any;
+  int n;
 };
 
 __device__ __forceinline__ void empty_extent(Extent& e) {
@@ -161,7 +208,7 @@ __device__ __forceinline__ void empty_extent(Extent& e) {
     e.hi[a] = __int_as_float(0xff800000);  // -inf
   }
   e.r2 = 0.0;
-  e.any = 0;
+  e.n = 0;
 }
 
 __device__ __forceinline__ void merge(Extent& e, const Extent& o) {
@@ -171,7 +218,7 @@ __device__ __forceinline__ void merge(Extent& e, const Extent& o) {
     e.hi[a] = fmaxf(e.hi[a], o.hi[a]);
   }
   e.r2 = fmax(e.r2, o.r2);
-  e.any |= o.any;
+  e.n += o.n;
 }
 
 __device__ __forceinline__ Extent shfl_extent(const Extent& e, int delta) {
@@ -182,45 +229,77 @@ __device__ __forceinline__ Extent shfl_extent(const Extent& e, int delta) {
     o.hi[a] = __shfl_down_sync(kFull, e.hi[a], delta);
   }
   o.r2 = __shfl_down_sync(kFull, e.r2, delta);
-  o.any = __shfl_down_sync(kFull, e.any, delta);
+  o.n = __shfl_down_sync(kFull, e.n, delta);
   return o;
 }
 
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kKeyThreads)
+// The cell of coordinate c on an axis from the structure's lowest corner
+// lo: floor((c - lo) / h), each step rounded once, clamped to [0,
+// kCellMax]; monotone in c.
+__device__ __forceinline__ int cell_of(double c, double lo, double h) {
+  const double q = floor(__ddiv_rn(__dsub_rn(c, lo), h));
+  return static_cast<int>(fmin(fmax(q, 0.0), static_cast<double>(kCellMax)));
+}
+
+// The CTAs of a structure's cluster in both kernels: one for each
+// kClusterSlots of its n slots, at most kCluster (a batch of small
+// structures takes one CTA each, not kCluster mostly idle ones).
+int cluster_ctas(int n) {
+  const int ctas = (n - 1) / kClusterSlots + 1;
+  return ctas < kCluster ? ctas : kCluster;
+}
+
+__global__ void __launch_bounds__(kKeyThreads)
 cell_keys_kernel(const float4* __restrict__ packed,
                  const int* __restrict__ gid, int n, double two_probe,
                  int64_t* __restrict__ keys, float* __restrict__ max_r_out,
-                 double* __restrict__ h_out) {
+                 double* __restrict__ h_out, int4* __restrict__ grid_out) {
   __shared__ Extent warps[kKeyThreads / 32];
   __shared__ Extent part;     // this CTA's atoms, read by the cluster
   __shared__ double cell[4];  // lo x, y, z and h of the structure
   cg::cluster_group cluster = cg::this_cluster();
-  const int s = blockIdx.x / kCluster;
+  const int ctas = static_cast<int>(cluster.num_blocks());
+  const int s = blockIdx.x / ctas;
   const int rank = static_cast<int>(cluster.block_rank());
   const int64_t base = static_cast<int64_t>(s) * n;
-  const int per = (n + kCluster - 1) / kCluster;
+  const int per = (n + ctas - 1) / ctas;
   const int first = rank * per;
   const int last = min(n, first + per);
 
+  // Atoms kKeyUnroll at a time, their loads issued together.
   Extent e;
   empty_extent(e);
-  for (int i = first + threadIdx.x; i < last; i += kKeyThreads) {
-    if (__ldg(gid + base + i) < 0) continue;
-    const float4 c = __ldg(packed + base + i);
-    const double x = c.x, y = c.y, z = c.z;
-    e.max_r = fmaxf(e.max_r, c.w);
-    e.lo[0] = fminf(e.lo[0], c.x);
-    e.lo[1] = fminf(e.lo[1], c.y);
-    e.lo[2] = fminf(e.lo[2], c.z);
-    e.hi[0] = fmaxf(e.hi[0], c.x);
-    e.hi[1] = fmaxf(e.hi[1], c.y);
-    e.hi[2] = fmaxf(e.hi[2], c.z);
-    e.r2 = fmax(e.r2, __dadd_rn(__dadd_rn(__dmul_rn(x, x), __dmul_rn(y, y)),
-                                __dmul_rn(z, z)));
-    e.any = 1;
+  for (int i0 = first + threadIdx.x; i0 < last;
+       i0 += kKeyUnroll * kKeyThreads) {
+    int g[kKeyUnroll];
+    float4 cs[kKeyUnroll];
+#pragma unroll
+    for (int u = 0; u < kKeyUnroll; ++u) {
+      const int i = i0 + u * kKeyThreads;
+      g[u] = i < last ? __ldg(gid + base + i) : -1;
+      cs[u] = i < last ? __ldg(packed + base + i)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < kKeyUnroll; ++u) {
+      if (g[u] < 0) continue;
+      const float4 c = cs[u];
+      const double x = c.x, y = c.y, z = c.z;
+      e.max_r = fmaxf(e.max_r, c.w);
+      e.lo[0] = fminf(e.lo[0], c.x);
+      e.lo[1] = fminf(e.lo[1], c.y);
+      e.lo[2] = fminf(e.lo[2], c.z);
+      e.hi[0] = fmaxf(e.hi[0], c.x);
+      e.hi[1] = fmaxf(e.hi[1], c.y);
+      e.hi[2] = fmaxf(e.hi[2], c.z);
+      e.r2 = fmax(e.r2, __dadd_rn(__dadd_rn(__dmul_rn(x, x),
+                                            __dmul_rn(y, y)),
+                                  __dmul_rn(z, z)));
+      e.n += 1;
+    }
   }
   // Maxima and minima are exact: any order of merging gives the same
-  // extent.
+  // extent (the count is lane 0's, a tree over the warp).
   for (int d = 16; d > 0; d >>= 1) merge(e, shfl_extent(e, d));
   const int warp = threadIdx.x / 32;
   if (threadIdx.x % 32 == 0) warps[warp] = e;
@@ -233,15 +312,17 @@ cell_keys_kernel(const float4* __restrict__ packed,
   if (threadIdx.x == 0) {
     Extent all;
     empty_extent(all);
-    for (int r = 0; r < kCluster; ++r) {
+    for (int r = 0; r < ctas; ++r) {
       merge(all, *cluster.map_shared_rank(&part, r));
     }
     double lo[3];
     double span = 0.0;
+    double hi[3];
     for (int a = 0; a < 3; ++a) {
-      lo[a] = all.any ? static_cast<double>(all.lo[a]) : 0.0;
-      const double hi = all.any ? static_cast<double>(all.hi[a]) : 0.0;
-      span = a == 0 ? __dsub_rn(hi, lo[a]) : fmax(span, __dsub_rn(hi, lo[a]));
+      lo[a] = all.n ? static_cast<double>(all.lo[a]) : 0.0;
+      hi[a] = all.n ? static_cast<double>(all.hi[a]) : 0.0;
+      span = a == 0 ? __dsub_rn(hi[a], lo[a])
+                    : fmax(span, __dsub_rn(hi[a], lo[a]));
       cell[a] = lo[a];
     }
     // neighbors.cell_grid: cut = 2 max_r + 2 probe, thr = cut^2 + 1e-3,
@@ -258,25 +339,261 @@ cell_keys_kernel(const float4* __restrict__ packed,
     if (rank == 0) {
       max_r_out[s] = all.max_r;
       h_out[s] = h;
+      int cells[3];
+      for (int a = 0; a < 3; ++a) cells[a] = cell_of(hi[a], lo[a], h) + 1;
+      grid_out[s] = make_int4(all.n, cells[0], cells[1], cells[2]);
     }
   }
   // Every CTA has read the others' partials (none may exit before), and
   // cell[] is set.
   cluster.sync();
   const double h = cell[3];
-  for (int i = first + threadIdx.x; i < last; i += kKeyThreads) {
-    int64_t key = kPadKey;
-    if (__ldg(gid + base + i) >= 0) {
-      const float4 c = __ldg(packed + base + i);
-      const float xyz[3] = {c.x, c.y, c.z};
-      key = static_cast<int64_t>(s) << kStructShift;
-      for (int a = 0; a < 3; ++a) {
-        double q = floor(__ddiv_rn(__dsub_rn(xyz[a], cell[a]), h));
-        q = fmin(fmax(q, 0.0), static_cast<double>(kCellMax));
-        key |= static_cast<int64_t>(q) << ((2 - a) * kCellBits);
+  for (int i0 = first + threadIdx.x; i0 < last;
+       i0 += kKeyUnroll * kKeyThreads) {
+    int g[kKeyUnroll];
+    float4 cs[kKeyUnroll];
+#pragma unroll
+    for (int u = 0; u < kKeyUnroll; ++u) {
+      const int i = i0 + u * kKeyThreads;
+      g[u] = i < last ? __ldg(gid + base + i) : -1;
+      cs[u] = i < last ? __ldg(packed + base + i)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int u = 0; u < kKeyUnroll; ++u) {
+      const int i = i0 + u * kKeyThreads;
+      if (i >= last) break;
+      int64_t key = kPadKey;
+      if (g[u] >= 0) {
+        const float xyz[3] = {cs[u].x, cs[u].y, cs[u].z};
+        key = static_cast<int64_t>(s) << kStructShift;
+        for (int a = 0; a < 3; ++a) {
+          key |= static_cast<int64_t>(cell_of(xyz[a], cell[a], h))
+                 << ((2 - a) * kCellBits);
+        }
+      }
+      keys[base + i] = key;
+    }
+  }
+}
+
+// ----------------------------------------------------------- cell_order
+
+// A structure's dense cells (cell_keys_kernel's grid: real atoms, cells
+// an axis) and a digit pass over them.
+struct DenseCells {
+  uint64_t ny, nz, pad;  // pad = nx ny nz, the padding slots' index
+  int shift, mask;
+  // The digit of the pass of the dense index of `key`.
+  __device__ __forceinline__ int digit(int64_t key) const {
+    const uint64_t d =
+        key == kPadKey
+            ? pad
+            : (static_cast<uint64_t>((key >> (2 * kCellBits)) & kCellMax) *
+                   ny +
+               static_cast<uint64_t>((key >> kCellBits) & kCellMax)) *
+                      nz +
+                  static_cast<uint64_t>(key & kCellMax);
+    return static_cast<int>(d >> shift) & mask;
+  }
+};
+
+// Exclusive prefix sum of v over the CTA's threads (kKeyThreads);
+// scratch holds kOrderWarps ints.  Every thread calls it.
+__device__ __forceinline__ int cta_exclusive_sum(int v, int* scratch) {
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  int incl = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += u;
+  }
+  if (lane == 31) scratch[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  for (int w = 0; w < warp; ++w) before += scratch[w];
+  __syncthreads();
+  return before + incl - v;
+}
+
+// The sum over the CTA's threads of v, on every thread.
+__device__ __forceinline__ int cta_sum(int v, int* scratch) {
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = v;
+  __syncthreads();
+  int all = 0;
+  for (int w = 0; w < kOrderWarps; ++w) all += scratch[w];
+  __syncthreads();
+  return all;
+}
+
+struct OrderOut {
+  int64_t* sorted_keys;
+  int64_t* perm;
+  float4* sorted_packed;
+  int* sorted_gid;
+};
+
+__global__ void __launch_bounds__(kKeyThreads)
+cell_order_kernel(const int4* __restrict__ grid,  // [b] cell_keys_kernel's
+                  const int64_t* __restrict__ keys,
+                  const float4* __restrict__ packed,
+                  const int* __restrict__ gid, int b, int n,
+                  int64_t* tmp_keys,  // [2][b*n]
+                  int* tmp_slots,     // [2][b*n]
+                  OrderOut out) {
+  __shared__ int bins[kOrderWarps][kBins + 1];  // kBins: lanes past the run
+  __shared__ int cta_total[kBins];
+  __shared__ int scratch[kOrderWarps];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ctas = static_cast<int>(cluster.num_blocks());
+  const int s = blockIdx.x / ctas;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const unsigned below = (1u << lane) - 1u;
+  const int64_t m = static_cast<int64_t>(b) * n;
+  const int64_t base = static_cast<int64_t>(s) * n;
+
+  // The real atoms of the structures before this one and of all.
+  int before = 0;
+  int total = 0;
+  for (int t = threadIdx.x; t < b; t += kKeyThreads) {
+    const int c = __ldg(&grid[t].x);
+    total += c;
+    before += t < s ? c : 0;
+  }
+  const int64_t real_before = cta_sum(before, scratch);
+  const int64_t real_all = cta_sum(total, scratch);
+  const int4 g = __ldg(grid + s);
+  const int real = g.x;
+  DenseCells dc;
+  dc.ny = static_cast<uint64_t>(g.z);
+  dc.nz = static_cast<uint64_t>(g.w);
+  dc.pad = static_cast<uint64_t>(g.y) * dc.ny * dc.nz;
+  const int bits = 64 - __clzll(static_cast<long long>(dc.pad));
+  const int passes = (bits + kDigitBits - 1) / kDigitBits;
+  const int width = (bits + passes - 1) / passes;
+  dc.mask = (1 << width) - 1;
+
+  // This warp's run of slots, whole steps of 32, held kSteps steps at a
+  // time in registers (the whole run when n <= 32,768).
+  const int segments = ctas * kOrderWarps;
+  const int run = ((n + segments - 1) / segments + 31) / 32 * 32;
+  const int lo = (rank * kOrderWarps + warp) * run;
+  const int hi = min(n, lo + run);
+  const bool resident = run <= 32 * kSteps;
+  int64_t key[kSteps];
+  int slot[kSteps];
+
+  for (int pass = 0; pass < passes; ++pass) {
+    const bool last = pass == passes - 1;
+    const int64_t* src_keys = tmp_keys + ((pass - 1) & 1) * m + base;
+    const int* src_slots = tmp_slots + ((pass - 1) & 1) * m + base;
+    int64_t* dst_keys = tmp_keys + (pass & 1) * m + base;
+    int* dst_slots = tmp_slots + (pass & 1) * m + base;
+    dc.shift = pass * width;
+    // Steps c0, c0 + 32, ... of the run into key[], slot[], loads issued
+    // together.
+    auto load = [&](int c0) {
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        const int e = c0 + 32 * j + lane;
+        if (e >= hi) break;
+        if (pass == 0) {
+          key[j] = __ldg(keys + base + e);
+          slot[j] = e;
+        } else {
+          key[j] = __ldcg(src_keys + e);
+          slot[j] = __ldcg(src_slots + e);
+        }
+      }
+    };
+
+    for (int t = threadIdx.x; t < kOrderWarps * (kBins + 1);
+         t += kKeyThreads) {
+      (&bins[0][0])[t] = 0;
+    }
+    __syncthreads();
+    // Each warp's digit counts over its run.
+    for (int c0 = lo; c0 < hi; c0 += 32 * kSteps) {
+      load(c0);
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        if (c0 + 32 * j >= hi) break;  // uniform over the warp
+        const int digit = c0 + 32 * j + lane < hi ? dc.digit(key[j]) : kBins;
+        const unsigned peers = __match_any_sync(kFull, digit);
+        if (lane == __ffs(peers) - 1) bins[warp][digit] += __popc(peers);
+        __syncwarp();
       }
     }
-    keys[base + i] = key;
+    __syncthreads();
+    // Bin t: its counts before each warp of the CTA, and the CTA's total.
+    {
+      const int t = threadIdx.x;
+      int sum = 0;
+      for (int w = 0; w < kOrderWarps; ++w) {
+        const int c = bins[w][t];
+        bins[w][t] = sum;
+        sum += c;
+      }
+      cta_total[t] = sum;
+    }
+    cluster.sync();
+    // Bin t's place: the structure's slots of lower digits, then its own
+    // digit's in the CTAs before this one.
+    {
+      const int t = threadIdx.x;
+      int all = 0;
+      int earlier = 0;
+      for (int r = 0; r < ctas; ++r) {
+        const int c = cluster.map_shared_rank(cta_total, r)[t];
+        all += c;
+        earlier += r < rank ? c : 0;
+      }
+      const int place = cta_exclusive_sum(all, scratch) + earlier;
+      for (int w = 0; w < kOrderWarps; ++w) bins[w][t] += place;
+    }
+    __syncthreads();
+    // Each slot to its place, in order within its warp's run: the places
+    // of a chunk's steps first, then their stores (and the last pass's
+    // gathers), issued together.
+    for (int c0 = lo; c0 < hi; c0 += 32 * kSteps) {
+      if (!resident) load(c0);
+      int at[kSteps];
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        if (c0 + 32 * j >= hi) break;
+        const int digit = c0 + 32 * j + lane < hi ? dc.digit(key[j]) : kBins;
+        const unsigned peers = __match_any_sync(kFull, digit);
+        at[j] = bins[warp][digit] + __popc(peers & below);
+        __syncwarp();
+        if (lane == __ffs(peers) - 1) bins[warp][digit] += __popc(peers);
+        __syncwarp();
+      }
+#pragma unroll
+      for (int j = 0; j < kSteps; ++j) {
+        if (c0 + 32 * j + lane >= hi) break;
+        if (!last) {
+          __stcg(dst_keys + at[j], key[j]);
+          __stcg(dst_slots + at[j], slot[j]);
+          continue;
+        }
+        // The batch's place: real atoms after those of the structures
+        // before, padding after every real atom, in index order.
+        const int64_t p = at[j] < real
+                              ? real_before + at[j]
+                              : real_all + (base - real_before) +
+                                    (at[j] - real);
+        const int64_t atom = base + slot[j];
+        out.sorted_keys[p] = key[j];
+        out.perm[p] = atom;
+        out.sorted_packed[p] = __ldg(packed + atom);
+        out.sorted_gid[p] = __ldg(gid + atom);
+      }
+    }
+    // The pass's pairs are in place, and no CTA reads cta_total again.
+    cluster.sync();
   }
 }
 
@@ -602,23 +919,53 @@ neighbor_cells_kernel(Inputs in, float* __restrict__ planes,
 
 }  // namespace
 
-// Launches cell_keys on `stream` without synchronizing.  packed f32
-// [b*n, 4] (16-byte aligned), gid i32 [b*n]; writes keys i64 [b*n],
-// max_r f32 [b] and h f64 [b].  1 <= b <= 511, n >= 1, b*n < 2^31.
-// Returns the cudaError_t of the launch.
+// Launches cell_keys on `stream` without synchronizing: the binning
+// kernel, then the ordering kernel.  packed f32 [b*n, 4] (16-byte
+// aligned), gid i32 [b*n]; writes keys i64 [b*n], max_r f32 [b], h f64
+// [b], sorted_keys and perm i64 [b*n] (the keys' stable sort), and
+// packed and gid at perm, sorted_packed f32 [b*n, 4] (16-byte aligned)
+// and sorted_gid i32 [b*n]; grid i32 [b, 4] (16-byte aligned) and
+// tmp_keys i64 [2, b*n], tmp_slots i32 [2, b*n] are scratch.  1 <= b <=
+// 511, n >= 1, b*n < 2^31.  Returns the cudaError_t of the launches.
 extern "C" int cell_keys_launch(const void* packed, const void* gid,
-                                void* keys, void* max_r, void* h, int b,
-                                int n, double two_probe, void* stream) {
+                                void* keys, void* max_r, void* h,
+                                void* sorted_keys, void* perm,
+                                void* sorted_packed, void* sorted_gid,
+                                void* grid, void* tmp_keys, void* tmp_slots,
+                                int b, int n, double two_probe,
+                                void* stream) {
   if (b < 1 || b > kMaxBatch || n < 1 ||
       static_cast<int64_t>(b) * n >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cell_keys_kernel<<<b * kCluster, kKeyThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(packed), static_cast<const int*>(gid), n,
-      two_probe, static_cast<int64_t*>(keys), static_cast<float*>(max_r),
-      static_cast<double*>(h));
-  return static_cast<int>(cudaGetLastError());
+  const int ctas = cluster_ctas(n);
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = ctas;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(b * ctas);
+  config.blockDim = dim3(kKeyThreads);
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  cudaError_t rc = cudaLaunchKernelEx(
+      &config, cell_keys_kernel, static_cast<const float4*>(packed),
+      static_cast<const int*>(gid), n, two_probe,
+      static_cast<int64_t*>(keys), static_cast<float*>(max_r),
+      static_cast<double*>(h), static_cast<int4*>(grid));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  rc = cudaLaunchKernelEx(
+      &config, cell_order_kernel, static_cast<const int4*>(grid),
+      static_cast<const int64_t*>(keys), static_cast<const float4*>(packed),
+      static_cast<const int*>(gid), b, n, static_cast<int64_t*>(tmp_keys),
+      static_cast<int*>(tmp_slots),
+      OrderOut{static_cast<int64_t*>(sorted_keys),
+               static_cast<int64_t*>(perm),
+               static_cast<float4*>(sorted_packed),
+               static_cast<int*>(sorted_gid)});
+  return static_cast<int>(rc);
 }
 
 // Launches neighbor_cells on `stream` without synchronizing.  packed and

@@ -1,7 +1,7 @@
 // The count kernel's reach-skip layout for NVIDIA Hopper (sm_90a), shared
 // by fused_count.cu (kernel 1, whose header describes the design and
 // derives keep_pair) and the studies rebuilt on it, saturation_count.cu,
-// micro_count.cu, reach_count.cu and nibble_count.cu:
+// micro_count.cu, reach_count.cu, nibble_count.cu and pair64_count.cu:
 //   * a CTA is 32 i-atoms of a 128-atom i-tile (kQuarters CTAs a tile),
 //     an atom kLanes = 16 lanes, each holding K sphere points and their
 //     running maxima in registers; a warp is kWarpAtoms = 2 atoms;
@@ -174,18 +174,26 @@ __device__ __forceinline__ int produce(int g, int next, int total,
 // Staging by warp 0: the tile's live entries in order into sm.ents (with
 // their j-list positions into pos where kPos), their count, and the
 // ring's barriers.  An entry is live when its j-tile is in the chunk and,
-// unless kAnyMask, some group bit is set.
-template <bool kAnyMask, bool kPos>
+// unless kAnyMask, some group bit is set.  With kMaskRow an entry's group
+// bits are the low 16 bits of mask_row's cell in place of its own high
+// 16 (pair64_count.cu's mask B), staged as (mask << 16) | j_tile.
+template <bool kAnyMask, bool kPos, bool kMaskRow = false>
 __device__ __forceinline__ void stage_entries(const RingSmem& sm,
                                               uint8_t* pos,
                                               const int32_t* row,
                                               int n_entries, int n_tiles,
-                                              int lane) {
+                                              int lane,
+                                              const int32_t* mask_row =
+                                                  nullptr) {
   int n = 0;
   for (int e0 = 0; e0 < n_entries; e0 += 32) {
     const int e = e0 + lane;
-    const uint32_t ent =
-        e < n_entries ? static_cast<uint32_t>(row[1 + e]) : 0u;
+    uint32_t ent = e < n_entries ? static_cast<uint32_t>(row[1 + e]) : 0u;
+    if constexpr (kMaskRow) {
+      ent = (ent & 0xFFFFu) |
+            (e < n_entries ? static_cast<uint32_t>(mask_row[1 + e]) << 16
+                           : 0u);
+    }
     const bool live = (kAnyMask ? e < n_entries : (ent >> 16) != 0u) &&
                       static_cast<int>(ent & 0xFFFFu) < n_tiles;
     const uint32_t b = __ballot_sync(kFullWarp, live);

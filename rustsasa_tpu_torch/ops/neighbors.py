@@ -11,12 +11,13 @@ runs 50,000) and structures whose host-cull j-lists overflow.
      2 probe is a candidate, and the K nearest are kept.  The caller
      re-runs with a larger K while any row has more candidates than K:
      no silent truncation.  On CUDA this is `csrc/neighbor_cells.cu` over
-     a whole [B, N] batch: its cell binning kernel (`cell_keys`, whose
-     plain version is `cell_grid`), a stable sort, and its cell-list
-     kernel, which writes the records K-major, as the occlusion kernel
-     reads them; `neighbor_records_reference` is the plain-torch version
-     (the dense expansion and top-k of `_neighbor_phase`, structure by
-     structure), taken only for CPU tensors.
+     a whole [B, N] batch: its cell binning and ordering (`cell_keys`,
+     whose plain version is `cell_order_reference`: `cell_grid`, a stable
+     sort and the sorted gathers), and its cell-list kernel, which writes
+     the records K-major, as the occlusion kernel reads them;
+     `neighbor_records_reference` is the plain-torch version (the dense
+     expansion and top-k of `_neighbor_phase`, structure by structure),
+     taken only for CPU tensors.
   2. Occlusion: point s of atom i is occluded iff some neighbor k has
      (sx*vx + sy*vy) + sz*vz < limit_k.  On CUDA this is the hand-written
      kernel `csrc/list_occlusion.cu` (replacing the Pallas
@@ -216,13 +217,14 @@ class CellGrid(NamedTuple):
 
 
 def cell_grid(packed, group_id, probe: float) -> CellGrid:
-    """Plain version of csrc/neighbor_cells.cu's cell_keys: bin a [B, N]
+    """Plain version of csrc/neighbor_cells.cu's binning kernel: bin a [B, N]
     batch's real atoms into cells of edge h (f64): cell = floor((c - lo)
     / h) per axis from the structure's lowest corner lo, h as D2_ERR
     says, and no smaller than the structure's span over CELL_MAX - 1
     cells.  Each f64 operation is one IEEE rounding in the order the
-    kernel takes (r2 = (x*x + y*y) + z*z, a true division by a tensor),
-    so the keys are the kernel's bit for bit on any device."""
+    kernel takes (r2 = (x*x + y*y) + z*z, a true division by a tensor,
+    a correctly rounded square root), so the keys are the kernel's bit
+    for bit on any device."""
     b, n = group_id.shape
     if b > _kernels.MAX_CELL_BATCH:
         raise ValueError(f"{b} structures in a cell-list batch, at most "
@@ -238,10 +240,11 @@ def cell_grid(packed, group_id, probe: float) -> CellGrid:
     cut = 2.0 * max_r.to(torch.float64) + 2.0 * probe
     thr = cut * cut + 1e-3
     span = (hi - lo).amax(dim=1)
-    h = torch.maximum(
-        ((thr + D2_ERR * (r2 + thr)) * (1.0 + H_SLACK)).sqrt(),
-        span / torch.full_like(span, CELL_MAX - 1),
-    )
+    # NumPy's square root: torch's f64 sqrt on the CPU is not always
+    # correctly rounded (one ulp low on some inputs), the kernel's is.
+    edge2 = (thr + D2_ERR * (r2 + thr)) * (1.0 + H_SLACK)
+    edge = torch.from_numpy(np.sqrt(edge2.cpu().numpy())).to(edge2.device)
+    h = torch.maximum(edge, span / torch.full_like(span, CELL_MAX - 1))
     cell = ((c - lo[:, None, :]) / h[:, None, None]).floor().clamp(
         0, CELL_MAX).to(torch.int64)
     key = (
@@ -252,25 +255,35 @@ def cell_grid(packed, group_id, probe: float) -> CellGrid:
     return CellGrid(key.reshape(b * n), max_r, h)
 
 
+def cell_order_reference(packed, group_id, probe: float) -> _kernels.CellOrder:
+    """Plain version of csrc/neighbor_cells.cu's cell_keys: cell_grid, a
+    stable torch.sort of its keys and packed and group_id gathered into
+    that order -> _kernels.CellOrder.  For the tests and the CPU; the
+    CUDA path launches the kernel."""
+    grid = cell_grid(packed, group_id, probe)
+    sorted_keys, perm = torch.sort(grid.keys, stable=True)
+    m = group_id.numel()
+    return _kernels.CellOrder(
+        grid.keys, grid.max_r, grid.h, sorted_keys, perm,
+        packed.reshape(m, 4).index_select(0, perm),
+        group_id.reshape(m).index_select(0, perm))
+
+
 def neighbor_records(packed, group_id, *, probe: float, k: int):
     """The neighbor phase of a [B, N] batch -> (planes [4, K, M4] f32 K-major
     vx, vy, vz, limit; counts [B*N] i32; max_count 0-d i32), K = min(k,
     N).  CPU tensors take the plain version; CUDA tensors launch
-    csrc/neighbor_cells.cu's cell binning (cell_keys), sort the keys
-    stably, gather the atoms into that order and launch its cell-list
-    kernel (or raise), with no readback."""
+    csrc/neighbor_cells.cu's cell binning and ordering (cell_keys) and its
+    cell-list kernel (or raise), with no readback."""
     if packed.device.type == "cpu":
         return neighbor_records_reference(packed, group_id, probe=probe, k=k)
     if packed.device.type != "cuda":
         raise ValueError(f"neighbor_records: unsupported device "
                          f"{packed.device}")
-    keys, max_r, _h = _kernels.cell_keys(packed, group_id, probe)
-    sorted_keys, perm = torch.sort(keys, stable=True)
-    m = group_id.numel()
+    order = _kernels.cell_keys(packed, group_id, probe)
     return _kernels.neighbor_cells(
-        packed, group_id, max_r, keys, sorted_keys, perm,
-        packed.reshape(m, 4).index_select(0, perm),
-        group_id.reshape(m).index_select(0, perm), probe=probe,
+        packed, group_id, order.max_r, order.keys, order.sorted_keys,
+        order.perm, order.sorted_packed, order.sorted_gid, probe=probe,
         k=min(k, group_id.shape[1]))
 
 

@@ -334,6 +334,22 @@ def graph_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def calls_ms(fn, reps):
+    """Mean milliseconds of `reps` calls of `fn()` back to back between two
+    CUDA events, after a warm call: the host's enqueue counts where it
+    outlasts the card's work."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def time_variants(cases, real, atoms: int, device, reps: int):
     """Time each (name, fn) of `cases` with `timed`.  fn() returns counts
     [M] i32, or a tuple whose first item they are; the first case is
@@ -510,6 +526,47 @@ def neighbor_cases(seed: int = 0, offsets=NEIGHBOR_OFFSETS):
              ("ball", [one(ball, 1.8)], 384, 160), ("small", small, 8, 16)]
     return [(name, *engine._pack(n_pad, structures), k)
             for name, structures, n_pad, k in cases]
+
+
+ORDER_CASE_NAMES = ("shared_cells", "many_structures", "empty_structure",
+                    "wide_span", "max_batch")
+
+
+def order_cases():
+    """Seeded batches for the cell ordering (neighbor_cells.cu's
+    cell_keys) and its plain version: [(name, packed [B, N, 4] f32, gid
+    [B, N] i32)], with ~30 % padding slots between the real atoms (none
+    in shared_cells' one cell): shared_cells, 700 atoms in a 4 A box, 300
+    of them at one point (one cell, kept in index order); many_structures,
+    40 structures of N = 96; empty_structure, three of N = 200, the
+    second with no real atom; wide_span, two of 300 atoms spread over
+    +-1e6 A (the cell edge's widest grid, four 8-bit passes);
+    max_batch, _kernels.MAX_CELL_BATCH structures of N = 8."""
+    from ..ops import _kernels
+
+    out = []
+    shapes = {"shared_cells": (1, 700, 4.0), "many_structures": (40, 96, 30.0),
+              "empty_structure": (3, 200, 30.0), "wide_span": (2, 300, 2e6),
+              "max_batch": (_kernels.MAX_CELL_BATCH, 8, 15.0)}
+    for name in ORDER_CASE_NAMES:
+        b, n, spread = shapes[name]
+        rng = np.random.default_rng(sum(map(ord, name)))
+        packed = np.zeros((b, n, 4), np.float32)
+        packed[..., :3] = rng.uniform(-spread / 2, spread / 2, (b, n, 3))
+        packed[..., 3] = rng.choice(NEIGHBOR_RADII, (b, n))
+        gid = np.tile(np.arange(n, dtype=np.int32), (b, 1))
+        gid[rng.random((b, n)) < 0.3] = -1
+        if name == "shared_cells":
+            packed[0, 100:400, :3] = 1.0
+            gid[0, 100:400] = np.arange(100, 400)
+        if name == "empty_structure":
+            gid[1] = -1
+        if name == "wide_span":
+            packed[:, 0, :3] = -spread / 2
+            packed[:, 1, :3] = spread / 2
+            gid[:, :2] = (0, 1)
+        out.append((name, packed, gid))
+    return out
 
 
 def list_batch(path):

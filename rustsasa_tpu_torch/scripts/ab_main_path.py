@@ -35,9 +35,15 @@ With --turn list_1jz8 each turn measures the list path's neighbor phase
 on 1jz8 instead (LIST_TURN_SCRIPT, N = 32,768 at its first K), through
 functions every tree has:
 
-  phase       `neighbors.neighbor_records` (the binning, sort and
-              neighbor kernel), the mean of REPS calls in a CUDA graph
+  phase       `neighbors.neighbor_records` (the binning and ordering, and
+              the neighbor kernel), the mean of REPS calls in a CUDA graph
               and back to back between two CUDA events, after a warm call;
+  order       the phase's binning and ordering alone, the same two ways:
+              `_kernels.cell_keys`, and where the tree's binning kernel
+              leaves the order to torch (it returns keys, max_r and h
+              only), the stable sort and the two index_selects after it;
+  batches     the same in a CUDA graph on two seeded batches of small
+              structures (B x N = 40 x 96 and 511 x 8, ~30 % padding);
   kernel      `_kernels.neighbor_cells` alone on the tree's own inputs
               (keys from `neighbors.cell_grid` and a stable sort, with
               the sorted gather where the tree's launcher takes it), the
@@ -167,6 +173,7 @@ print(json.dumps(out), flush=True)
 # Run in a tree's root with its package: argv = reps.
 LIST_TURN_SCRIPT = r'''
 import inspect, json, os, sys
+import numpy as np
 import torch
 from rustsasa_tpu_torch.ops import _kernels, engine, neighbors
 from rustsasa_tpu_torch.scripts import _study, layout_probe
@@ -215,6 +222,29 @@ if "sorted_packed" in inspect.signature(_kernels.neighbor_cells).parameters:
              gid.reshape(m).index_select(0, perm)]
 phase_graph, phase_call = timed(
     lambda: neighbors.neighbor_records(packed, gid, probe=probe, k=k))
+
+
+def order(packed=packed, gid=gid):
+    got = _kernels.cell_keys(packed, gid, probe)
+    if len(got) > 3:
+        return got
+    n = gid.numel()
+    sorted_keys, perm = torch.sort(got[0], stable=True)
+    return (sorted_keys, packed.reshape(n, 4).index_select(0, perm),
+            gid.reshape(n).index_select(0, perm))
+
+
+order_graph, order_call = timed(order)
+batches = {}
+for b, n in ((40, 96), (511, 8)):
+    rng = np.random.default_rng(b)
+    small = np.zeros((b, n, 4), np.float32)
+    small[..., :3] = rng.uniform(-15.0, 15.0, (b, n, 3))
+    small[..., 3] = rng.choice([1.4, 1.6, 1.8, 2.0], (b, n))
+    small_gid = np.tile(np.arange(n, dtype=np.int32), (b, 1))
+    small_gid[rng.random((b, n)) < 0.3] = -1
+    batch = tuple(torch.from_numpy(a).to(dev) for a in (small, small_gid))
+    batches["b%d_graph_ms" % b] = timed(lambda: order(*batch))[0]
 kernel_graph, kernel_call = timed(
     lambda: _kernels.neighbor_cells(*args, probe=probe, k=k))
 records = neighbors.neighbor_records(packed, gid, probe=probe, k=k)
@@ -238,6 +268,8 @@ torch.cuda.synchronize()
 print(json.dumps({
     "tree": os.getcwd(), **_study.where(dev),
     "phase": {"graph_ms": phase_graph, "call_ms": phase_call},
+    "order": {"graph_ms": order_graph, "call_ms": order_call},
+    "batches": batches,
     "kernel": {"graph_ms": kernel_graph, "call_ms": kernel_call},
     "sasa": {"ms": start.elapsed_time(stop) / reps,
              "sum": float(out.double().sum()), "points": sphere.shape[0],
@@ -245,7 +277,9 @@ print(json.dumps({
 }), flush=True)
 '''
 LIST_FIGURES = (
-    ("phase", "graph_ms"), ("phase", "call_ms"), ("kernel", "graph_ms"),
+    ("phase", "graph_ms"), ("phase", "call_ms"), ("order", "graph_ms"),
+    ("order", "call_ms"), ("batches", "b40_graph_ms"),
+    ("batches", "b511_graph_ms"), ("kernel", "graph_ms"),
     ("kernel", "call_ms"), ("sasa", "ms"), ("sasa", "sum"),
 )
 

@@ -17,7 +17,13 @@ equals the plain version before timing it.
 
 The neighbor probe (alone with --neighbor) builds csrc/neighbor_cells.cu
 the same way and times each build alone in a CUDA graph, in turns, on
-1jz8's inputs as the list path makes them (N = 32,768, its first K):
+1jz8's inputs as the list path makes them (N = 32,768, its first K; the
+keys, their order and the sorted atoms from `_kernels.cell_keys`, whose
+own time it reports too, in a graph and as calls, and, timed only, its
+builds with the ordering kernel's launch cut out (nosort: the binning
+alone), with the ordering kernel returning at once (noorder: the
+binning and the second launch), with one 8-bit pass (onepass) and
+without the last pass's gathers of packed and gid (nogather)):
 as it is (16 rows a CTA, three CTAs an SM), with 8 rows a CTA (six CTAs
 an SM), uncapped (two CTAs an SM at the registers the kernel takes), and,
 timed only, without the write-out (nostore: the search and the scan),
@@ -84,11 +90,34 @@ CUTS = {
                      "  if (false) {\n    const float4 ci")]),
     ),
 }
+# csrc/neighbor_cells.cu's cell_keys_launch builds, timed only but the
+# first: the binning and ordering as they are, the ordering kernel's
+# launch cut out (nosort), the ordering kernel returning at once
+# (noorder), one 8-bit pass (onepass), the last pass without its gathers
+# (nogather).
+KEYS_CUTS = (
+    ("as_is", []),
+    ("nosort", [("  rc = cudaLaunchKernelEx(\n"
+                 "      &config, cell_order_kernel,",
+                 "  if (false) rc = cudaLaunchKernelEx(\n"
+                 "      &config, cell_order_kernel,")]),
+    ("noorder", [("  const int4 g = __ldg(grid + s);",
+                  "  if (s >= 0) return;\n"
+                  "  const int4 g = __ldg(grid + s);")]),
+    ("onepass", [("const int passes = (bits + kDigitBits - 1) / "
+                  "kDigitBits;", "const int passes = 1;"),
+                 ("const int width = (bits + passes - 1) / passes;",
+                  "const int width = kDigitBits;")]),
+    ("nogather", [("        out.sorted_packed[p] = __ldg(packed + "
+                   "atom);\n        out.sorted_gid[p] = __ldg(gid + "
+                   "atom);\n", "")]),
+)
 # Blocks of points the list kernel's builds are timed at (the plan's
 # count for the sphere, and more, each CTA then adding its counts).
 LIST_BLOCKS = (1, 2)
 # Builds that only time a part: their outputs are wrong and not checked.
-TIMING_ONLY = ("nobar", "noload", "nostore", "nosteps", "noscan")
+TIMING_ONLY = ("nobar", "noload", "nostore", "nosteps", "noscan", "nosort",
+               "noorder", "onepass", "nogather")
 # GPU clock cycles (~0.2 ms) the enqueue probe spins the stream before its
 # start event: longer than the host takes to enqueue a call.
 SPIN_CYCLES = 400_000
@@ -196,17 +225,18 @@ def run(device, *, reps: int = 20) -> dict[str, float]:
 
 def run_neighbor(device, *, reps: int = 20) -> dict[str, float]:
     """{build: mean ms in a CUDA graph, the lower of two turns} of the
-    neighbor kernel's builds on 1jz8's inputs."""
+    neighbor kernel's builds on 1jz8's inputs; "cell_keys/graph",
+    "cell_keys/call": the binning and ordering that make them, in a CUDA
+    graph and as calls back to back; and "cell_keys_<build>" for the
+    builds of KEYS_CUTS, in a graph, the lower of two turns."""
     device = torch.device(device)
     packed, gid, k = _study.list_batch(LIST_STRUCTURE)
     packed, gid = (torch.from_numpy(a).to(device) for a in (packed, gid))
     b, n = gid.shape
     m = b * n
-    keys, max_r, _h = _kernels.cell_keys(packed, gid, PROBE)
-    sorted_keys, perm = torch.sort(keys, stable=True)
-    inputs = (packed, gid, keys, max_r, sorted_keys, perm,
-              packed.reshape(m, 4).index_select(0, perm),
-              gid.reshape(m).index_select(0, perm))
+    order = _kernels.cell_keys(packed, gid, PROBE)
+    inputs = (packed, gid, order.keys, order.max_r, order.sorted_keys,
+              order.perm, order.sorted_packed, order.sorted_gid)
     want = neighbors.neighbor_records_reference(packed, gid, probe=PROBE,
                                                 k=k)
     fns = _kernels.build_sources(
@@ -235,6 +265,36 @@ def run_neighbor(device, *, reps: int = 20) -> dict[str, float]:
     for tag in list(fns) + list(fns)[::-1]:
         t = _study.graph_ms(lambda fn=fns[tag]: call(fn), reps)
         ms[tag] = min(ms.get(tag, t), t)
+
+    def binning():
+        return _kernels.cell_keys(packed, gid, PROBE)
+
+    ms["cell_keys/graph"] = _study.graph_ms(binning, reps)
+    ms["cell_keys/call"] = _study.calls_ms(binning, reps)
+    keys_fns = _kernels.build_sources(
+        "layout_probe", _kernels.cut_sources("neighbor_cells", KEYS_CUTS),
+        "cell_keys_launch", _kernels._SIGNATURES["cell_keys"])
+
+    outs = [torch.empty_like(t) for t in order]
+    grid = torch.empty((b, 4), dtype=torch.int32, device=device)
+    tmp_keys = torch.empty((2, m), dtype=torch.int64, device=device)
+    tmp_slots = torch.empty((2, m), dtype=torch.int32, device=device)
+
+    def keys_call(fn):
+        rc = fn(packed.data_ptr(), gid.data_ptr(),
+                *(t.data_ptr() for t in outs), grid.data_ptr(),
+                tmp_keys.data_ptr(), tmp_slots.data_ptr(), b, n, 2.0 * PROBE,
+                torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"cell_keys_launch: cudaError {rc}")
+        return outs
+
+    if not all(torch.equal(g, w) for g, w in zip(
+            keys_call(keys_fns["as_is"]), order)):
+        raise AssertionError("cell_keys as_is: outputs differ")
+    for tag in list(keys_fns) + list(keys_fns)[::-1]:
+        t = _study.graph_ms(lambda fn=keys_fns[tag]: keys_call(fn), reps)
+        ms[f"cell_keys_{tag}"] = min(ms.get(f"cell_keys_{tag}", t), t)
     return ms
 
 

@@ -15,8 +15,11 @@ count kernels on it, each of which must give kernel 1's counts exactly:
           packs an entry's groups four to a reach-test chunk on kernel
           1's layout (nibble_counts_kept_reference is its plain model);
   pair64  build_jlist_banded_2h: a group mask per 64-atom half of the
-          i-tile, counted by csrc/pair64_count.cu, where atoms 0-63 stream
-          mask A's groups and atoms 64-127 mask B's (TPU: `_pair64_kernel`).
+          i-tile, counted by csrc/pair64_count.cu (TPU: `_pair64_kernel`)
+          on kernel 1's layout, where the CTAs of atoms 0-63 stage the
+          entries of mask A and stream its groups and those of atoms
+          64-127 mask B's (pair64_counts_kept_reference is its plain
+          model).
 
 The builders are timed alike: the production builder's plain version
 (`build_jlist_banded_reference`, "banded"), beside the plain torch of the
@@ -26,9 +29,11 @@ two study builders, and the production builder as the main path runs it
 Per variant it reports first-call and warm milliseconds, Matoms/s, the
 largest count difference to prod at real slots and the lane-weighted
 j-atoms streamed per atom (the TPU study sized per-half admission at
-911 -> 783), and for nibble the 32-row reach chunks a live entry tests,
-packed, against kernel 1's chunks with an admitted group.  Without a corpus directory the repository's FreeSASA test
-structures are cycled.
+911 -> 783), for nibble the 32-row reach chunks a live entry tests,
+packed, against kernel 1's chunks with an admitted group, and for pair64
+the live entries and reach chunks a CTA stages against kernel 1's.
+Without a corpus directory the repository's FreeSASA test structures are
+cycled.
 """
 
 from __future__ import annotations
@@ -153,51 +158,95 @@ def nibble_chunk_rows(jl, w1, w2, tile: int, e: int):
     return rows
 
 
-def nibble_counts_kept_reference(planes, jl, w1, w2, sphere):
-    """Plain model of csrc/nibble_count.cu -> counts [M] i32: per tile and
-    live entry (gcount != 0, j-tile in the chunk), the packed chunks of
-    nibble_chunk_rows; in each, a warp of fused_kernel.WARP_ATOMS atoms
-    takes the rows one of its atoms keeps (fused_kernel.reach_keep_row;
-    lim -1e30 for an atom that does not), a row twice where the list
-    names a group twice.  Its counts must equal nibble_counts_reference's
-    at every slot.  A loop per tile and entry: for small chunks."""
+def _counts_kept(planes, sphere, chunks_of):
+    """Counts [M] i32 of a count kernel on kernel 1's layout that tests,
+    for tile ti, the chunks chunks_of(ti) yields as (atoms, rows): the
+    tile's atoms `atoms` (a slice of its 128) against the j-rows `rows`
+    [R] i64 (slots of the chunk).  In each chunk a warp of
+    fused_kernel.WARP_ATOMS atoms streams the rows one of its atoms keeps
+    (fused_kernel.reach_keep_row; lim -1e30 for an atom that does not).
+    A loop per tile and chunk: for small chunks."""
     m = planes.shape[1]
-    t = m // ATOM_TILE
     dev = planes.device
     sx, sy, sz = (sphere[:, c] for c in range(3))
     far_ok = fk.sphere_far_ok(sphere)
     out = torch.empty(m, dtype=torch.int32, device=dev)
-    for ti in range(t):
-        xi, yi, zi, ri, gi = (planes[row, ti * ATOM_TILE:(ti + 1) * ATOM_TILE]
-                              for row in range(5))
+    for ti in range(m // ATOM_TILE):
+        tile = slice(ti * ATOM_TILE, (ti + 1) * ATOM_TILE)
+        xi, yi, zi, ri, gi = (planes[row, tile] for row in range(5))
         r2i = ri * ri
         inv2ri = torch.full_like(ri, 0.5) / torch.clamp_min(ri, 1e-6)
         occ = torch.full((ATOM_TILE, sphere.shape[0]), fk._NEG_BIG,
                          dtype=torch.float32, device=dev)
+        for atoms, rows in chunks_of(ti):
+            xk, yk, zk, rk, gk = (planes[row, rows.to(dev)][:, None]
+                                  for row in range(5))  # [R, 1]
+            vx, vy, vz = xi[atoms] - xk, yi[atoms] - yk, zi[atoms] - zk
+            v2 = (vx * vx + vy * vy) + vz * vz  # [R, A]
+            lim = ((rk * rk - v2) - r2i[atoms]) * inv2ri[atoms]
+            keep = fk.reach_keep_row(v2, ri[atoms], rk, gi[atoms], gk,
+                                     far_ok)
+            lim = torch.where(keep, lim, fk._NEG_BIG)
+            warp = keep.reshape(keep.shape[0], -1, fk.WARP_ATOMS).any(
+                dim=-1).repeat_interleave(fk.WARP_ATOMS, dim=-1)
+            margins = lim[..., None] - (
+                sx * vx[..., None]
+                + (sy * vy[..., None] + sz * vz[..., None]))  # [R, A, P]
+            margins = torch.where(warp[..., None], margins, float("-inf"))
+            occ[atoms] = torch.maximum(occ[atoms], margins.amax(dim=0))
+        acc = (occ <= 0.0) & (sphere[:, 3] > 0.0)
+        out[tile] = acc.sum(dim=-1, dtype=torch.int32)
+    return out
+
+
+def nibble_counts_kept_reference(planes, jl, w1, w2, sphere):
+    """Plain model of csrc/nibble_count.cu -> counts [M] i32: per tile and
+    live entry (gcount != 0, j-tile in the chunk), the packed chunks of
+    nibble_chunk_rows, each against the tile's 128 atoms (_counts_kept),
+    a row twice where the list names a group twice.  Its counts must
+    equal nibble_counts_reference's at every slot."""
+    t = planes.shape[1] // ATOM_TILE
+
+    def chunks(ti):
         for e in range(min(max(int(jl[ti, 0]), 0), fk.JLIST_CAP)):
             jt = int(jl[ti, 1 + e]) & 0xFFFF
-            rows = nibble_chunk_rows(jl, w1, w2, ti, e).to(dev)
-            if jt >= t or rows.numel() == 0:
+            if jt >= t:
                 continue
-            for chunk in rows:
-                lanes = chunk[chunk >= 0] + jt * ATOM_TILE
-                xk, yk, zk, rk, gk = (planes[row, lanes][:, None]
-                                      for row in range(5))  # [R, 1]
-                vx, vy, vz = xi - xk, yi - yk, zi - zk  # [R, A]
-                v2 = (vx * vx + vy * vy) + vz * vz
-                lim = ((rk * rk - v2) - r2i) * inv2ri
-                keep = fk.reach_keep_row(v2, ri, rk, gi, gk, far_ok)
-                lim = torch.where(keep, lim, fk._NEG_BIG)
-                margins = lim[..., None] - (
-                    sx * vx[..., None]
-                    + (sy * vy[..., None] + sz * vz[..., None]))  # [R, A, P]
-                margins = torch.where(fk._warp_any(keep)[..., None], margins,
-                                      float("-inf"))
-                occ = torch.maximum(occ, margins.amax(dim=0))
-        acc = (occ <= 0.0) & (sphere[:, 3] > 0.0)
-        out[ti * ATOM_TILE:(ti + 1) * ATOM_TILE] = acc.sum(
-            dim=-1, dtype=torch.int32)
-    return out
+            for chunk in nibble_chunk_rows(jl, w1, w2, ti, e):
+                yield slice(0, ATOM_TILE), chunk[chunk >= 0] + jt * ATOM_TILE
+
+    return _counts_kept(planes, sphere, chunks)
+
+
+def pair64_counts_kept_reference(planes, jlist_a, jmask_b, sphere):
+    """Plain model of csrc/pair64_count.cu -> counts [M] i32: each half of
+    a tile (atoms 0-63 with mask A, the high 16 bits of jlist_a's entry;
+    atoms 64-127 with mask B, the low 16 bits of jmask_b's cell) takes the
+    entries live for it (its mask non-zero, the j-tile in the chunk) and,
+    as kernel 1 does, each 32-row chunk of the j-tile holding an admitted
+    group: its admitted groups' rows against the half's atoms
+    (_counts_kept).  Its counts must equal pair64_counts_reference's at
+    every slot."""
+    t = planes.shape[1] // ATOM_TILE
+    lane_group = torch.arange(32) // J_GROUP
+
+    def chunks(ti):
+        n = min(max(int(jlist_a[ti, 0]), 0), fk.JLIST_CAP)
+        for half, cells in enumerate((jlist_a, jmask_b)):
+            atoms = slice(half * ATOM_TILE // 2, (half + 1) * ATOM_TILE // 2)
+            for e in range(n):
+                jt = int(jlist_a[ti, 1 + e]) & 0xFFFF
+                cell = int(cells[ti, 1 + e]) & 0xFFFFFFFF
+                mask = cell >> 16 if half == 0 else cell & 0xFFFF
+                if jt >= t or mask == 0:
+                    continue
+                for c in range(ATOM_TILE // 32):
+                    gm = (mask >> (4 * c)) & 0xF
+                    if gm:
+                        lanes = torch.nonzero((gm >> lane_group) & 1)[:, 0]
+                        yield atoms, jt * ATOM_TILE + c * 32 + lanes
+
+    return _counts_kept(planes, sphere, chunks)
 
 
 def reach_chunks(jlist, nibble: bool = False) -> tuple[int, int]:
@@ -220,6 +269,21 @@ def reach_chunks(jlist, nibble: bool = False) -> tuple[int, int]:
     return int((chunks * live).sum()), int(live.sum())
 
 
+def pair64_staged(jlist, jlist_a, jmask_b) -> dict:
+    """{"pair64", "prod"}: each {"entries", "chunks"}, the live entries a
+    CTA stages and the 32-row reach chunks it tests (reach_chunks),
+    averaged over the four CTAs of every tile: pair64's CTAs of atoms
+    0-63 take mask A's entries, those of 64-127 mask B's; kernel 1's take
+    jlist's."""
+    t = jlist.shape[0]
+    halves = [reach_chunks(lst) for lst in (jlist_a,
+                                            _with_masks(jlist_a, jmask_b))]
+    chunks, live = reach_chunks(jlist)
+    return {"pair64": {"entries": (halves[0][1] + halves[1][1]) / (2 * t),
+                       "chunks": (halves[0][0] + halves[1][0]) / (2 * t)},
+            "prod": {"entries": live / t, "chunks": chunks / t}}
+
+
 def nibble_counts(planes, jl, w1, w2, sphere):
     """Occlusion counts [M] i32 from build_jlist_nibble's lists; the plain
     version on the CPU, csrc/nibble_count.cu on CUDA."""
@@ -236,13 +300,15 @@ def run(triples, device, *, w: int = W, slots: int = _study.M_PAD,
     "ms", "matoms_s", "max_dcount", "j_atoms_per_atom", "margins",
     "instr"}}} with variants prod, nibble and pair64; nibble's also has
     "chunks_per_entry": {"nibble", "prod"}, the reach-test chunks a live
-    entry runs in each kernel (reach_chunks).  "j_atoms_per_atom" is the
-    lane-weighted count of admitted j-atoms per atom over the tiles with
-    a non-empty j-list, "margins" their (j, i, point) margins, "instr"
-    the FP32 instructions of the kernel's work: 7 a margin for pair64,
-    and for prod and nibble (on kernel 1's layout, which stream only rows
-    some atom of a warp keeps) what these inputs need
-    (_study.k1_instructions).
+    entry runs in each kernel (reach_chunks), and pair64's "per_cta":
+    {"pair64", "prod"}, each {"entries", "chunks"}: the live entries a CTA
+    stages and the reach chunks it tests, averaged over the chunk's CTAs
+    (pair64_staged).  "j_atoms_per_atom" is the lane-weighted count of
+    admitted j-atoms per atom over the tiles with a non-empty j-list,
+    "margins" their (j, i, point) margins, "instr" the FP32 instructions
+    of what these inputs need (_study.k1_instructions): the three
+    kernels run on kernel 1's layout and stream only rows some atom of a
+    warp keeps.
     """
     device = torch.device(device)
     planes, qvalid, tmeta_d, real, n_atoms, tiles = _study.banded_chunk(
@@ -284,15 +350,15 @@ def run(triples, device, *, w: int = W, slots: int = _study.M_PAD,
         variants[name]["j_atoms_per_atom"] = (lane_groups * J_GROUP / 2
                                               / max(int(busy.sum()), 1))
         variants[name]["margins"] = lane_groups * J_GROUP * ATOM_TILE // 2 * points
-        variants[name]["instr"] = _study.INSTR_PER_MARGIN * variants[name][
-            "margins"]
-    variants["prod"]["instr"] = variants["nibble"]["instr"] = (
-        _study.k1_instructions(planes, jlist, sphere))
+    needed = _study.k1_instructions(planes, jlist, sphere)
+    for v in variants.values():
+        v["instr"] = needed
     per_entry = {}
     for name, lst, packed in (("nibble", jl, True), ("prod", jlist, False)):
         chunks, live = reach_chunks(lst, nibble=packed)
         per_entry[name] = chunks / max(live, 1)
     variants["nibble"]["chunks_per_entry"] = per_entry
+    variants["pair64"]["per_cta"] = pair64_staged(jlist, jlist_a, jmask_b)
     return {
         "structures": len(triples), "atoms": n_atoms, "slots": slots,
         "tiles": tiles, "builders": builders, "variants": variants,
@@ -321,6 +387,14 @@ def report(result, device, head: str) -> None:
           f"(packed), prod {per_entry['prod']:.4f} ("
           f"{per_entry['nibble'] / max(per_entry['prod'], 1e-12):.4f} of "
           f"prod's)", flush=True)
+    staged = result["variants"]["pair64"]["per_cta"]
+    ratio = {key: staged["pair64"][key] / max(staged["prod"][key], 1e-12)
+             for key in ("entries", "chunks")}
+    print("a CTA stages: " + ", ".join(
+        f"{name} {v['entries']:.2f} live entries and {v['chunks']:.2f} "
+        f"reach chunks" for name, v in staged.items())
+        + f" (pair64 {ratio['entries']:.4f} and {ratio['chunks']:.4f} of "
+        "prod's)", flush=True)
 
 
 def main(argv=None) -> int:

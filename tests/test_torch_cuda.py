@@ -449,6 +449,8 @@ def test_count_study_wrappers_check_inputs(cuda):
         _kernels.reach_count(shifted, jl, sphere, "base")
     with pytest.raises(ValueError, match="16-byte"):
         _kernels.nibble_count(shifted, jl, jl, jl, sphere)
+    with pytest.raises(ValueError, match="16-byte"):
+        _kernels.pair64_count(shifted, jl, jl, sphere)
 
 
 @pytest.fixture(scope="module")
@@ -648,6 +650,64 @@ def test_nibble_count_edge_chunks(cuda, n_points):
         prod = fk.fused_counts_reference(
             planes, r5_pair64._nibble_masks(*plain_lists), sphere)
         assert torch.equal(got, prod)
+
+
+def _pair64_edge_chunks(cuda):
+    """((planes, (jlist_a, jmask_b)), plain lists) pairs on the card: a
+    one-tile banded q16 chunk's per-half lists, a 6-tile chunk's with
+    _past_and_full's edges (mask B of tile 2's 127 entries cycling
+    through all groups, none, one and mask A's complement; the past
+    entries all groups), and near-tangent pairs at the reach slack's edge
+    with every entry's masks split over the halves at random (some
+    entries one half's only, some neither's); the plain version takes
+    the entries past the chunk's end dead (both masks 0), as the kernel
+    does."""
+    out = []
+    for sizes, seed in (([90], 45), ([100, 520], 46)):
+        planes4, tp, tm, _offsets = fk.pack_structures_q16(
+            _structures(sizes, seed=seed, spread=14.0), 1.4)
+        planes4, tp, tm = fk.to_device((planes4, tp, tm), cuda)
+        planes, qvalid = fk.dequant_q16(planes4, tp)
+        lists = r5_pair64.build_jlist_banded_2h(planes, qvalid, tm, w=16)
+        out.append([planes, lists, lists])
+    planes, (jl, jm), _ = out[1]
+    assert out[0][1][0].shape[0] == 1 and jl.shape[0] == 6
+    jl, jm = jl.clone(), jm.clone()
+    past = _past_and_full(jl, jl.shape[0])
+    jm[1, 0] = jl[1, 0]
+    jm[1, past] = 0xFFFF
+    jm[2, 0] = jl[2, 0]
+    cycle = torch.tensor([0xFFFF, 0, 0x8001, 0x0F0F], device=cuda)
+    jm[2, 1:] = cycle[torch.arange(fk.JLIST_CAP, device=cuda) % 4]
+    dead_a, dead_b = jl.clone(), jm.clone()
+    dead_a[1, past] &= 0xFFFF
+    dead_b[1, past] = 0
+    out[1][1:] = (jl, jm), (dead_a, dead_b)
+    planes, jlist, _real = (torch.from_numpy(a).to(cuda) for a in
+                            _study.tangent_chunk(100, 400, 47, far=True))
+    rng = torch.Generator(device="cpu").manual_seed(47)
+    ent = jlist.long() & 0xFFFFFFFF
+    masks = torch.randint(0, 1 << 16, jlist.shape + (2,), generator=rng)
+    masks[..., 0, :] = 0
+    masks[:, 1:4] = torch.tensor([[0xFFFF, 0], [0, 0xFFFF], [0, 0]])
+    masks = masks.to(cuda)
+    jlist_a = torch.where(torch.arange(128, device=cuda) > 0,
+                          (masks[..., 0] << 16) | (ent & 0xFFFF), ent)
+    jmask_b = torch.where(torch.arange(128, device=cuda) > 0, masks[..., 1],
+                          ent)
+    lists = (_as_i32(jlist_a), _as_i32(jmask_b))
+    out.append([planes, lists, lists])
+    return out
+
+
+@pytest.mark.parametrize("n_points", [1, 65, 100, 129, 960, 2048])
+def test_pair64_count_edge_chunks(cuda, n_points):
+    sphere = engine._sphere_device(n_points, cuda)
+    for planes, lists, plain_lists in _pair64_edge_chunks(cuda):
+        got = _launched("pair64_count", lambda: r5_pair64.pair64_counts(
+            planes, *lists, sphere))
+        want = r5_pair64.pair64_counts_reference(planes, *plain_lists, sphere)
+        assert torch.equal(got, want)
 
 
 # n_points 1, 64, 65, 100, 128, 129, 960 and 2048 pad to 8, 64, 72, 104,
@@ -1100,24 +1160,84 @@ def test_neighbor_cells_byte_equal_plain(cuda, neighbor_cases, name):
     assert torch.equal(sasa[0], sasa[1])
 
 
-@pytest.mark.parametrize("name", (*_study.neighbor_case_names(), "1jz8"))
-def test_cell_keys_bit_equal_cell_grid(cuda, neighbor_cases, name):
+@pytest.fixture(scope="module")
+def order_batches(neighbor_cases):
+    """{name: (packed, gid)} of the seeded neighbor and ordering cases."""
+    cases = {name: case[:2] for name, case in neighbor_cases.items()}
+    cases.update((name, (packed, gid))
+                 for name, packed, gid in _study.order_cases())
+    return cases
+
+
+@pytest.mark.parametrize("name", (*_study.neighbor_case_names(),
+                                  *_study.ORDER_CASE_NAMES, "1jz8"))
+def test_cell_keys_bit_equal_cell_grid(cuda, order_batches, name):
     """The binning kernel's keys, max_r and cell edges bit-equal to the
-    plain binning's, one launch."""
+    plain binning's, and the ordering kernel's sorted keys, perm, sorted
+    packed and sorted gid to a stable torch.sort and its gathers: one
+    launch."""
     if name == "1jz8":
         packed, gid, _k = _largest_list_case()
     else:
-        packed, gid, _k = neighbor_cases[name]
+        packed, gid = order_batches[name]
     packed, gid = (torch.from_numpy(a).to(cuda) for a in (packed, gid))
     before = _kernels.launch_counts["cell_keys"]
-    keys, max_r, h = _kernels.cell_keys(packed, gid, 1.4)
+    got = _kernels.cell_keys(packed, gid, 1.4)
     torch.cuda.synchronize()
     assert _kernels.launch_counts["cell_keys"] == before + 1
-    want = neighbors.cell_grid(packed.cpu(), gid.cpu(), 1.4)
-    assert torch.equal(keys.cpu(), want.keys)
-    assert torch.equal(max_r.cpu().view(torch.int32),
-                       want.max_r.view(torch.int32))
-    assert torch.equal(h.cpu().view(torch.int64), want.h.view(torch.int64))
+    want = neighbors.cell_order_reference(packed.cpu(), gid.cpu(), 1.4)
+    for field, g, w in zip(want._fields, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, field
+        assert torch.equal(g.cpu().view(torch.uint8),
+                           w.view(torch.uint8)), field
+
+
+def test_cell_keys_orders_runs_past_the_registers(cuda):
+    """A structure of N = 49,152 slots (40,000 atoms, the rest padding):
+    its cluster's 64 warps each order a run of 768 slots, past the 16
+    steps a warp holds in registers, so each pass loads its run twice;
+    and two such structures with an empty one between them."""
+    rng = np.random.default_rng(49)
+    n = 49_152
+    packed = np.zeros((3, n, 4), np.float32)
+    packed[..., :3] = rng.uniform(0.0, 120.0, (3, n, 3))
+    packed[..., 3] = rng.choice(RADII, (3, n))
+    gid = np.tile(np.arange(n, dtype=np.int32), (3, 1))
+    gid[:, 40_000:] = -1
+    gid[1] = -1
+    for b in (1, 3):
+        p, g = (torch.from_numpy(a[:b]).to(cuda) for a in (packed, gid))
+        got = _launched("cell_keys", lambda: _kernels.cell_keys(p, g, 1.4))
+        want = neighbors.cell_order_reference(p.cpu(), g.cpu(), 1.4)
+        for field, x, w in zip(want._fields, got, want):
+            assert torch.equal(x.cpu().view(torch.uint8),
+                               w.view(torch.uint8)), (b, field)
+
+
+def test_cell_keys_checks_before_any_launch_on_the_card(cuda):
+    """Bad batches on the card raise before the binning kernel launches."""
+    packed = torch.zeros((2, 8, 4), device=cuda)
+    gid = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    before = dict(_kernels.launch_counts)
+    for args, error in (
+            ((packed.double(), gid), TypeError),
+            ((packed, gid.long()), TypeError),
+            ((packed[:, :, :3].contiguous(), gid), ValueError),
+            ((packed.transpose(0, 1).contiguous().transpose(0, 1), gid),
+             ValueError),
+            ((torch.zeros(65, device=cuda)[1:].view(2, 8, 4), gid),
+             ValueError),
+            ((torch.zeros((0, 8, 4), device=cuda),
+              torch.zeros((0, 8), dtype=torch.int32, device=cuda)),
+             ValueError),
+            ((torch.zeros((512, 1, 4), device=cuda),
+              torch.zeros((512, 1), dtype=torch.int32, device=cuda)),
+             ValueError),
+            ((packed, gid.cpu()), ValueError)):
+        with pytest.raises(error):
+            _kernels.cell_keys(*args, 1.4)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts == before
 
 
 def _largest_list_case():
@@ -1128,10 +1248,11 @@ def _largest_list_case():
 
 
 def test_neighbor_cells_on_the_largest_structure(cuda, monkeypatch):
-    """1jz8 through neighbor_records on the card, with the plain binning
-    and the plain neighbor phase made to raise: one cell_keys and one
-    neighbor_cells launch, records equal to the plain version's (counts,
-    max_count, each row's records, the fill)."""
+    """1jz8 through neighbor_records on the card, with the plain binning,
+    torch's sorts and index_select and the plain neighbor phase made to
+    raise: one cell_keys and one neighbor_cells launch, records equal to
+    the plain version's (counts, max_count, each row's records, the
+    fill)."""
     packed, gid, k = (torch.from_numpy(a).to(cuda) if isinstance(
         a, np.ndarray) else a for a in _largest_list_case())
     want = neighbors.neighbor_records_reference(packed, gid, probe=1.4, k=k)
@@ -1139,13 +1260,17 @@ def test_neighbor_cells_on_the_largest_structure(cuda, monkeypatch):
     def refuse(*args, **kw):
         raise AssertionError("the CUDA route took a plain version")
 
-    for name in ("cell_grid", "_neighbor_phase",
-                 "neighbor_records_reference"):
-        monkeypatch.setattr(neighbors, name, refuse)
-    monkeypatch.setattr(torch, "topk", refuse)
     before = dict(_kernels.launch_counts)
-    got = neighbors.neighbor_records(packed, gid, probe=1.4, k=k)
-    torch.cuda.synchronize()
+    with monkeypatch.context() as patch:
+        for name in ("cell_grid", "cell_order_reference", "_neighbor_phase",
+                     "neighbor_records_reference"):
+            patch.setattr(neighbors, name, refuse)
+        for name in ("topk", "sort", "argsort", "index_select"):
+            patch.setattr(torch, name, refuse)
+        for name in ("sort", "argsort", "index_select"):
+            patch.setattr(torch.Tensor, name, refuse)
+        got = neighbors.neighbor_records(packed, gid, probe=1.4, k=k)
+        torch.cuda.synchronize()
     for name in ("cell_keys", "neighbor_cells"):
         assert _kernels.launch_counts[name] == before[name] + 1
     assert _study.records_differ(got, want) == []

@@ -674,11 +674,13 @@ def test_layout_probe_cuts_apply_to_the_kernel_sources():
     """scripts/layout_probe.py times list_occlusion.cu with other records
     a thread and points a loop step, and without its barriers or loads,
     and neighbor_cells.cu with other rows a CTA and register caps, and
-    without its stores, steps or scan; each cut must find its text
-    exactly once, and the first build is the source as it is."""
+    without its stores, steps or scan, and its cell_keys without the
+    ordering or parts of it; each cut must find its text exactly once,
+    and the first build is the source as it is."""
     from rustsasa_tpu_torch.scripts import layout_probe
 
-    for name, cuts in layout_probe.CUTS.items():
+    for name, cuts in (*layout_probe.CUTS.items(),
+                       ("neighbor_cells", layout_probe.KEYS_CUTS)):
         sources = _kernels.cut_sources(name, cuts)
         assert list(sources) == [tag for tag, _ in cuts]
         with open(f"{_kernels.CSRC_DIR}/{name}.cu", encoding="utf-8") as f:

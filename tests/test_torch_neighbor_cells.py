@@ -1,10 +1,11 @@
 """The list path's neighbor phase in the port, on the CPU.
 
 On the card `neighbors.neighbor_records` bins a [B, N] batch into cells
-(`ops/csrc/neighbor_cells.cu`'s `cell_keys`), sorts the keys stably,
-gathers the atoms into sorted order and launches the file's cell-list
-kernel; on the CPU it takes the plain version, the dense expansion and
-top-k of `_neighbor_phase` structure by structure.  Here:
+and orders the atoms by cell (`ops/csrc/neighbor_cells.cu`'s
+`cell_keys`: the keys, their stable sort and the atoms gathered into
+that order) and launches the file's cell-list kernel; on the CPU it
+takes the plain version, the dense expansion and top-k of
+`_neighbor_phase` structure by structure.  Here:
 
   * the explicit fused multiply-add chain of the cross term against
     `torch.matmul` and the JAX package's HIGHEST dot, bit for bit;
@@ -18,6 +19,12 @@ top-k of `_neighbor_phase` structure by structure.  Here:
     of its row's 27 cells, and the model's counts and kept records (the
     K nearest where a row overflows) are the plain version's, each in
     the slot of its visit order;
+  * a CPU model of the ordering kernel (`_cell_order_model`:
+    the dense cell index, its LSD digit passes over the structure's
+    warp runs, the structure offsets) against `torch.sort(keys,
+    stable=True)` on cells shared by many atoms, many structures with
+    padding between them, a structure with no real atom, a span that
+    needs the 54-bit index, 511 structures, the seeded cases and 1jz8;
   * the cell edge's bound, the padding keys, the record comparison the
     card checks use, and every argument check of the two launchers,
     which runs before the device check and so on CPU tensors.
@@ -96,10 +103,9 @@ def _kernel_model(packed, gid, k):
     b, n = gid.shape
     m = b * n
     kk = min(k, n)
-    grid = neighbors.cell_grid(packed, gid, PROBE)
-    sorted_keys, perm = torch.sort(grid.keys, stable=True)
-    spacked = packed.reshape(m, 4)[perm]
-    sgid = gid.reshape(m)[perm]
+    grid = neighbors.cell_order_reference(packed, gid, PROBE)
+    sorted_keys, perm = grid.sorted_keys, grid.perm
+    spacked, sgid = grid.sorted_packed, grid.sorted_gid
     planes = torch.zeros((4, kk, m + (-m % 4)), dtype=torch.float32)
     planes[3] = neighbors._NEG_BIG
     counts = torch.zeros(m, dtype=torch.int32)
@@ -201,11 +207,14 @@ def _cell_keys_model(packed, gid, probe):
 
 
 @pytest.mark.parametrize("name", (*_study.neighbor_case_names(OFFSETS),
-                                  "1jz8"))
+                                  *_study.ORDER_CASE_NAMES, "1jz8"))
 def test_cell_grid_equals_the_cell_keys_model(cases, name):
     """The plain binning takes the kernel's f64 operations in its order:
-    keys, max_r and h bit-equal to the model of cell_keys."""
-    if name == "1jz8":
+    keys, max_r and h bit-equal to the model of cell_keys (in max_batch
+    torch's own f64 sqrt on the CPU would leave two edges an ulp low)."""
+    if name in _study.ORDER_CASE_NAMES:
+        packed, gid = _order_case(name)
+    elif name == "1jz8":
         from rustsasa_tpu_torch.scripts import layout_probe
 
         packed, gid = (torch.from_numpy(a) for a in _study.list_batch(
@@ -268,6 +277,199 @@ def test_cell_edge_bound():
     assert grid.h[2] >= 2e6 / (neighbors.CELL_MAX - 1)
     cells = torch.stack(_decode(grid.keys)[1:])
     assert int(cells.max()) <= neighbors.CELL_MAX
+
+
+def _full_cell_keys(b, n, seed):
+    """Keys [B*N] of B structures whose real atoms take cells 0 and
+    CELL_MAX on every axis (and random ones between): a dense index of
+    54 bits, which cell_grid's edge never needs (its D2_ERR term keeps h
+    >= 2^-9.5 max |c|, so at most ~2^10.5 cells an axis), but the
+    ordering kernel takes."""
+    rng = np.random.default_rng(seed)
+    cells = rng.integers(0, neighbors.CELL_MAX + 1, (b, n, 3))
+    cells[:, 0] = 0
+    cells[:, 1] = neighbors.CELL_MAX
+    cells[:, 2:40] = cells[:, 2:3]  # ties
+    keys = ((np.arange(b)[:, None] << 54) | (cells[..., 0] << 36)
+            | (cells[..., 1] << 18) | cells[..., 2])
+    keys[:, 41::4] = neighbors.PAD_KEY
+    return torch.from_numpy(keys.reshape(b * n))
+
+
+# cell_keys' ordering kernel (csrc/neighbor_cells.cu cell_order_kernel):
+# a structure's CTAs (one a kClusterSlots slots, at most kCluster), the
+# warps a CTA (each a run of slots), and the most bits a digit pass
+# sorts (kDigitBits).
+ORDER_CLUSTER = 8
+ORDER_CLUSTER_SLOTS = 2048
+ORDER_WARPS = 8
+ORDER_DIGIT_BITS = 8
+
+
+def _order_run(n: int) -> int:
+    """The slots of each warp's run for a structure of n slots."""
+    segments = min(-(-n // ORDER_CLUSTER_SLOTS), ORDER_CLUSTER) * ORDER_WARPS
+    return -(-(-(-n // segments)) // 32) * 32
+
+
+def _order_digits(cells: int) -> tuple[int, int]:
+    """(passes, bits a pass) of cell_keys' LSD sort of the dense cell
+    indices 0..cells (cells, the structure's nx ny nz, is its padding
+    slots' index): the fewest passes of ORDER_DIGIT_BITS bits covering
+    cells' bit length, split evenly."""
+    bits = max(cells, 1).bit_length()
+    passes = -(-bits // ORDER_DIGIT_BITS)
+    return passes, -(-bits // passes)
+
+
+def _stable_pass(digit, run: int):
+    """One LSD pass as csrc/neighbor_cells.cu's ordering kernel runs it ->
+    each slot's place: the slots of lower digits, then those of its digit
+    in the runs of `run` slots before its own (in run order), then those
+    before it in its own run."""
+    n = digit.shape[0]
+    bins = 1 << ORDER_DIGIT_BITS
+    runs = -(-n // run)
+    hot = torch.zeros((runs * run, bins), dtype=torch.int64)
+    hot[torch.arange(n), digit] = 1
+    hot = hot.reshape(runs, run, bins)
+    counts = hot.sum(dim=1)  # [runs, bins]
+    lower = torch.cumsum(counts.sum(dim=0), 0) - counts.sum(dim=0)
+    earlier_runs = torch.cumsum(counts, 0) - counts
+    within = (torch.cumsum(hot, 1) - hot).reshape(runs * run, bins)[:n]
+    r = torch.arange(n) // run
+    return (lower[digit] + earlier_runs[r, digit]
+            + within[torch.arange(n), digit])
+
+
+def _cell_order_model(keys, b: int, n: int):
+    """CPU model of cell_keys' ordering kernel on the keys [B*N] i64 ->
+    (sorted_keys, perm) [B*N] i64: per structure the dense cell index d =
+    (cx ny + cy) nz + cz of its occupied cells (n* = the largest cell +
+    1; padding d = nx ny nz), sorted in _order_digits' LSD passes, each
+    stable over the warps' runs of whole 32-slot steps (_order_run,
+    _stable_pass); then structure s's real atoms after those of the
+    structures before it, and every padding slot after all real atoms,
+    in index order.  Must equal torch.sort(keys, stable=True)."""
+    keys = keys.reshape(b, n)
+    pad = keys == neighbors.PAD_KEY
+    real = (~pad).sum(dim=1)
+    real_before = torch.cumsum(real, 0) - real
+    real_all = int(real.sum())
+    run = _order_run(n)
+    sorted_keys = torch.empty(b * n, dtype=torch.int64)
+    perm = torch.empty(b * n, dtype=torch.int64)
+    for s in range(b):
+        field = [(keys[s] >> shift) & neighbors.CELL_MAX
+                 for shift in (36, 18, 0)]
+        dims = [int(f[~pad[s]].max()) + 1 if int(real[s]) else 1
+                for f in field]
+        cells = dims[0] * dims[1] * dims[2]
+        d = (field[0] * dims[1] + field[1]) * dims[2] + field[2]
+        d = torch.where(pad[s], cells, d)
+        slots = torch.arange(n)
+        passes, width = _order_digits(cells)
+        for p in range(passes):
+            digit = (d[slots] >> (p * width)) & ((1 << width) - 1)
+            place = _stable_pass(digit, run)
+            slots = torch.empty_like(slots).index_put_((place,), slots)
+        at = torch.arange(n)
+        r = int(real[s])
+        before = int(real_before[s])
+        dest = torch.where(at < r, before + at,
+                           real_all + (s * n - before) + (at - r))
+        sorted_keys[dest] = keys[s, slots]
+        perm[dest] = s * n + slots
+    return sorted_keys, perm
+
+
+ORDER_CASES = (*_study.ORDER_CASE_NAMES, "full_cells", "1jz8")
+
+
+def _order_case(name):
+    """(packed [B, N, 4], gid [B, N]) of _study.order_cases' case or 1jz8."""
+    if name == "1jz8":
+        from rustsasa_tpu_torch.scripts import layout_probe
+
+        packed, gid = _study.list_batch(layout_probe.LIST_STRUCTURE)[:2]
+    else:
+        packed, gid = {c[0]: c[1:] for c in _study.order_cases()}[name]
+    return torch.from_numpy(packed), torch.from_numpy(gid)
+
+
+@pytest.mark.parametrize("name", ORDER_CASES)
+def test_order_model_equals_stable_sort(name):
+    """The ordering kernel's passes give torch.sort(keys, stable=True)'s
+    values and indices, ties in index order, padding after every real
+    atom."""
+    if name == "full_cells":
+        b, n = 3, 500
+        keys = _full_cell_keys(b, n, seed=11)
+    else:
+        packed, gid = _order_case(name)
+        b, n = gid.shape
+        keys = neighbors.cell_grid(packed, gid, PROBE).keys
+    got = _cell_order_model(keys, b, n)
+    want = torch.sort(keys, stable=True)
+    assert torch.equal(got[0], want.values)
+    assert torch.equal(got[1], want.indices)
+    s, cx, cy, cz = _decode(keys)
+    real = keys != neighbors.PAD_KEY
+    if name == "shared_cells":  # one cell of 300 atoms, kept in index order
+        cell = (keys == keys[100]).nonzero()[:, 0]
+        assert cell.numel() >= 300 and torch.equal(
+            want.indices[want.values == keys[100]], cell)
+    if name == "empty_structure":
+        assert not bool(real.reshape(b, n)[1].any())
+    cells = [int(c[real].max()) + 1 for c in (cx, cy, cz)]
+    product = cells[0] * cells[1] * cells[2]
+    passes = {"full_cells": 7, "wide_span": 4, "1jz8": 2}
+    if name in passes:
+        assert _order_digits(product)[0] == passes[name]
+    if name == "full_cells":
+        assert (product - 1).bit_length() == 54
+
+
+@pytest.mark.parametrize("name", _study.neighbor_case_names(OFFSETS))
+def test_order_model_on_the_seeded_cases(cases, name):
+    packed, gid, _k = cases[name]
+    keys = neighbors.cell_grid(packed, gid, PROBE).keys
+    got = _cell_order_model(keys, *gid.shape)
+    want = torch.sort(keys, stable=True)
+    assert torch.equal(got[0], want.values)
+    assert torch.equal(got[1], want.indices)
+
+
+def test_order_reference_gathers_at_the_sort():
+    packed, gid = _order_case("many_structures")
+    got = neighbors.cell_order_reference(packed, gid, PROBE)
+    grid = neighbors.cell_grid(packed, gid, PROBE)
+    assert got._fields == _kernels.CellOrder._fields
+    for a, b in zip(got[:3], grid):
+        assert torch.equal(a, b)
+    assert torch.equal(got.sorted_keys, got.keys[got.perm])
+    assert torch.equal(got.sorted_packed, packed.reshape(-1, 4)[got.perm])
+    assert torch.equal(got.sorted_gid, gid.reshape(-1)[got.perm])
+    real = int((gid >= 0).sum())
+    assert (got.sorted_gid[:real] >= 0).all()
+    assert (got.sorted_gid[real:] < 0).all()
+    assert torch.equal(got.perm[real:], (gid.reshape(-1) < 0).nonzero()[:, 0])
+
+
+def test_order_runs():
+    """One CTA (8 warps) a 2,048 slots, at most 8: 1jz8's 32,768 slots
+    in runs of 512 (16 steps), the ordering cases' small structures in
+    one CTA's runs."""
+    assert [_order_run(n) for n in (8, 96, 700, 2048, 2049, 32768, 65536)
+            ] == [32, 32, 96, 256, 160, 512, 1024]
+
+
+def test_order_digits():
+    assert _order_digits(1) == (1, 1)
+    assert _order_digits(255) == (1, 8)
+    assert _order_digits(256) == (2, 5)
+    assert _order_digits(22 ** 3) == (2, 7)
+    assert _order_digits(2 ** 54) == (7, 8)
 
 
 def test_padding_keys_sort_last():

@@ -7,11 +7,15 @@ builders and Pallas kernels (in TPU interpret mode) and through
 comparison is exact.  The kernels are fed the same dequantized planes:
 the script's jitted `pair64_banded` / `nibble_banded` wrappers dequantize
 inline, where XLA-CPU contracts `q * scale + origin` to a fused
-multiply-add.  The plain model of the card's nibble kernel, which packs
-an entry's groups four to a reach-test chunk
-(`nibble_counts_kept_reference`), must give the plain version's counts
-for every group count.  The CUDA kernels are held against the same
-plain versions on the card (tests/test_torch_cuda.py).
+multiply-add.  The plain models of the card's kernels on kernel 1's
+layout - nibble, which packs an entry's groups four to a reach-test
+chunk (`nibble_counts_kept_reference`), and pair64, whose CTAs stage
+only their half's entries and chunks (`pair64_counts_kept_reference`) -
+must give the plain versions' counts at every slot: for every group
+count, on near-tangent pairs and pairs at the reach slack's edge, and on
+entries admitted by one half, by neither, or past the chunk's end.  The
+CUDA kernels are held against the same plain versions on the card
+(tests/test_torch_cuda.py).
 """
 
 import importlib.util
@@ -233,6 +237,111 @@ def test_nibble_packed_model_equals_plain(lists):
     assert int(want.max()) > 0 and int(want.min()) < 100
 
 
+def _split_halves(jlist, t, seed):
+    """(jlist_a, jmask_b, plain_a, plain_b) from kernel 1's j-list
+    [T, 128] i32 admitting every group: per tile, entry 1 admitted by
+    atoms 0-63 only and entry 2 by 64-127 only (random masks), entry 0
+    by both with random masks, the rest by both in full; then one entry
+    with both masks 0 and one on a j-tile past the chunk's end (t + 3,
+    all groups).  plain_a, plain_b are the same lists with the past entry
+    dead (masks 0), as the kernel takes it and the plain version needs."""
+    rng = np.random.default_rng(seed)
+    ent = jlist.astype(np.int64) & 0xFFFFFFFF
+    n = ent[:, 0].copy()
+    a = ent.copy()
+    b = np.zeros_like(ent)
+    b[:, 0] = n
+    for ti in range(jlist.shape[0]):
+        k = int(n[ti])
+        masks = np.full((k, 2), 0xFFFF, np.int64)
+        masks[0] = rng.integers(1, 1 << 16, 2)
+        masks[1] = (rng.integers(1, 1 << 16), 0)
+        masks[2] = (0, rng.integers(1, 1 << 16))
+        a[ti, 1:1 + k] = (masks[:, 0] << 16) | (ent[ti, 1:1 + k] & 0xFFFF)
+        b[ti, 1:1 + k] = masks[:, 1]
+        a[ti, 1 + k] = ti  # both masks 0
+        a[ti, 2 + k] = (0xFFFF << 16) | (t + 3)
+        b[ti, 2 + k] = 0xFFFF
+        a[ti, 0] = b[ti, 0] = k + 2
+    plain_a, plain_b = a.copy(), b.copy()
+    for ti in range(jlist.shape[0]):
+        k = int(a[ti, 0])
+        plain_a[ti, k] &= 0xFFFF
+        plain_b[ti, k] = 0
+    return tuple(torch.from_numpy(x.astype(np.uint32).view(np.int32)
+                                  .astype(np.int32))
+                 for x in (a, b, plain_a, plain_b))
+
+
+# The card's pair64 kernel stages, per CTA, only its half's live entries
+# and tests kernel 1's reach chunks of its half's groups: its model gives
+# the plain version's counts at every slot.
+@pytest.mark.parametrize("case", ["builder", "tangent", "slack_edge"])
+def test_pair64_kept_model_equals_plain(case):
+    packed, _s128 = _sphere(100)
+    if case == "builder":
+        planes, qvalid, tm, _ = _planes(seed=3)
+        jlist_a, jmask_b = r5_pair64.build_jlist_banded_2h(
+            planes, qvalid, torch.from_numpy(tm), w=16)
+        lists = plain = (jlist_a, jmask_b)
+        mask_a = (jlist_a[:, 1:].long() & 0xFFFFFFFF) >> 16
+        assert ((mask_a == 0) != (jmask_b[:, 1:] == 0)).any()
+    else:
+        planes_np, jlist, _real = _study.tangent_chunk(
+            100, seed=6, far=case == "slack_edge")
+        planes = torch.from_numpy(planes_np)
+        *lists, pa, pb = _split_halves(jlist, planes.shape[1] // 128, seed=7)
+        plain = (pa, pb)
+    got = r5_pair64.pair64_counts_kept_reference(planes, *lists, packed)
+    want = r5_pair64.pair64_counts_reference(planes, *plain, packed)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert int(want.max()) > 0 and int(want.min()) < 100
+
+
+def test_pair64_kept_model_sees_each_half_mask():
+    """Dropping an entry's mask B moves atoms 64-127's counts only (and
+    the kept model follows the plain version there too)."""
+    planes_np, jlist, _real = _study.tangent_chunk(100, seed=8)
+    planes = torch.from_numpy(planes_np)
+    packed, _s128 = _sphere(100)
+    jlist_a, jmask_b, *_ = _split_halves(jlist, planes.shape[1] // 128,
+                                         seed=9)
+    full = r5_pair64.pair64_counts_kept_reference(planes, jlist_a, jmask_b,
+                                                  packed)
+    cut = jmask_b.clone()
+    cut[:, 1:] = 0
+    half_a = r5_pair64.pair64_counts_kept_reference(planes, jlist_a, cut,
+                                                    packed)
+    lane = torch.arange(planes.shape[1]) % 128
+    assert torch.equal(half_a[lane < 64], full[lane < 64])
+    assert (half_a[lane >= 64] >= full[lane >= 64]).all()
+    assert (half_a[lane >= 64] > full[lane >= 64]).any()
+
+
+def test_pair64_staged_counts_entries_and_chunks_a_cta():
+    # One tile of a 2-tile chunk: entries with masks (A, B) of groups
+    # ({0}, {0, 4}), ({0..15}, none), (none, {12}), (none, none), and one
+    # past the chunk; kernel 1's union masks {0, 4}, all, {12}.
+    masks = [(0x1, 0x11), (0xFFFF, 0x0), (0x0, 0x1000), (0x0, 0x0),
+             (0x3, 0x3)]
+    jlist_a = torch.zeros((2, 128), dtype=torch.int64)
+    jmask_b = torch.zeros((2, 128), dtype=torch.int64)
+    jlist = torch.zeros((2, 128), dtype=torch.int64)
+    jlist_a[0, 0] = jmask_b[0, 0] = jlist[0, 0] = len(masks)
+    for e, (ma, mb) in enumerate(masks):
+        j = 9 if e == 4 else e % 2
+        jlist_a[0, 1 + e] = (ma << 16) | j
+        jmask_b[0, 1 + e] = mb
+        jlist[0, 1 + e] = ((ma | mb) << 16) | j
+    as_i32 = (lambda x: (x - ((x >> 31) << 32)).to(torch.int32))
+    got = r5_pair64.pair64_staged(as_i32(jlist), as_i32(jlist_a),
+                                  as_i32(jmask_b))
+    # Mask A: 2 live entries, 1 + 4 chunks; mask B: 2 entries, 2 + 1
+    # chunks; kernel 1: 3 entries, 2 + 4 + 1 chunks; over 2 tiles.
+    assert got == {"pair64": {"entries": (2 + 2) / 4, "chunks": (5 + 3) / 4},
+                   "prod": {"entries": 3 / 2, "chunks": 7 / 2}}
+
+
 def test_reach_chunks_count_packed_and_kernel1_chunks():
     # Kernel 1's entries: masks of groups {0}, {0, 5}, {0, 4, 8, 12}, all
     # 16, and one on a tile past the chunk; the nibble list of the same
@@ -265,7 +374,10 @@ def test_run_on_cpu_equals_prod():
     assert pair64["j_atoms_per_atom"] < prod["j_atoms_per_atom"]
     per_entry = variants["nibble"]["chunks_per_entry"]
     assert 1.0 <= per_entry["nibble"] <= per_entry["prod"] <= 4.0
-    assert variants["nibble"]["instr"] == prod["instr"]
+    assert variants["nibble"]["instr"] == pair64["instr"] == prod["instr"]
+    staged = pair64["per_cta"]
+    assert 0 < staged["pair64"]["entries"] <= staged["prod"]["entries"]
+    assert 0 < staged["pair64"]["chunks"] <= staged["prod"]["chunks"]
     assert set(result["builders"]) == {"banded", "banded_kernel",
                                        "banded_2h", "nibble"}
     assert result["kernel_equal"]

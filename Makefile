@@ -30,3 +30,22 @@ native:
 clean:
 	rm -rf rustsasa_tpu/native/libfastparse.so .jax_cache \
 	    $(shell find . -name __pycache__ -type d)
+
+# The PyTorch/CUDA port (rustsasa_tpu_torch).  `ci-torch` is the local
+# analog of .github/workflows/ci_torch.yml: byte-compile lint and the
+# CPU tests (the card-only ones, marker `gpu`, left out); the other
+# three run on a card.
+.PHONY: ci-torch precompile-torch bench-torch quality-torch
+
+ci-torch:
+	python -m py_compile $(shell find rustsasa_tpu_torch -name '*.py') chip_smoke.py
+	python -m pytest tests/ -q -m "not slow and not gpu"
+
+precompile-torch:
+	python -m rustsasa_tpu_torch.scripts.precompile_fused
+
+bench-torch:
+	python -m rustsasa_tpu_torch.bench
+
+quality-torch:
+	python -m rustsasa_tpu_torch.scripts.quality_report

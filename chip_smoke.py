@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `rustsasa_tpu_torch/ops/csrc/` and
-runs fifteen phases, each of which must pass:
+runs sixteen phases, each of which must pass:
 
   1. build: nvcc for sm_90a, one process per kernel source, all started
      together, with the compiler's register/spill report;
@@ -171,7 +171,22 @@ runs fifteen phases, each of which must pass:
      524,288 slots kernel 1 byte-equal to its plain version on q12 planes
      and on atombox j-lists, with its bound on each (recounted and the
      old).  The main path's three kernels' records
-     carry these paths' launches (`profilers_launches`).
+     carry these paths' launches (`profilers_launches`);
+ 16. tools: `BatchedSasaEngine.warm_shapes` on its nine production
+     (M, w) shapes, each of dequant_boxes, band_jlist and fused_count
+     launched once a shape; scripts/r3_link_floor.py (the dispatch floor,
+     pageable and pinned copy rates both ways, the 2,622-atom protein end
+     to end); scripts/r3_split.py on the corpus's first 900 files (the
+     host-cull f32 and banded q13 routes split into copies, kernels and
+     readback, their end-to-end counts byte-equal to the kernels-alone
+     run and the q13 counts to the engine's, then a whole bench pass with
+     every chunk's device work between CUDA events: the device's idle
+     share); `precompile_fused --quick` in a process of its own (each
+     production shape's first launch, all nine shapes warm through a
+     thread a shape and serially, then one row a wire and band width;
+     its launches counted from 0 in that process, each call's adding up
+     to its totals).  The main path's three kernels' records carry these
+     paths' launches (`tools_launches`).
 
 Phases 2, 5, 9 and 10 log the kernels redesigned for this card
 (fused_count; list_occlusion and neighbor_cells; maxplus_count; ke_mxu's
@@ -2464,6 +2479,110 @@ def phase_profilers(device, corpus_dir, smi):
     return {"fused_count": launches, **band}
 
 
+def phase_tools(device, corpus_dir, smi):
+    """Phase 16: the reference's last tools on the card -
+    `BatchedSasaEngine.warm_shapes` (each kernel launched once a shape),
+    r3_link_floor, r3_split (its end-to-end counts byte-equal to its
+    kernels-alone run and to the engine's) and `precompile_fused --quick`
+    in a process of its own (its shapes' first launches are that
+    process's).  Returns {kernel: {path: launches}} for the main path's
+    three kernels."""
+    from rustsasa_tpu_torch.ops import _kernels, engine
+    from rustsasa_tpu_torch.scripts import r3_link_floor, r3_split
+
+    t_phase = time.perf_counter()
+    names = (*BAND_KERNELS, "fused_count")
+    launches = {k: {} for k in names}
+
+    def counted(path, fn):
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        for k in names:
+            launches[k][path] = _kernels.launch_counts[k]
+        log(f"[tools] {path}: {time.perf_counter() - t0:.1f}s, launches "
+            + ", ".join(f"{launches[k][path]} {k}" for k in names))
+        return result
+
+    eng = engine.BatchedSasaEngine(engine.SasaParams(), device=device)
+    shapes = eng._WARM_SHAPES
+    elapsed = counted("warm_shapes", eng.warm_shapes)
+    log(f"[tools] warm_shapes: {len(shapes)} shapes on {len(eng.ring)} "
+        f"entry, one thread a shape, {elapsed:.4f}s (the kernels already "
+        f"launched by the earlier phases); {smi}")
+    if any(launches[k]["warm_shapes"] != len(shapes) for k in names):
+        raise AssertionError(f"warm_shapes launches {launches}")
+
+    r = counted("r3_link_floor", lambda: r3_link_floor.run(device))
+    log(f"[tools] r3_link_floor: {json.dumps(r)}")
+    if not all(r[k] > 0 for k in ("dispatch_floor_median_ms",
+                                  "h2d_64mb_pinned_mbps",
+                                  "d2h_64mb_pinned_mbps",
+                                  "fused_single_protein_device_median_ms")):
+        raise AssertionError("r3_link_floor: a figure is not positive")
+
+    out_dir = os.path.join(WORK, "r3_split_out")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    r = counted("r3_split", lambda: r3_split.run(corpus_dir, device,
+                                                 out_dir=out_dir))
+    for line in r3_split.lines(r):
+        log(f"[tools] r3_split: {line}")
+    log(f"[tools] r3_split: {json.dumps(r3_split.record(r))}")
+    q13, p = r["routes"]["q13"], r["pass"]
+    if not (r["routes"]["f32"]["e2e_equals_kernels"]
+            and q13["e2e_equals_kernels"] and q13["equals_engine"]):
+        raise AssertionError("r3_split: counts differ between its runs or "
+                             "from the engine's")
+    if r["files"] != r3_split.FILES or p["n_ok"] != p["n_files"] or (
+            p["launches"]["fused_count"] != p["chunks"]):
+        raise AssertionError(f"r3_split: {r['files']} files, pass {p}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rustsasa_tpu_torch.scripts.precompile_fused",
+         "--quick"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"precompile_fused --quick exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"[tools] precompile_fused: {line}")
+    r = json.loads(lines[-1])
+    log(f"[tools] precompile_fused --quick: {wall:.1f}s wall (process "
+        f"start included)")
+    # The process's own totals, counted from 0 at the start of its run;
+    # every warm_shapes call and every row call carries its launches, and
+    # they must add up to the totals.
+    total = r["launches"]
+    log(f"[tools] precompile_fused: process launches {total}")
+    parts = ([c for s in r["shapes"] for c in s["launches"]]
+             + [p["launches"] for p in r["pool_vs_serial"]]
+             + [c["launches"] for row in r["rows"] for c in row["calls"]])
+    if any(n for k, n in total.items() if k not in names) or any(
+            total[k] != sum(c[k] for c in parts) for k in names):
+        raise AssertionError(f"precompile_fused launches {total} are not "
+                             f"its calls' {parts}")
+    for k in names:
+        launches[k]["precompile_fused"] = total[k]
+    n_shapes = len(r["shapes"])
+    if any(c != dict.fromkeys(names, 1)
+           for s in r["shapes"] for c in s["launches"]) or any(
+            p["launches"] != dict.fromkeys(names, n_shapes)
+            for p in r["pool_vs_serial"]):
+        raise AssertionError(f"precompile_fused warm_shapes launches "
+                             f"{r['shapes']} {r['pool_vs_serial']}")
+    wires = {w for row in r["rows"] for w, n in row["routes"].items() if n}
+    if wires != {"q13", "q16"} or not all(
+            c["routes"] == row["routes"]
+            and c["launches"]["fused_count"] == sum(c["routes"].values())
+            for row in r["rows"] for c in row["calls"]):
+        raise AssertionError(f"precompile_fused rows {r['rows']}")
+    log(f"[tools] phase 16 took {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2516,10 +2635,12 @@ def main() -> int:
     for rec in list_records:
         rec["scale_out_launches"] = scale_out[rec["name"]]
     profilers = phase_profilers(device, corpus_dir, smi)
+    tools = phase_tools(device, corpus_dir, smi)
     for rec in main_records:
         rec["scale_out_launches"] = scale_out[rec["name"]]
         rec["profilers_launches"] = profilers[rec["name"]]
-    log(f"[smoke] fifteen phases in {time.perf_counter() - t_start:.1f}s")
+        rec["tools_launches"] = tools[rec["name"]]
+    log(f"[smoke] sixteen phases in {time.perf_counter() - t_start:.1f}s")
     log(smi)
     print(json.dumps({"kernels": [*main_records, *list_records, *studies,
                                   *studies_ii, *experiments]}))

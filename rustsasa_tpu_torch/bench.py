@@ -11,7 +11,9 @@ smallest first (the AlphaFold E. coli proteome's size profile); one warm
 pass, then five timed passes of `process_directory` at residue level
 with JSON output, each on an engine of its own; the median is the metric.
 Then the FreeSASA quality gate (`scripts/quality_gate.py`) on the same
-device.  The kernels' first build is timed apart (`build_s`).
+device.  The kernels' first build is timed apart (`build_s`), and so is
+the first launch of each production chunk shape before the warm pass
+(`warm_shapes_s`, `BatchedSasaEngine.warm_shapes`).
 
 Prints exactly one JSON line: bench.py's keys (`value` the median pass
 in seconds, `vs_baseline` against RustSASA's 5.237 s on an 8-core M3),
@@ -114,6 +116,12 @@ def run(device="cuda", work_dir=WORK_DIR, say=log) -> dict:
     say(f"corpus: {n_files} structures, {n_atoms} atoms ({n_distinct} "
         f"distinct) at {corpus}")
 
+    # Each production chunk shape's first launch (module loads, the
+    # allocator's growth) before the warm pass, as bench.py does
+    # (engine.warm_shapes); 0.0 on the CPU.
+    warm_shapes_s = BatchedSasaEngine(SasaParams(), device=dev).warm_shapes()
+    say(f"warm_shapes took {warm_shapes_s:.3f}s")
+
     options = SASAOptions(level=Level.RESIDUE, device=device)
     times, launches, chunks, entries, n_ok = [], [], [], [], []
     band_launches, routes = [], []
@@ -183,6 +191,7 @@ def run(device="cuda", work_dir=WORK_DIR, say=log) -> dict:
         "gpu_name": card[0] if card else None,
         "power_limit": card[1] if card else None,
         "build_s": build_s,
+        "warm_shapes_s": warm_shapes_s,
         "n_files": n_files,
         "n_atoms": n_atoms,
         "n_ok": n_ok,

@@ -4,7 +4,8 @@ The shared library is built from this package's own `fastparse.cpp` on
 first use, with g++, under an exclusive lock (`_host_build`), into
 `build/rustsasa_tpu_torch/libfastparse_<key>.so` beside the package; the
 key hashes the source and the compiler flags.  Where `build/` cannot be
-written (a read-only install) it goes to ~/.cache/rustsasa_tpu_torch.
+written (a read-only install) it goes to ~/.cache/rustsasa_tpu_torch
+(`utils/build_cache.py`, which the CUDA kernels' build shares).
 The library's radius table is process-global, and it is this package's
 own: no other package loads this file.  All entry points release the
 GIL, so a Python thread pool of parser workers scales across host cores.
@@ -23,6 +24,7 @@ import threading
 import numpy as np
 
 from .._host_build import build_shared_library
+from ..utils import build_cache
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "fastparse.cpp")
@@ -37,14 +39,7 @@ def _lib_name() -> str:
     return f"libfastparse_{h.hexdigest()[:16]}.so"
 
 
-_LIB = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
-                    "rustsasa_tpu_torch", _lib_name())
-# Read-only installs (e.g. system site-packages) build into the user
-# cache instead.
-_LIB_FALLBACK = os.path.join(
-    os.path.expanduser("~"), ".cache", "rustsasa_tpu_torch",
-    os.path.basename(_LIB)
-)
+_LIB = os.path.join(build_cache.build_dir(), _lib_name())
 
 _lock = threading.Lock()
 _lib = None
@@ -96,13 +91,11 @@ def _build(out: str) -> bool:
 def _locate_or_build() -> str | None:
     """Return the path of a complete, loadable libfastparse, building it
     under the lock if needed; None when it cannot be built."""
-    for lib in (_LIB, _LIB_FALLBACK):
-        try:
-            os.makedirs(os.path.dirname(lib), exist_ok=True)
-            return build_shared_library(_SRC, lib, _build)
-        except OSError:
-            continue
-    return None
+    try:
+        os.makedirs(os.path.dirname(_LIB), exist_ok=True)
+        return build_shared_library(_SRC, _LIB, _build)
+    except OSError:
+        return None
 
 
 def load_library():

@@ -4,11 +4,13 @@ Each source in `csrc/` is compiled by `nvcc` for `sm_90a` into its own
 shared library with a plain C interface and loaded with ctypes: no
 PyTorch headers, so a build takes seconds, and the sources build in
 parallel (one nvcc each, all started together).  The build happens at
-first use, into `build/rustsasa_tpu_torch/` beside the package, keyed by
-a hash of the source, the shared `.cuh` headers and the flags; nothing
-is built or imported when this
-module is imported.  Every launch is counted in `launch_counts`, so a run
-can show that its work went through the kernel.
+first use, into `build/rustsasa_tpu_torch/` beside the package (the
+user's `~/.cache/rustsasa_tpu_torch/` where that cannot be written, as
+for a wheel in a read-only site-packages), keyed by a hash of the
+source, the shared `.cuh` headers and the flags; nothing is built or
+imported when this module is imported.  Every launch is counted in
+`launch_counts`, so a run can show that its work went through the
+kernel.
 """
 
 from __future__ import annotations
@@ -26,11 +28,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import build_cache
+
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "build", "rustsasa_tpu_torch",
-)
+# build/rustsasa_tpu_torch/ beside the package, or the user's cache where
+# that cannot be written (utils/build_cache.py).
+BUILD_DIR = build_cache.build_dir()
 # --fmad=false: counts are held bit-exact against the reference, whose
 # margins round every multiply and add separately.
 NVCC_FLAGS = (

@@ -629,6 +629,25 @@ def calculate_sasa_internal(
     return sasa[:n].cpu().numpy()
 
 
+def _warm_chunk(m: int, w: int, n_points: int, device, stream) -> None:
+    """One all-padding q13 chunk of `m` slots at band width `w` through
+    fused_sasa_q13_banded on the current stream (`stream`, None for the
+    caller's), from zeros made on `device`; waits for 8 counts."""
+    tiles = m // fused_kernel.ATOM_TILE
+    sphere = _sphere_device(n_points, device)
+    if stream is not None:
+        sphere.record_stream(stream)
+    out = fused_kernel.fused_sasa_q13_banded(
+        torch.zeros(m, dtype=torch.int32, device=device),
+        torch.zeros(m, dtype=torch.int16, device=device),
+        torch.zeros(256, dtype=torch.float32, device=device),
+        torch.zeros((tiles, 4), dtype=torch.float32, device=device),
+        torch.zeros((tiles, 2), dtype=torch.int32, device=device),
+        sphere, n_points=n_points, w=w,
+    )
+    out[0:8].cpu()
+
+
 class BatchedSasaEngine:
     """Batched engine: many structures per device dispatch.
 
@@ -658,6 +677,60 @@ class BatchedSasaEngine:
         )
         self.device = self.ring.devices[0]
         self.routes = RouteCounts(len(self.ring))
+
+    # Production (M, w) chunk shapes (the reference's list,
+    # rustsasa_tpu/ops/engine.py:867-871): the pipeline's 0.5M and 1M
+    # slot chunks and full 2M ones, at the band widths proteome-scale
+    # structures land in.
+    _WARM_SHAPES = [
+        (524288, 16), (524288, 24), (524288, 32),
+        (1048576, 16), (1048576, 24), (1048576, 32),
+        (2097152, 16), (2097152, 24), (2097152, 32),
+    ]
+
+    def warm_shapes(self, shapes=None, *, threads: int | None = None
+                    ) -> float:
+        """Make each production chunk shape's first launch before real
+        work arrives; returns the elapsed seconds.
+
+        On a card that first launch loads the kernels' modules (CUDA
+        loads them lazily) and grows the caching allocator to the
+        chunk's size.  For each (M, w) of `shapes` (default
+        `_WARM_SHAPES`) and each CUDA entry of the ring, on the entry's
+        stream, one all-padding q13 chunk goes through
+        `fused_sasa_q13_banded` (dequant_boxes, band_jlist, fused_count)
+        from zeros made on the device, so no wire bytes cross the bus,
+        and 8 counts are read back.  `threads`: one a shape by default;
+        <= 1 runs the shapes serially (scripts/precompile_fused.py times
+        the two against each other).  An engine with no CUDA entry, or
+        on the list backend, has nothing to warm and returns 0.0.
+        """
+        import time
+        from concurrent.futures import ThreadPoolExecutor
+
+        t0 = time.perf_counter()
+        entries = [e for e, d in enumerate(self.ring.devices)
+                   if d.type == "cuda"]
+        if not entries or self.backend != "fused":
+            return 0.0
+        n_points = self.params.n_points
+
+        def one(shape):
+            for entry in entries:
+                with self.ring.stream(entry):
+                    _warm_chunk(*shape, n_points, self.ring.devices[entry],
+                                self.ring.streams[entry])
+
+        shapes = shapes or self._WARM_SHAPES
+        if threads is None:
+            threads = len(shapes)
+        if threads <= 1:
+            for shape in shapes:
+                one(shape)
+        else:
+            with ThreadPoolExecutor(max_workers=threads) as pool:
+                list(pool.map(one, shapes))
+        return time.perf_counter() - t0
 
     @property
     def chunks_dispatched(self) -> int:

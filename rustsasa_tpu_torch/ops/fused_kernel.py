@@ -1096,15 +1096,24 @@ def _counts_out(counts, n_points: int):
     return counts.to(torch.uint8 if n_points <= 255 else torch.int16)
 
 
+def _no_mark(stage: str) -> None:
+    pass
+
+
 def fused_sasa_q13_banded(wire_a, wire_b, palette, tparams, tmeta, sphere,
-                          *, n_points: int, w: int):
+                          *, n_points: int, w: int, mark=_no_mark):
     """6 B/slot wire + device-side culling -> per-slot occlusion counts:
     on CUDA the dequant_boxes, band_jlist and fused_count kernels, one
-    launch each."""
+    launch each.  `mark(stage)` is called after each of the three is
+    queued (scripts/r3_split.py records a CUDA event there)."""
     planes, qvalid, boxes = dequant_boxes_q13(wire_a, wire_b, palette,
                                               tparams)
+    mark("dequant_boxes")
     jlist = build_jlist_banded(planes, qvalid, tmeta, w=w, boxes=boxes)
-    return _counts_out(fused_counts(planes, jlist, sphere), n_points)
+    mark("band_jlist")
+    out = _counts_out(fused_counts(planes, jlist, sphere), n_points)
+    mark("fused_count")
+    return out
 
 
 def fused_sasa_q16_banded(planes4, tparams, tmeta, sphere,

@@ -98,6 +98,7 @@ def test_bench_record(tiny_corpus, tmp_path, monkeypatch):
     assert (record["quality_pass"], record["quality_residue_rmse"]) == (
         True, 45.0)
     assert record["build_s"] == 0.0
+    assert record["warm_shapes_s"] == 0.0  # no card: nothing to warm
     assert sorted(os.listdir(tmp_path / "work" / "out")) == [
         "2drt_00000.json", "2drt_00002.json", "2gpi_00001.json",
         "2gpi_00003.json"]

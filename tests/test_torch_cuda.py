@@ -1362,3 +1362,90 @@ def test_neighbor_cells_launcher_refuses_bad_inputs(cuda):
     torch.cuda.synchronize()
     assert planes.shape == (4, 4, b * n) and counts.shape == (b * n,)
     assert max_count.shape == () and int(max_count) == 0
+
+
+WARM_KERNELS = ("dequant_boxes", "band_jlist", "fused_count")
+
+
+@pytest.mark.parametrize("threads", [None, 1])
+def test_warm_shapes_launches_each_kernel_once_a_shape_an_entry(cuda,
+                                                                threads):
+    """warm_shapes: every production shape once on each ring entry (two
+    streams of one card here), one launch of each of the banded chunk's
+    three kernels a shape and entry, and the elapsed seconds back."""
+    eng = engine.BatchedSasaEngine(devices=[cuda, cuda])
+    shapes = eng._WARM_SHAPES
+    _kernels.reset_launch_counts()
+    elapsed = eng.warm_shapes(threads=threads)
+    torch.cuda.synchronize()
+    assert elapsed > 0.0
+    assert {k: _kernels.launch_counts[k] for k in WARM_KERNELS} == dict.fromkeys(
+        WARM_KERNELS, 2 * len(shapes))
+    assert sum(_kernels.launch_counts.values()) == 3 * 2 * len(shapes)
+    assert eng.routes.counts == dict.fromkeys(eng.routes.NAMES, 0)
+
+
+def test_chunk_after_warming_equals_one_before(cuda):
+    """A chunk's counts after warm_shapes (allocator blocks the all-padding
+    chunks used) byte-equal to the same chunk's before."""
+    structures = _structures([700, 2600, 3700], seed=11)
+    structures.append(_structures([300], seed=12, spread=120.0)[0])  # q16
+    eng = engine.BatchedSasaEngine(device=cuda)
+
+    def counts():
+        return [np.asarray(v.counts).copy()
+                for v in eng.enqueue(structures).collect_views()]
+
+    before = counts()
+    assert eng.warm_shapes([(4096, 16), (524288, 32)], threads=1) > 0.0
+    after = counts()
+    assert eng.routes.counts["q13"] == 2 and eng.routes.counts["q16"] == 2
+    for a, b in zip(before, after):
+        np.testing.assert_array_equal(a, b)
+
+
+# Run from a copy of the package whose build directory cannot be
+# created (its parent, site/build, is a file, which no user, root
+# included, can make a directory under).
+BUILD_ELSEWHERE = """
+import os
+from rustsasa_tpu_torch.ops import _kernels, engine
+from rustsasa_tpu_torch.utils import build_cache
+want = os.path.join(os.environ["HOME"], ".cache", "rustsasa_tpu_torch")
+assert _kernels.BUILD_DIR == build_cache.USER_DIR == want, _kernels.BUILD_DIR
+built = _kernels.build()
+assert sorted(built) == sorted(_kernels.SOURCES), sorted(built)
+assert all(os.path.dirname(b.path) == want for b in built.values())
+eng = engine.BatchedSasaEngine(device="cuda:0")
+assert eng.warm_shapes([(4096, 16)]) > 0.0
+assert _kernels.launch_counts["fused_count"] == 1
+print(len(built))
+"""
+
+
+def test_kernels_build_in_the_user_cache_when_the_package_dir_is_read_only(
+        cuda, tmp_path):
+    """An installed copy of the package whose build directory cannot be
+    written builds every kernel source into ~/.cache/rustsasa_tpu_torch,
+    and the banded chunk's kernels launch from there."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    site = tmp_path / "site"
+    shutil.copytree(pathlib.Path(_kernels.__file__).resolve().parents[1],
+                    site / "rustsasa_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (site / "build").write_text("")
+    home = tmp_path / "home"
+    home.mkdir()
+    env = dict(os.environ, HOME=str(home), PYTHONPATH=str(site))
+    proc = subprocess.run([sys.executable, "-c", BUILD_ELSEWHERE],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert int(proc.stdout.split()[-1]) == len(_kernels.SOURCES)
+    built = sorted(p.name for p in (home / ".cache" / "rustsasa_tpu_torch")
+                   .glob("lib*.so"))
+    assert len(built) == len(_kernels.SOURCES)

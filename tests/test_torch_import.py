@@ -80,8 +80,10 @@ def test_package_surface_is_the_references():
     assert rustsasa_tpu_torch.__version__ == rustsasa_tpu.__version__
 
 
-# Imports the port's entry points, the scale-out modules and every script
-# and bench module, runs one small CPU directory batch through the native
+# Imports the port's entry points, the scale-out modules, the build
+# directory's choice (utils/build_cache.py) and every script and bench
+# module (the reference's last tools, precompile_fused, r3_link_floor and
+# r3_split, by name too), runs one small CPU directory batch through the native
 # host route, the CLI on one file and the multi-device dry run, and lists
 # what was loaded from the JAX package's directory: modules and mapped
 # files.
@@ -95,6 +97,10 @@ import rustsasa_tpu_torch.bench, rustsasa_tpu_torch.benches as benches
 import rustsasa_tpu_torch.parallel, rustsasa_tpu_torch.parallel.mesh
 import rustsasa_tpu_torch.parallel.distributed
 import rustsasa_tpu_torch.parallel.worker, rustsasa_tpu_torch.graft_entry
+import rustsasa_tpu_torch.utils.build_cache
+import rustsasa_tpu_torch.scripts.precompile_fused
+import rustsasa_tpu_torch.scripts.r3_link_floor
+import rustsasa_tpu_torch.scripts.r3_split
 import importlib
 for info in pkgutil.iter_modules(scripts.__path__):
     importlib.import_module('rustsasa_tpu_torch.scripts.' + info.name)
@@ -142,7 +148,7 @@ def test_port_loads_nothing_from_the_jax_package(tmp_path):
     lines = proc.stdout.strip().splitlines()
     assert lines[0] == "modules []", lines[0]
     assert lines[1] == "maps []", lines[1]
-    assert int(lines[2].split()[1]) >= 21
+    assert int(lines[2].split()[1]) >= 25
     assert lines[3] == ("benches ['md_trajectory', 'micro_bench', "
                         "'single_protein', 'single_worker_proteome']"), lines[3]
 

@@ -1,0 +1,1 @@
+"""The benchmark of rustsasa_tpu_torch on one NVIDIA H100: see BENCHMARK.json and PERF.md."""

@@ -1,0 +1,3 @@
+"""idle_share.md: per cent of the traced window the device ran nothing."""
+
+from benchmark.readers import idle_share as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""kernels_roofline.md: least SASA time over the kernels' time, per cent."""
+
+from benchmark.readers import kernels_roofline as read  # noqa: F401

@@ -1,0 +1,7 @@
+"""frame_sums_s.md: the program's frame_sums span, seconds a thousand frames."""
+
+from benchmark.spans import span_s_per_kframe
+
+
+def read(ctx):
+    return span_s_per_kframe(ctx, "frame_sums")

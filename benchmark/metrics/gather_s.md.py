@@ -1,0 +1,7 @@
+"""gather_s.md: the program's gather span, seconds a thousand frames."""
+
+from benchmark.spans import span_s_per_kframe
+
+
+def read(ctx):
+    return span_s_per_kframe(ctx, "gather")

@@ -1,0 +1,7 @@
+"""h2d_s.md: the program's h2d span, seconds a thousand frames."""
+
+from benchmark.spans import span_s_per_kframe
+
+
+def read(ctx):
+    return span_s_per_kframe(ctx, "h2d")

@@ -264,72 +264,81 @@ def _compute_fused(structures, *, probe: float, n_points: int,
     Chunks are independent, so they go round-robin over `ring`'s entries
     with no collective.
     """
-    order = sorted(
-        range(len(structures)), key=lambda i: -structures[i][0].shape[0]
-    )
     pending = []  # (chunk, offsets, readback, kind)
     fallback: list[int] = []
 
     def dispatch(route, chunk, offsets, kind, fn, wire, **kw):
         entry = ring.take()
         device = ring.devices[entry]
-        with stagestats.stage("dispatch"), ring.stream(entry):
-            # Made on whichever stream came first and waited for; the
-            # record keeps its memory from reuse while a side stream
-            # reads it.
-            sphere = _sphere_device(n_points, device)
-            if ring.streams[entry] is not None:
-                sphere.record_stream(ring.streams[entry])
+        if stagestats.enabled:
+            # Real atoms against the slots the wire carries (every
+            # structure padded to whole tiles): the chunk's useful share.
+            sizes = [structures[i][0].shape[0] for i in chunk]
+            stagestats.tally("atoms", sum(sizes))
+            stagestats.tally("slots", sum(
+                _round_up(n, fused_kernel.ATOM_TILE) for n in sizes))
+        with ring.stream(entry):
             # Pinned copies and the readback go on this entry's stream.
-            out = fn(*fused_kernel.to_device(wire, device), sphere,
-                     n_points=n_points, **kw)
-            pending.append((chunk, offsets, _Readback(out), kind))
+            with stagestats.stage("h2d"):
+                staged = fused_kernel.to_device(wire, device)
+            with stagestats.stage("launch"):
+                # Made on whichever stream came first and waited for; the
+                # record keeps its memory from reuse while a side stream
+                # reads it.
+                sphere = _sphere_device(n_points, device)
+                if ring.streams[entry] is not None:
+                    sphere.record_stream(ring.streams[entry])
+                out = fn(*staged, sphere, n_points=n_points, **kw)
+                pending.append((chunk, offsets, _Readback(out), kind))
         routes.add(route, entry)
 
     def flush(chunk):
         if not chunk:
             return
-        triples = []
-        for i in chunk:
-            coords, radii, gids = structures[i]
-            triples.append(
-                (coords, radii, _dense_gids(gids, coords.shape[0]))
-            )
-        # Banded device-cull wires: per-atom-unique gids (the slot index
-        # becomes the exclusion id) and at most 127 tiles per structure.
-        # Ineligible structures re-flush as their own sub-chunk on the
-        # host-cull wires, so one exotic file never drags a whole chunk
-        # off the banded path.
-        eligible = [
-            k for k, t in enumerate(triples)
-            if -(-t[0].shape[0] // fused_kernel.ATOM_TILE)
-            <= fused_kernel.W_BUCKETS[-1] and _unique_gids(t[2])
-        ]
+        with stagestats.stage("route"):
+            triples = []
+            for i in chunk:
+                coords, radii, gids = structures[i]
+                triples.append(
+                    (coords, radii, _dense_gids(gids, coords.shape[0]))
+                )
+            # Banded device-cull wires: per-atom-unique gids (the slot
+            # index becomes the exclusion id) and at most 127 tiles per
+            # structure.  Ineligible structures re-flush as their own
+            # sub-chunk on the host-cull wires, so one exotic file never
+            # drags a whole chunk off the banded path.
+            eligible = [
+                k for k, t in enumerate(triples)
+                if -(-t[0].shape[0] // fused_kernel.ATOM_TILE)
+                <= fused_kernel.W_BUCKETS[-1] and _unique_gids(t[2])
+            ]
         if 0 < len(eligible) < len(chunk):
             elig = set(eligible)
             flush([chunk[k] for k in eligible])
             flush([chunk[k] for k in range(len(chunk)) if k not in elig])
             return
         if len(eligible) == len(chunk):
-            # 6 B/slot q13 wire first; structures whose extent
-            # disqualifies them split out onto the q16 wire, so one big
-            # structure does not drag a whole chunk onto 8 B/slot.
-            q13_ok = [
-                k for k, t in enumerate(triples)
-                if t[0].shape[0] == 0
-                or float((t[0].max(axis=0) - t[0].min(axis=0)).max())
-                <= fused_kernel.MAX_Q13_EXTENT
-            ]
+            with stagestats.stage("route"):
+                # 6 B/slot q13 wire first; structures whose extent
+                # disqualifies them split out onto the q16 wire, so one
+                # big structure does not drag a whole chunk onto 8 B/slot.
+                q13_ok = [
+                    k for k, t in enumerate(triples)
+                    if t[0].shape[0] == 0
+                    or float((t[0].max(axis=0) - t[0].min(axis=0)).max())
+                    <= fused_kernel.MAX_Q13_EXTENT
+                ]
+                max_nt = max(
+                    -(-t[0].shape[0] // fused_kernel.ATOM_TILE)
+                    for t in triples
+                )
+                w = next(b for b in fused_kernel.W_BUCKETS if b >= max_nt)
             if 0 < len(q13_ok) < len(chunk):
                 okset = set(q13_ok)
                 flush([chunk[k] for k in q13_ok])
                 flush([chunk[k] for k in range(len(chunk))
                        if k not in okset])
                 return
-            max_nt = max(
-                -(-t[0].shape[0] // fused_kernel.ATOM_TILE) for t in triples
-            )
-            w = next(b for b in fused_kernel.W_BUCKETS if b >= max_nt)
             with stagestats.stage("pack"):
                 q13 = fused_kernel.pack_structures_q13(triples, probe)
             if q13 is not None:
@@ -365,17 +374,22 @@ def _compute_fused(structures, *, probe: float, n_points: int,
             dispatch("f32", chunk, offsets, "area",
                      fused_kernel.fused_sasa, (planes, jlist))
 
-    chunk: list[int] = []
-    budget = 0
-    for i in order:
-        n_slots = _round_up(max(structures[i][0].shape[0], 1),
-                            fused_kernel.ATOM_TILE)
-        if chunk and budget + n_slots > CHUNK_SLOT_BUDGET:
-            flush(chunk)
-            chunk, budget = [], 0
-        chunk.append(i)
-        budget += n_slots
-    flush(chunk)
+    with stagestats.stage("route"):
+        order = sorted(
+            range(len(structures)), key=lambda i: -structures[i][0].shape[0]
+        )
+        chunks: list[list[int]] = [[]]
+        budget = 0
+        for i in order:
+            n_slots = _round_up(max(structures[i][0].shape[0], 1),
+                                fused_kernel.ATOM_TILE)
+            if chunks[-1] and budget + n_slots > CHUNK_SLOT_BUDGET:
+                chunks.append([])
+                budget = 0
+            chunks[-1].append(i)
+            budget += n_slots
+    for chunk in chunks:
+        flush(chunk)
     return _FusedPending(structures, pending, fallback, probe, n_points,
                          ring, routes)
 
@@ -430,10 +444,9 @@ class _FusedPending:
         self.views: list = [None] * len(structures)
 
     def collect(self) -> list[np.ndarray]:
+        views = self.collect_views()
         with stagestats.stage("unpack"):
-            return [
-                v() if callable(v) else v for v in self.collect_views()
-            ]
+            return [v() if callable(v) else v for v in views]
 
     def collect_views(self) -> list:
         """Wait for every chunk; return per-structure entries: a

@@ -169,12 +169,13 @@ def test_port_sources_name_no_alias(pattern):
 # keeps unchanged; api.py, batch.py and native/__init__.py differ in their
 # docstrings and the native loader, and are held to the reference by the
 # parity tests (tests/test_torch_batch.py, tests/test_torch_native_build.py).
+# utils/stagestats.py is the port's own tracing (tests/test_torch_stagestats.py).
 UNCHANGED_COPIES = [
     "constants.py", "radii.py", "levels.py", "data/__init__.py",
     "data/protor.py", "io/__init__.py", "io/structure.py", "io/pdb.py",
     "io/cif.py", "io/hybrid36.py", "io/read.py", "io/serialize.py",
     "io/writeback.py", "native/fastparse.cpp", "ops/sphere.py",
-    "utils/__init__.py", "utils/stagestats.py", "trajectory/dcd.py",
+    "utils/__init__.py", "trajectory/dcd.py",
 ]
 
 

@@ -144,6 +144,18 @@ def _unique_gids(gid: np.ndarray) -> bool:
     return n == 0 or int(gid.max()) == n - 1
 
 
+def _q13_extent_fits(triples) -> list[int]:
+    """Indices of the structures whose raw-coordinate extent fits the q13
+    grid (empty ones fit).  Run only on a chunk the q13 packer declined,
+    to tell its structures over 100 A from a declined radius palette."""
+    return [
+        k for k, t in enumerate(triples)
+        if t[0].shape[0] == 0
+        or float((t[0].max(axis=0) - t[0].min(axis=0)).max())
+        <= fused_kernel.MAX_Q13_EXTENT
+    ]
+
+
 def _device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -257,9 +269,14 @@ def _compute_fused(structures, *, probe: float, n_points: int,
 
     Chunks by the atom-slot budget, longest structure first; a chunk
     splits so that every structure takes the narrowest wire it can (see
-    the module docstring).  The reference pads each chunk to one of a few
-    slot buckets because each shape is a separate TPU compile; the CUDA
-    kernel takes any multiple of 128 slots, so chunks are not padded.
+    the module docstring).  The q13 packer's own verdict decides q13
+    eligibility: a banded chunk goes to it whole, and only a chunk it
+    declines pays the per-structure extent test (`_q13_extent_fits`)
+    that splits the structures over 100 A onto the q16 wire (the
+    reference tests every structure before packing).  The reference pads
+    each chunk to one of a few slot buckets because each shape is a
+    separate TPU compile; the CUDA kernel takes any multiple of 128
+    slots, so chunks are not padded.
 
     Chunks are independent, so they go round-robin over `ring`'s entries
     with no collective.
@@ -292,7 +309,9 @@ def _compute_fused(structures, *, probe: float, n_points: int,
                 pending.append((chunk, offsets, _Readback(out), kind))
         routes.add(route, entry)
 
-    def flush(chunk):
+    def flush(chunk, q13=True):
+        """`q13=False`: a sub-chunk of structures over 100 A, straight to
+        the q16 wire (the packer has declined them once already)."""
         if not chunk:
             return
         with stagestats.stage("route"):
@@ -319,33 +338,36 @@ def _compute_fused(structures, *, probe: float, n_points: int,
             return
         if len(eligible) == len(chunk):
             with stagestats.stage("route"):
-                # 6 B/slot q13 wire first; structures whose extent
-                # disqualifies them split out onto the q16 wire, so one
-                # big structure does not drag a whole chunk onto 8 B/slot.
-                q13_ok = [
-                    k for k, t in enumerate(triples)
-                    if t[0].shape[0] == 0
-                    or float((t[0].max(axis=0) - t[0].min(axis=0)).max())
-                    <= fused_kernel.MAX_Q13_EXTENT
-                ]
                 max_nt = max(
                     -(-t[0].shape[0] // fused_kernel.ATOM_TILE)
                     for t in triples
                 )
                 w = next(b for b in fused_kernel.W_BUCKETS if b >= max_nt)
-            if 0 < len(q13_ok) < len(chunk):
-                okset = set(q13_ok)
-                flush([chunk[k] for k in q13_ok])
-                flush([chunk[k] for k in range(len(chunk))
-                       if k not in okset])
-                return
-            with stagestats.stage("pack"):
-                q13 = fused_kernel.pack_structures_q13(triples, probe)
-            if q13 is not None:
-                *wire, offsets = q13
-                dispatch("q13", chunk, offsets, "counts",
-                         fused_kernel.fused_sasa_q13_banded, wire, w=w)
-                return
+            if q13:
+                # 6 B/slot q13 wire first; the packer checks each
+                # structure's extent (and the chunk's radius palette)
+                # itself.  Only when it declines does the raw extent test
+                # run: structures over 100 A split out onto the q16 wire,
+                # so one big structure does not drag a whole chunk onto
+                # 8 B/slot.
+                with stagestats.stage("pack"):
+                    packed = fused_kernel.pack_structures_q13(triples, probe)
+                if packed is not None:
+                    *wire, offsets = packed
+                    dispatch("q13", chunk, offsets, "counts",
+                             fused_kernel.fused_sasa_q13_banded, wire, w=w)
+                    return
+                with stagestats.stage("route"):
+                    stagestats.tally("q13_declined", len(chunk))
+                    fits = _q13_extent_fits(triples)
+                if 0 < len(fits) < len(chunk):
+                    okset = set(fits)
+                    flush([chunk[k] for k in fits])
+                    flush([chunk[k] for k in range(len(chunk))
+                           if k not in okset], q13=False)
+                    return
+            # Every extent over 100 A, or every one fits and the packer
+            # declined the palette: the chunk takes q16 whole.
             with stagestats.stage("pack"):
                 q16 = fused_kernel.pack_structures_q16(triples, probe)
             if q16 is not None:

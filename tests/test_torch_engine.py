@@ -180,6 +180,52 @@ def test_ineligible_structure_raises(case, routes):
     _assert_within_point_flips(got[1], want[1], structures[1][1])
 
 
+def _many_radii(n, seed):
+    """Radii at 0.004 A steps: more than 255 distinct r_eff values, which
+    the q13 wire's radius palette cannot hold, though the extent fits."""
+    coords, _, gids = _structure(n, seed)
+    return coords, (1.2 + 0.004 * np.arange(n)).astype(np.float32), gids
+
+
+@pytest.mark.parametrize("case, routes", [
+    pytest.param("eligible", {"q13": 1}, id="eligible"),
+    pytest.param("over_100_A", {"q16": 1}, id="over_100_A"),
+    pytest.param("palette", {"q16": 1}, id="palette"),
+])
+def test_q13_packer_decides_eligibility(case, routes, monkeypatch):
+    """The q13 packer sees each banded chunk whole and once.  The raw
+    extent test runs only after it declines; a chunk whose structures
+    are all over 100 A, or whose radii overflow the palette, then takes
+    the q16 wire whole."""
+    structures = {
+        "eligible": lambda: [_structure(300, 50), _structure(90, 51)],
+        "over_100_A": lambda: [_structure(300, 52, spread=120.0),
+                               _structure(90, 53, spread=150.0)],
+        "palette": lambda: [_many_radii(300, 54), _structure(90, 55)],
+    }[case]()
+    pack = port_engine.fused_kernel.pack_structures_q13
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(len(args[0]))
+        return pack(*args, **kwargs)
+
+    monkeypatch.setattr(port_engine.fused_kernel, "pack_structures_q13",
+                        counted)
+    if case == "eligible":
+        def refused(triples):
+            raise AssertionError("extent test on a chunk the packer took")
+
+        monkeypatch.setattr(port_engine, "_q13_extent_fits", refused)
+    engine = port_engine.BatchedSasaEngine(device="cpu")
+    got = engine.compute(structures)
+    assert calls == [len(structures)]
+    assert engine.routes.counts == dict(
+        port_engine.RouteCounts().counts, **routes
+    )
+    _assert_identical(got, _reference(structures))
+
+
 def test_host_cull_overflow_falls_back_to_list_path(monkeypatch):
     # A structure whose host j-lists overflow (the packer reports it as
     # failed) is re-run on the list path, as the reference re-runs it on

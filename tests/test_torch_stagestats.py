@@ -146,6 +146,30 @@ def test_span_lands_on_the_profiler_timeline(clean, monkeypatch, tmp_path):
     assert names == ["stage.probe"]
 
 
+def test_q13_declined_counts_the_declined_chunk(clean, monkeypatch):
+    """A chunk the q13 packer declines tallies its structures once: the
+    sub-chunk over 100 A goes to the q16 wire with no second attempt, and
+    the sub-chunk that fits is packed on q13.  A chunk it takes tallies
+    nothing."""
+    from rustsasa_tpu_torch.ops import engine
+
+    monkeypatch.setattr(stagestats, "enabled", True)
+
+    def structure(n, seed, spread):
+        rng = np.random.default_rng(seed)
+        coords = rng.uniform(0, spread, (n, 3)).astype(np.float32)
+        return coords, np.full(n, 1.7, np.float32), None
+
+    sasa = engine.BatchedSasaEngine(device="cpu")
+    sasa.compute([structure(200, 1, 25.0), structure(60, 2, 25.0)])
+    assert not stagestats.tallies.get("q13_declined")
+    sasa.compute([structure(200, 3, 120.0), structure(150, 4, 130.0),
+                  structure(60, 5, 25.0)])
+    assert stagestats.tallies["q13_declined"] == 3
+    assert sasa.routes.counts["q13"] == 2
+    assert sasa.routes.counts["q16"] == 1
+
+
 def _traced_pass(tmp, device):
     """compute_trajectory_sasa on 2drt, 4 jittered frames in blocks of 2,
     on `device` with stagestats enabled, under torch.profiler: the spans'
